@@ -4,30 +4,45 @@
     python3 chip_smoke.py                 # every phase (one card)
     python3 chip_smoke.py --kernels-only  # phases 1-3: build + kernel checks
     python3 chip_smoke.py --index-profile # phases 1-2, then stage 1 profiled
+    python3 chip_smoke.py --index-profile --profile-k 28   # the same at k=28
 
 Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the SHIMMER kernels (nvcc, sm_90a) and the native host library;
-  3. each of the four kernels against its plain PyTorch version on the
-     card, exactly, at the main path's shapes (B=64, L in 8192/32768/40960;
-     reduce_step at L=4096), with kernel and plain times (CUDA events,
-     median after warm-up);
-  4. build_index of 512 simulated reads and sketch_long_np of a 200 kb
-     genome slice: cuda equals cpu;
-  5. the main path: `pg-tpu-torch asm` (cli.main) on a simulated
+  3. each of the five kernels against its plain PyTorch version on the
+     card, exactly, at the main paths' shapes (B=64, L in 8192/32768/40960;
+     reduce_step at L=4096; compact_planes on two int64 planes and one
+     int32 plane at keep densities 0.98 and 2/(w+1)), with kernel and
+     plain times (CUDA events, median after warm-up);
+  4. build_index of 512 simulated reads (k=16), of 256 at k=28 with and
+     without the level-0 index (uncapped and capped), and of 64 at k=28,
+     w=8 (cap overflow, exact retry); sketch_long_np of a 200 kb genome
+     slice at k=16 and k=28: cuda equals cpu;
+  5. the draft path: `pg-tpu-torch asm` (cli.main, k=16) on a simulated
      E. coli-class set (4.6 Mb circular genome, 30x of 15 kb reads, 1%
      error, 40 kb wrap, seed 42), with stage walls, kernel launch counts
-     (each must be > 0), peak device memory, and a check of the draft:
-     the longest contig covers >= 0.9 of the genome and >= 0.7 of its
-     21-mers occur in the genome or its reverse complement.
-It then prints the kernels' JSON line and, last, the device JSON line.
+     (each of its four kernels must be > 0), peak device memory, and a
+     check of the draft: the longest contig covers >= 0.9 of the genome
+     and >= 0.7 of its 21-mers occur in the genome or its reverse
+     complement;
+  6. the wide consensus path: `pg-tpu-torch asm --shimmer-k 28
+     --with-L0-index --with-consensus` on the same set, with the stage
+     walls of stages 0-4, launch counts (compact_planes must be > 0),
+     peak device memory, and a check of the polished contigs: the longest
+     covers >= 0.9 of the genome, and >= 0.95 of its 21-mers, and more
+     than of the phase-5 draft's, occur in the genome.
+Each path's launch counts are zeroed just before it runs and read just
+after.  It then prints the kernels' JSON line and, last, the device JSON
+line.
 There is no CPU path: without a CUDA device it exits non-zero at once.
 
---index-profile measures stage 1 alone on the E. coli-class set instead
-of phases 3-5: build_index walls with the kernels and with their plain
-versions on the card, then one kernel-route build under torch.profiler,
-whose trace gives the device's busy time (the union of its kernel, copy
-and memset intervals) and the device time of each kernel.
+--index-profile measures stage 1 alone (at --profile-k, default 16) on
+the E. coli-class set instead of phases 3-6: build_index walls with the
+kernels and with their plain versions on the card (one warm-up each, then
+six of each in ABBA order; median, min and max), then one kernel-route
+build under torch.profiler, whose trace gives the device's busy time (the
+union of its kernel, copy and memset intervals) and the device time of
+each kernel.
 """
 
 from __future__ import annotations
@@ -52,8 +67,11 @@ REPLACES = {
     "move_plane": "peregrine_tpu/ops/compact_pallas.py:124",
     "emit_mask": "peregrine_tpu/ops/compact_pallas.py:351",
     "reduce_step": "peregrine_tpu/ops/compact_pallas.py:464",
+    "compact_planes": "peregrine_tpu/ops/compact_pallas.py:391",
 }
 K, W, R = 16, 80, 6
+K_WIDE = 28
+PROFILE_PAIRS = 6  # kernel/plain stage-1 builds compared by --index-profile
 GENOME, READ_LEN, COVERAGE, WRAP = 4_600_000, 15_000, 30.0, 40_000
 
 
@@ -88,8 +106,9 @@ def max_err(pairs) -> int:
     err = 0
     for a, b in pairs:
         check(a.shape == b.shape, f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
-        if a.numel():
-            err = max(err, int((a.long() - b.long()).abs().max()))
+        if a.numel() and bool((a != b).any()):
+            # int64 differences may wrap: any mismatch counts at least 1
+            err = max(err, 1, int((a.long() - b.long()).abs().max()))
     return err
 
 
@@ -154,6 +173,24 @@ def phase_kernels(results: dict) -> None:
         t[L] = (cuda_ms(lambda: kn.emit_mask(sH_p, sP_p, n, w=W, k=K)),
                 cuda_ms(lambda: kn.emit_mask_plain(sH_p, sP_p, n, W, K)))
 
+    for L in (8192, 32768, 40960):
+        for density in (0.98, 2 / (W + 1)):
+            keep = torch.from_numpy(rng.random((B, L)) < density).to(dev)
+            planes = tuple(torch.from_numpy(
+                rng.integers(-2**63, 2**63 - 1, (B, L), dtype=np.int64))
+                .to(dev) for _ in range(2))
+            planes += (torch.from_numpy(rng.integers(
+                0, 2**31, (B, L)).astype(np.int32)).to(dev),)
+            fills = (-1, -1, 0)
+            got = kn.compact_planes(keep, planes, fills)
+            want = kn.compact_planes_plain(keep, planes, fills)
+            e = max_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
+            st = stats["compact_planes"]
+            st["err"] = max(st["err"], e)
+            st["times"][(L, round(density, 4))] = (
+                cuda_ms(lambda: kn.compact_planes(keep, planes, fills)),
+                cuda_ms(lambda: kn.compact_planes_plain(keep, planes, fills)))
+
     Hr, Pr, nr = reduce_input
     got = kn.reduce_step(Hr, Pr, nr, r=R)
     want = kn.reduce_step_plain(Hr, Pr, nr, R)
@@ -165,11 +202,14 @@ def phase_kernels(results: dict) -> None:
 
     for name, st in stats.items():
         for L, (ms, pms) in st["times"].items():
-            say(f"kernel {name} B={B} L={L}: {ms:.4f} ms, plain "
+            shape = (f"L={L[0]} keep density {L[1]}" if isinstance(L, tuple)
+                     else f"L={L}")
+            say(f"kernel {name} B={B} {shape}: {ms:.4f} ms, plain "
                 f"{pms:.4f} ms, max_abs_err {st['err']} (tolerance 0)")
         check(st["err"] == 0, f"{name} disagrees with its plain version "
               f"(max_abs_err {st['err']})")
-        main_L = 4096 if name == "reduce_step" else 32768
+        main_L = {"reduce_step": 4096,
+                  "compact_planes": (32768, 0.98)}.get(name, 32768)
         results[name] = {"max_abs_err": st["err"],
                          "ms": st["times"][main_L][0],
                          "plain_ms": st["times"][main_L][1]}
@@ -184,25 +224,36 @@ def phase_index(reads, genome) -> None:
     from peregrine_tpu_torch.ops.sketch import sketch_long_np
 
     torch.set_num_threads(os.cpu_count() or 1)
-    db = SeqDB.from_reads(reads[:512])
-    cfg = AsmConfig()
-    t0 = time.time()
-    on_card = build_index(db, cfg, "cuda")
-    t1 = time.time()
-    on_host = build_index(db, cfg, "cpu")
-    t2 = time.time()
-    for f in ("x", "y", "mc_hash", "mc_count"):
-        check(np.array_equal(getattr(on_card, f), getattr(on_host, f)),
-              f"build_index cuda != cpu on ShimmerIndex.{f}")
-    say(f"index check: build_index of 512 reads, {len(on_card.x)} SHIMMERs, "
-        f"cuda == cpu ({t1 - t0:.2f} s on the card, {t2 - t1:.2f} s cpu)")
+    # k=28: uncapped with the level-0 index, capped (the cap/out_cap
+    # slicing), and capped at w=8, whose density 2/9 overflows the cap of
+    # pad/8 so that every batch takes _retry_exact
+    for n, k, w, keep_l0 in ((512, K, W, False), (256, K_WIDE, W, True),
+                             (256, K_WIDE, W, False), (64, K_WIDE, 8, False)):
+        db = SeqDB.from_reads(reads[:n])
+        cfg = AsmConfig(k=k, w=w)
+        t0 = time.time()
+        on_card = build_index(db, cfg, "cuda", keep_l0=keep_l0)
+        t1 = time.time()
+        on_host = build_index(db, cfg, "cpu", keep_l0=keep_l0)
+        t2 = time.time()
+        pairs = zip(on_card, on_host) if keep_l0 else [(on_card, on_host)]
+        for level, (a, b) in zip(("L2", "L0"), pairs):
+            for f in ("x", "y", "mc_hash", "mc_count"):
+                check(np.array_equal(getattr(a, f), getattr(b, f)),
+                      f"build_index k={k} w={w} cuda != cpu on {level} .{f}")
+        n_rec = len((on_card[0] if keep_l0 else on_card).x)
+        say(f"index check: build_index k={k} w={w} of {n} reads"
+            f"{' with the level-0 index' if keep_l0 else ''}, {n_rec} "
+            f"SHIMMERs, cuda == cpu ({t1 - t0:.2f} s on the card, "
+            f"{t2 - t1:.2f} s cpu)")
     codes = seq_to_codes(genome[:200_000])
-    xg, yg = sketch_long_np(codes, 3, W, K, "cuda")
-    xc, yc = sketch_long_np(codes, 3, W, K, "cpu")
-    check(np.array_equal(xg, xc) and np.array_equal(yg, yc),
-          "sketch_long_np cuda != cpu")
-    say(f"index check: sketch_long_np of a 200 kb slice, {len(xg)} "
-        "minimizers, cuda == cpu")
+    for k in (K, K_WIDE):
+        xg, yg = sketch_long_np(codes, 3, W, k, "cuda")
+        xc, yc = sketch_long_np(codes, 3, W, k, "cpu")
+        check(np.array_equal(xg, xc) and np.array_equal(yg, yc),
+              f"sketch_long_np k={k} cuda != cpu")
+        say(f"index check: sketch_long_np k={k} of a 200 kb slice, "
+            f"{len(xg)} minimizers, cuda == cpu")
 
 
 def smi(fields: str) -> str:
@@ -221,6 +272,7 @@ def plain_kernels():
         "move_plane": kn.move_plane_plain,
         "emit_mask": lambda h, p, n, *, w, k: kn.emit_mask_plain(h, p, n, w, k),
         "reduce_step": lambda h, p, n, *, r: kn.reduce_step_plain(h, p, n, r),
+        "compact_planes": kn.compact_planes_plain,
     }
     saved = [(m, name, getattr(m, name)) for m in (index, reduce, sketch)
              for name in plain if hasattr(m, name)]
@@ -244,7 +296,7 @@ def busy_ms(events) -> float:
     return total / 1000
 
 
-def phase_index_profile(reads) -> None:
+def phase_index_profile(reads, k: int) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -256,7 +308,8 @@ def phase_index_profile(reads) -> None:
 
     torch.set_num_threads(os.cpu_count() or 1)
     db = SeqDB.from_reads(reads)
-    cfg = AsmConfig()
+    cfg = AsmConfig(k=k)
+    say(f"index profile: k={k}")
     t0 = time.perf_counter()
     packed = upload_seqdb(db.data, "cuda")
     torch.cuda.synchronize()
@@ -269,16 +322,24 @@ def phase_index_profile(reads) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t, idx
 
+    # one warm-up build per route, then PROFILE_PAIRS pairs in ABBA order
     walls = {"kernel": [], "plain": []}
     records = set()
-    for route in ("kernel", "plain", "plain", "kernel"):
+    order = ["kernel", "plain"] + ["kernel", "plain", "plain", "kernel"] * (
+        PROFILE_PAIRS // 2)
+    for i, route in enumerate(order):
         with plain_kernels() if route == "plain" else contextlib.nullcontext():
             wall, idx = run()
-        walls[route].append(wall)
+        if i >= 2:
+            walls[route].append(wall)
         records.add(len(idx.x))
-        say(f"index profile: build_index [{route}] {wall:.4f} s, "
-            f"{len(idx.x)} SHIMMERs | {smi('name,power.limit,clocks.sm')}")
+        say(f"index profile: build_index [{route}{'' if i >= 2 else ', warm-up'}]"
+            f" {wall:.4f} s, {len(idx.x)} SHIMMERs | "
+            f"{smi('name,power.limit,clocks.sm')}")
     check(len(records) == 1, f"routes disagree on the record count {records}")
+    for route, ws in walls.items():
+        say(f"index profile: build_index [{route}] median {np.median(ws):.4f} s,"
+            f" min {min(ws):.4f} s, max {max(ws):.4f} s over {len(ws)} runs")
 
     kn.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
@@ -338,18 +399,23 @@ def kmers21(seq: bytes) -> np.ndarray:
     return km[~bad]
 
 
-def phase_main_path(reads, genome, wd: str, results: dict) -> None:
+def agreement(seq: bytes, genome: bytes) -> float:
+    """Share of seq's 21-mers that occur in the circular genome or its
+    reverse complement."""
+    from peregrine_tpu_torch.io.seqdb import revcomp
+    g = genome + genome[:READ_LEN]  # k-mers across the circular origin
+    ref = np.unique(np.concatenate([kmers21(g), kmers21(revcomp(g))]))
+    km = kmers21(seq.upper())
+    return float(np.isin(km, ref).mean()) if len(km) else 0.0
+
+
+def run_asm(lst: str, out: str, flags: list, label: str, stages: tuple):
+    """`pg-tpu-torch asm` through cli.main with every launch count zeroed
+    just before and read just after; returns (walls, launches, total)."""
     import torch
 
     from peregrine_tpu_torch import cli
-    from peregrine_tpu_torch.io import formats
-    from peregrine_tpu_torch.io.seqdb import read_fastx, revcomp
     from peregrine_tpu_torch.ops import kernels as kn
-    from peregrine_tpu_torch.simdata import write_reads
-
-    os.makedirs(wd, exist_ok=True)
-    lst = os.path.join(wd, "reads.lst")
-    write_reads(reads, os.path.join(wd, "reads.fa"), lst)
 
     walls = {}
 
@@ -358,49 +424,103 @@ def phase_main_path(reads, genome, wd: str, results: dict) -> None:
             if hasattr(record, "stage_wall"):
                 walls[record.stage_wall[0]] = record.stage_wall[1]
 
-    logging.getLogger("peregrine_tpu_torch").addHandler(Walls())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kn.reset_launches()
-    t0 = time.time()
-    rc = cli.main(["asm", lst, "--output", os.path.join(wd, "asm")])
-    torch.cuda.synchronize()
-    total = time.time() - t0
-    launches = {fn.__name__: fn.launches for fn in kn.KERNELS}
-    check(rc == 0, f"asm returned {rc}")
-    say("main path: stage walls " + ", ".join(
-        f"{s} {walls[s]:.2f} s" for s in ("seqdb", "index", "overlap", "layout")
-        if s in walls) + f"; asm total {total:.2f} s")
-    say(f"main path: kernel launches {json.dumps(launches)}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
-        results[name]["launches"] = n
+    handler = Walls()
+    logging.getLogger("peregrine_tpu_torch").addHandler(handler)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kn.reset_launches()
+        t0 = time.time()
+        rc = cli.main(["asm", lst, "--output", out] + flags)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        launches = {fn.__name__: fn.launches for fn in kn.KERNELS}
+    finally:
+        logging.getLogger("peregrine_tpu_torch").removeHandler(handler)
+    check(rc == 0, f"{label}: asm returned {rc}")
+    say(f"{label}: `asm {' '.join(flags)}` stage walls " + ", ".join(
+        f"{s} {walls[s]:.2f} s" for s in stages if s in walls)
+        + f"; asm total {total:.2f} s")
+    say(f"{label}: kernel launches {json.dumps(launches)}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / (1 << 30):.3f} GiB")
+    return walls, launches, total
+
+
+def phase_draft(lst: str, genome, wd: str, results: dict) -> float:
+    """Phase 5, the k=16 draft; returns its longest contig's agreement."""
+    from peregrine_tpu_torch.io import formats
+    from peregrine_tpu_torch.io.seqdb import read_fastx
+
     out = os.path.join(wd, "asm")
+    _, launches, _ = run_asm(lst, out, [], "draft path",
+                             ("seqdb", "index", "overlap", "layout"))
+    for name in ("build_stream", "move_plane", "emit_mask", "reduce_step"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the draft path")
+        results[name]["launches"] = launches[name]
     x, _ = formats.read_mmlist(os.path.join(out, "1-index",
                                             "shmr-L2-01-of-01.dat"))
     with open(os.path.join(out, "2-ovlp", "preads.ovl"), "rb") as f:
         n_ovl = sum(1 for ln in f if not ln.startswith(b"-"))
     ctgs = [s for _, s in read_fastx(os.path.join(out, "3-asm", "p_ctg.fa"))]
-    peak = torch.cuda.max_memory_allocated() / (1 << 30)
-    say(f"main path: {len(x)} SHIMMERs, {n_ovl} overlap rows, {len(ctgs)} "
-        f"contigs, peak device memory {peak:.3f} GiB")
+    say(f"draft path: {len(x)} SHIMMERs, {n_ovl} overlap rows, {len(ctgs)} "
+        "contigs")
     check(len(ctgs) > 0, "no contigs")
     longest = max(ctgs, key=len)
     cover = len(longest) / len(genome)
-    g = genome + genome[:READ_LEN]  # k-mers across the circular origin
-    ref = np.unique(np.concatenate([kmers21(g), kmers21(revcomp(g))]))
-    km = kmers21(longest.upper())
-    frac = float(np.isin(km, ref).mean()) if len(km) else 0.0
-    say(f"main path: longest contig {len(longest)} b = {cover:.4f} of the "
-        f"genome; {frac:.4f} of its 21-mers are in the genome")
+    frac = agreement(longest, genome)
+    say(f"draft path: longest contig {len(longest)} b = {cover:.4f} of the "
+        f"genome; {frac:.6f} of its 21-mers are in the genome")
     check(cover >= 0.9, f"longest contig covers {cover:.4f} < 0.9 of the genome")
     check(frac >= 0.7, f"21-mer agreement {frac:.4f} < 0.7")
+    return frac
+
+
+def phase_consensus(lst: str, genome, wd: str, results: dict,
+                    draft_frac: float) -> None:
+    """Phase 6, k=28 with the level-0 index and consensus."""
+    from peregrine_tpu_torch.io import formats
+    from peregrine_tpu_torch.io.seqdb import read_fastx
+
+    out = os.path.join(wd, "asm-k28-cns")
+    flags = ["--shimmer-k", str(K_WIDE), "--with-L0-index",
+             "--with-consensus"]
+    _, launches, _ = run_asm(
+        lst, out, flags, "consensus path",
+        ("seqdb", "index", "overlap", "layout", "ctg_index", "mapping",
+         "consensus"))
+    check(launches["compact_planes"] > 0,
+          "kernel compact_planes was not launched by the consensus path")
+    results["compact_planes"]["launches"] = launches["compact_planes"]
+    n = {lv: len(formats.read_mmlist(os.path.join(
+        out, "1-index", f"shmr-L{lv}-01-of-01.dat"))[0]) for lv in (0, 2)}
+    with open(os.path.join(out, "4-cns", "read_map.txt"), "rb") as f:
+        n_map = sum(1 for _ in f)
+    draft = [s for _, s in read_fastx(os.path.join(out, "3-asm", "p_ctg.fa"))]
+    ctgs = [s for _, s in read_fastx(os.path.join(out, "4-cns",
+                                                  "p_ctg_cns.fa"))]
+    say(f"consensus path: {n[0]} level-0 minimizers, {n[2]} SHIMMERs, "
+        f"{len(draft)} draft contigs, {n_map} mapping rows, {len(ctgs)} "
+        "polished contigs")
+    check(len(ctgs) > 0, "no polished contigs")
+    longest = max(ctgs, key=len)
+    cover = len(longest) / len(genome)
+    frac = agreement(longest, genome)
+    say(f"consensus path: longest polished contig {len(longest)} b = "
+        f"{cover:.4f} of the genome; {frac:.6f} of its 21-mers are in the "
+        f"genome (k=16 draft: {draft_frac:.6f})")
+    check(cover >= 0.9, f"longest polished contig covers {cover:.4f} < 0.9")
+    check(frac >= 0.95, f"polished 21-mer agreement {frac:.4f} < 0.95")
+    check(frac > draft_frac, f"polished 21-mer agreement {frac:.4f} is not "
+          f"above the draft's {draft_frac:.4f}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phases 1-3)")
+    ap.add_argument("--profile-k", type=int, default=K,
+                    help="k of the --index-profile run (default %(default)s)")
     ap.add_argument("--index-profile", action="store_true",
                     help="phases 1-2, then stage 1 alone: kernel and plain "
                     "walls and a profiler trace (no other phase)")
@@ -446,17 +566,22 @@ def main(argv=None) -> int:
     say(f"simulated {len(reads)} reads, "
         f"{sum(len(s) for _, s in reads)} bases ({time.time() - t0:.1f} s)")
     if args.index_profile:
-        phase_index_profile(reads)
+        phase_index_profile(reads, args.profile_k)
         return 0
 
     # phase 4: the index on the card equals the index on the host
     phase_index(reads, genome)
 
-    # phase 5: the main path
+    # phases 5 and 6: the draft path and the wide consensus path
+    from peregrine_tpu_torch.simdata import write_reads
     wd = os.path.join(ROOT, "wd-chip-smoke")
     shutil.rmtree(wd, ignore_errors=True)
     try:
-        phase_main_path(reads, genome, wd, results)
+        os.makedirs(wd)
+        lst = os.path.join(wd, "reads.lst")
+        write_reads(reads, os.path.join(wd, "reads.fa"), lst)
+        draft_frac = phase_draft(lst, genome, wd, results)
+        phase_consensus(lst, genome, wd, results, draft_frac)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
 

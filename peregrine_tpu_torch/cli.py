@@ -1,13 +1,13 @@
-"""Command-line interface of the PyTorch port (the `asm` draft path).
+"""Command-line interface of the PyTorch port (the `asm` verb).
 
-    pg-tpu-torch asm reads.lst --output ./wd
-    pg-tpu-torch asm reads.lst -k 16 -w 80 -r 6 -l 2 --min_len 4000 --device cuda
+    pg-tpu-torch asm reads.lst --output ./wd --with-consensus
+    pg-tpu-torch asm reads.lst --shimmer-k 28 --with-L0-index --with-consensus
 
 The flags and defaults are those of `pg-tpu asm`, plus --device (default
-cuda; there is no quiet switch to the CPU: pass --device cpu to run
-stage 1 on the host).  Flags whose paths are not yet ported exit
-non-zero with a message naming the ROADMAP item; the other verbs of
-pg-tpu come later.
+cuda; there is no quiet switch to the CPU: pass --device cpu to build the
+SHIMMER indexes of stages 1 and 4 on the host).  Flags whose paths are
+not yet ported exit non-zero with a message naming the ROADMAP item; the
+other verbs of pg-tpu come later.
 """
 
 from __future__ import annotations
@@ -19,8 +19,6 @@ import sys
 
 # flag dest -> (flag, ROADMAP item); each exits non-zero when given
 _NOT_PORTED = {
-    "with_consensus": ("--with-consensus", "queue 1, stage 4"),
-    "with_l0": ("--with-L0-index", "queue 1, compact_planes + L0 index"),
     "device_aligner": ("--device-aligner", "queue 1, flag paths"),
     "hybrid_overlap": ("--hybrid-overlap", "queue 1, flag paths"),
     "shard_overlap": ("--shard-overlap", "queue 1, flag paths"),
@@ -39,14 +37,13 @@ def main(argv=None) -> int:
         description="OLC assembler for accurate long reads (PyTorch + CUDA)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    asm = sub.add_parser("asm", help="assemble reads into draft contigs")
+    asm = sub.add_parser("asm", help="assemble reads into contigs")
     asm.add_argument("reads_lst", help="file listing FASTA/FASTQ(.gz) read files")
     asm.add_argument("--output", default="./wd", help="output directory")
     asm.add_argument("--device", default="cuda",
-                     help="torch device for the SHIMMER index (cuda or cpu)")
+                     help="torch device for the SHIMMER indexes (cuda or cpu)")
     asm.add_argument("--with-consensus", action="store_true",
-                     help="polish draft contigs with read consensus "
-                          "(not yet ported)")
+                     help="polish draft contigs with read consensus")
     # defaults come from AsmConfig, the single source of truth
     asm.add_argument("--shimmer-k", type=int, default=DEFAULT.k, dest="k")
     asm.add_argument("--shimmer-w", type=int, default=DEFAULT.w, dest="w")
@@ -66,12 +63,11 @@ def main(argv=None) -> int:
     asm.add_argument("--with-alt", action="store_true",
                      help="emit alternate (bubble) contigs a_ctg.fa")
     asm.add_argument("--with-L0-index", action="store_true", dest="with_l0",
-                     help="also write the level-0 SHIMMER index "
-                          "(not yet ported)")
+                     help="also write the level-0 SHIMMER index")
     asm.add_argument("--n_chunks", type=int, default=None,
                      help="overlap hash chunks (default: auto)")
     asm.add_argument("--n_workers", type=int, default=None,
-                     help="overlap worker threads (default: auto)")
+                     help="overlap/consensus worker threads (default: auto)")
     for flag in ("--device-aligner", "--hybrid-overlap", "--shard-overlap",
                  "--device-pairs", "--mesh", "--multihost"):
         asm.add_argument(flag, action="store_true", help="not yet ported")
@@ -97,6 +93,8 @@ def main(argv=None) -> int:
         if getattr(args, dest):
             p.error(f"{flag} is not yet ported to peregrine_tpu_torch "
                     f"(ROADMAP: {item})")
+    if not 1 <= args.k <= 28:
+        p.error(f"--shimmer-k {args.k} outside 1..28 (56-bit hash space)")
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(message)s")
@@ -118,9 +116,12 @@ def main(argv=None) -> int:
                        with_alt=args.with_alt,
                        on_config_change=args.on_config_change)
     asm_obj.build_db(reads_list=args.reads_lst)
-    asm_obj.build_shimmer_index()
+    asm_obj.build_shimmer_index(keep_l0=args.with_l0)
     asm_obj.build_overlaps(args.n_chunks, args.n_workers)
-    print(asm_obj.build_contigs())
+    fa = asm_obj.build_contigs()
+    if args.with_consensus:
+        fa = asm_obj.build_consensus(args.n_workers)
+    print(fa)
     return 0
 
 

@@ -1,25 +1,30 @@
-// SHIMMER index kernels for Hopper (sm_90a): the CUDA C++ port of the four
-// Pallas kernels in peregrine_tpu/ops/compact_pallas.py that the default
-// index path runs.
+// SHIMMER index kernels for Hopper (sm_90a): the CUDA C++ port of the five
+// Pallas kernels in peregrine_tpu/ops/compact_pallas.py.
 //
-//   pg_build_stream  <- build_stream  (compact_pallas.py:229, call :243)
-//   pg_move_plane    <- move_plane    (compact_pallas.py:112, call :124)
-//   pg_emit_mask     <- emit_mask     (compact_pallas.py:331, call :351)
-//   pg_reduce_step   <- reduce_step   (compact_pallas.py:451, call :464)
+//   pg_build_stream   <- build_stream   (compact_pallas.py:230, call :243)
+//   pg_move_plane     <- move_plane     (compact_pallas.py:113, call :124)
+//   pg_emit_mask      <- emit_mask      (compact_pallas.py:333, call :351)
+//   pg_reduce_step    <- reduce_step    (compact_pallas.py:452, call :464)
+//   pg_compact_planes <- compact_planes (compact_pallas.py:365, call :391)
 //
-// Planes are [B, L] row-major uint32 (the wrappers in ops/kernels.py hand
-// over int32 tensors holding the same bits).  Every kernel except
-// move_plane runs one thread block per row and walks the row in tiles of
-// blockDim columns, carrying each running prefix (count, max) from tile to
-// tile, so any L works.  Instead of the TPU kernels' shift distances r,
-// the producers write a destination column (the rank among kept entries,
-// -1 where dropped) and move_plane scatters by it.
+// The first four run the packed k <= 16 path on [B, L] row-major uint32
+// planes (the wrappers in ops/kernels.py hand over int32 tensors holding
+// the same bits); compact_planes serves the wide k > 16 sketch and the
+// general reduction on int64 records.  Every kernel except move_plane
+// runs one thread block per row and walks the row in tiles of blockDim
+// columns, carrying each running prefix (count, max) from tile to tile,
+// so any L works.  Instead of the TPU kernels' shift distances r, the
+// producers write a destination column (the rank among kept entries, -1
+// where dropped) and move_plane scatters by it.
 //
 // What bounds them: each kernel reads and writes about three to four
 // B x L x 4-byte planes once, so device-memory bytes bound them; the
 // windowed loops (k, w, r taps per column) re-read neighbours that a
-// block fetched moments before, which the L1 cache serves.  These are the
-// simple-first versions: 64 rows give 64 blocks on 132 SMs, and
+// block fetched moments before, which the L1 cache serves.  compact_planes
+// reads the 1-byte mask and each plane once and writes each plane once
+// (21 bytes in and 20 out per column for the wide sketch's x, y, l).
+// These are the simple-first versions: 64 rows give 64 blocks on 132 SMs
+// (one block for the single long row of a contig's reduction), and
 // move_plane is a separate pass over memory (ROADMAP lists fusing it
 // into its producers and filling the SMs as the first speed work).
 //
@@ -318,6 +323,60 @@ reduce_step_kernel(const uint32_t* __restrict__ H,
   if (threadIdx.x == 0) count[blockIdx.x] = carry;
 }
 
+// Up to kMaxPlanes planes of 4- or 8-byte elements compacted by one mask;
+// bytes[p] == 0 marks an absent plane.
+constexpr int kMaxPlanes = 3;
+struct Planes {
+  const void* in[kMaxPlanes];
+  void* out[kMaxPlanes];
+  long long fill[kMaxPlanes];
+  int bytes[kMaxPlanes];
+};
+
+__device__ __forceinline__ void put(const Planes& pl, int p, size_t dst,
+                                    size_t src, bool from_in) {
+  if (pl.bytes[p] == 8) {
+    static_cast<uint64_t*>(pl.out[p])[dst] =
+        from_in ? static_cast<const uint64_t*>(pl.in[p])[src]
+                : (uint64_t)pl.fill[p];
+  } else if (pl.bytes[p] == 4) {
+    static_cast<uint32_t*>(pl.out[p])[dst] =
+        from_in ? static_cast<const uint32_t*>(pl.in[p])[src]
+                : (uint32_t)pl.fill[p];
+  }
+}
+
+// Stable compaction of every plane of a row by one keep mask: the kept
+// entries go to the row front in their order, every column at or past the
+// row's count takes the plane's fill (the wide sketch reads past the count:
+// its sliding minimum runs over whole rows), and the count is exact.  All
+// planes move in one launch; the TPU kernel ran one call per u32 half of
+// each plane because its VMEM held one [8, L] working set at a time.
+__global__ void __launch_bounds__(kThreads)
+compact_planes_kernel(const uint8_t* __restrict__ keep, Planes pl,
+                      int32_t* __restrict__ count, int L) {
+  __shared__ int scratch[kWarps];
+  const size_t base = (size_t)blockIdx.x * L;
+  int carry = 0;
+  for (int t0 = 0; t0 < L; t0 += kThreads) {
+    const int t = t0 + threadIdx.x;
+    const bool kept = t < L && keep[base + t] != 0;
+    int tot;
+    const int s = block_scan(kept ? 1 : 0, 0, Sum(), scratch, &tot);
+    if (kept) {
+#pragma unroll
+      for (int p = 0; p < kMaxPlanes; ++p)
+        put(pl, p, base + carry + s - 1, base + t, true);
+    }
+    carry += tot;
+  }
+  for (int t = carry + threadIdx.x; t < L; t += kThreads) {
+#pragma unroll
+    for (int p = 0; p < kMaxPlanes; ++p) put(pl, p, base + t, 0, false);
+  }
+  if (threadIdx.x == 0) count[blockIdx.x] = carry;
+}
+
 }  // namespace
 
 extern "C" {
@@ -356,6 +415,18 @@ int pg_reduce_step(const void* H, const void* P, const void* n_in, void* Ho,
   reduce_step_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)H, (const uint32_t*)P, (const int32_t*)n_in,
       (uint32_t*)Ho, (uint32_t*)Po, (int32_t*)dest, (int32_t*)count, L, r);
+  return (int)cudaGetLastError();
+}
+
+int pg_compact_planes(const void* keep, const void* in0, const void* in1,
+                      const void* in2, void* out0, void* out1, void* out2,
+                      void* count, long long fill0, long long fill1,
+                      long long fill2, int bytes0, int bytes1, int bytes2,
+                      int B, int L, void* stream) {
+  const Planes pl = {{in0, in1, in2}, {out0, out1, out2},
+                     {fill0, fill1, fill2}, {bytes0, bytes1, bytes2}};
+  compact_planes_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)keep, pl, (int32_t*)count, L);
   return (int)cudaGetLastError();
 }
 

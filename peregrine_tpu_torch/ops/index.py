@@ -2,15 +2,17 @@
 
 The port of peregrine_tpu/ops/index.py (see its docstring).  Reads are
 bucketed by padded length; per batch the code windows are gathered from
-the device-resident seqdb, sketched and reduced on the packed (H, P)
-planes by the four kernels of ops.kernels, assembled into records, and
-the valid prefix of each row drained to the host; records concatenate in
-rid order.  Sequences longer than sketch_pad_len take the segmented long
-route (sketch_long_np + reduce_flat_np).
+the device-resident seqdb, sketched and reduced, and the valid prefix of
+each row drained to the host; records concatenate in rid order.  For
+k <= 16 a batch runs on the packed (H, P) planes (the first four kernels
+of ops.kernels) and records are assembled at the end; for k > 16 it runs
+the wide sketch and reduce_impl on int64 records (compact_planes).
+Sequences longer than sketch_pad_len take the segmented long route
+(sketch_long_np + reduce_flat_np).  keep_l0 (--with-L0-index) also
+returns the level-0 index.
 
 Not ported: index_step_db_meta/_scan (one-dispatch batching for a
-remote device link), build_index_segmented and its worker process, and
-keep_l0 (--with-L0-index).
+remote device link), build_index_segmented and its worker process.
 """
 
 from __future__ import annotations
@@ -26,40 +28,55 @@ from ..io import formats
 from ..io.seqdb import SeqDB
 from .dbgather import PackedSeqDB, gather_codes, upload_seqdb
 from .kernels import move_plane, reduce_step
-from .reduce import reduce_flat_np
-from .sketch import assemble_records, sketch_long_np, sketch_planes
+from .reduce import reduce_flat_np, reduce_impl
+from .sketch import (assemble_records, sketch_long_np, sketch_planes,
+                     sketch_wide)
+
+
+def _capped(a: torch.Tensor, b: torch.Tensor, cap: int):
+    """The first `cap` columns of two planes (all of them for cap 0)."""
+    if cap and cap < a.shape[1]:
+        return a[:, :cap].contiguous(), b[:, :cap].contiguous()
+    return a, b
 
 
 def index_step(codes: torch.Tensor, lengths: torch.Tensor, rids: torch.Tensor,
-               *, w: int, k: int, r: int, levels: int, cap: int = 0):
+               *, w: int, k: int, r: int, levels: int, cap: int = 0,
+               keep_l0: bool = False):
     """Sketch -> L1 -> ... -> L_levels for one padded batch.
 
     cap > 0 truncates the minimizer axis after sketching (the expected
     density is 2/(w+1), so cap ~ L/8 is generous); the exact sketch
     count c0 is returned so callers detect an overflow and re-run the
     batch with cap=0.  With a cap the final level is sliced to out_cap
-    columns as well.  Returns (x, y, count) of the final level + c0.
+    columns as well.  Returns (x, y, count) of the final level + c0, and
+    with keep_l0 also the uncapped level-0 records (x0, y0), whose counts
+    are c0.
     """
-    if k > 16:
-        raise ValueError(f"index_step: k={k} > 16 needs the wide sketch, "
-                         "which is not yet ported")
-    H, P, c0 = sketch_planes(codes, lengths, w=w, k=k)
-    if cap and cap < H.shape[1]:
-        H, P = H[:, :cap].contiguous(), P[:, :cap].contiguous()
-    c = torch.clamp(c0, max=H.shape[1])
-    for _ in range(levels):
-        H2, P2, dest, c = reduce_step(H, P, c, r=r)
-        H = move_plane(dest, H2)
-        P = move_plane(dest, P2)
+    out_cap = 0
     if levels > 0 and cap:
         # each level shrinks the list ~(r/2)x in practice; slice
         # conservatively (c stays exact for the overflow check)
-        shrink = max(1, int((r / 2) ** levels))
-        out_cap = max(64, cap // shrink)
-        if out_cap < H.shape[1]:
-            H, P = H[:, :out_cap], P[:, :out_cap]
-    x, y = assemble_records(H, P, c, rids, k)
-    return x, y, c, c0
+        out_cap = max(64, cap // max(1, int((r / 2) ** levels)))
+    if k <= 16:
+        H, P, c0 = sketch_planes(codes, lengths, w=w, k=k)
+        l0 = assemble_records(H, P, c0, rids, k) if keep_l0 else ()
+        H, P = _capped(H, P, cap)
+        c = torch.clamp(c0, max=H.shape[1])
+        for _ in range(levels):
+            H2, P2, dest, c = reduce_step(H, P, c, r=r)
+            H = move_plane(dest, H2)
+            P = move_plane(dest, P2)
+        x, y = assemble_records(*_capped(H, P, out_cap), c, rids, k)
+    else:
+        x, y, c0 = sketch_wide(codes, lengths, rids, w=w, k=k)
+        l0 = (x, y) if keep_l0 else ()
+        x, y = _capped(x, y, cap)
+        c = torch.clamp(c0, max=x.shape[1])
+        for _ in range(levels):
+            x, y, c = reduce_impl(x, y, c, r=r)
+        x, y = _capped(x, y, out_cap)
+    return (x, y, c, c0) + tuple(l0)
 
 
 @dataclass
@@ -123,17 +140,42 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().view(np.uint64)
 
 
+def _drain(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor,
+           part: np.ndarray, xs: dict, ys: dict) -> None:
+    """Per-read record slices [:c] of a batch's rows, fetched as one
+    valid prefix per row in (row, slot) order."""
+    valid = torch.arange(x.shape[1], device=x.device)[None, :] < c[:, None]
+    xf, yf = _to_host(x[valid]), _to_host(y[valid])
+    offs = np.zeros(len(part) + 1, np.int64)
+    np.cumsum(c.cpu().numpy(), out=offs[1:])
+    for b, rid in enumerate(part):
+        xs[rid] = xf[offs[b]:offs[b + 1]]
+        ys[rid] = yf[offs[b]:offs[b + 1]]
+
+
+def _index_of(xs: dict, ys: dict) -> ShimmerIndex:
+    order = sorted(xs)
+    x = np.concatenate([xs[r] for r in order]) if order else np.zeros(0, np.uint64)
+    y = np.concatenate([ys[r] for r in order]) if order else np.zeros(0, np.uint64)
+    mh, mc = _merge_counts(x >> np.uint64(8), np.ones(len(x), np.uint32))
+    return ShimmerIndex(x, y, mh, mc)
+
+
 def build_index(db: SeqDB, cfg: AsmConfig, device,
-                packed: PackedSeqDB | None = None) -> ShimmerIndex:
-    """Build the final-level SHIMMER index of a SeqDB on
-    `device` (sketch -> r-reduce x levels, counts of the final level;
+                packed: PackedSeqDB | None = None, keep_l0: bool = False):
+    """Build the final-level SHIMMER index of a SeqDB on `device` (sketch
+    -> r-reduce x levels, counts of the final level;
     src/shmr_index.c:155-233).  `packed` is the seqdb already uploaded to
-    `device`; without it the seqdb is uploaded here."""
+    `device`; without it the seqdb is uploaded here.  With keep_l0 returns
+    (index, level-0 index), as the JAX package does."""
     device = torch.device(device)
     rids_all = np.arange(len(db))
     lengths = db.lengths.astype(np.int64)
     xs: dict[int, np.ndarray] = {}
     ys: dict[int, np.ndarray] = {}
+    l0xs: dict[int, np.ndarray] = {}
+    l0ys: dict[int, np.ndarray] = {}
+    step = dict(w=cfg.w, k=cfg.k, r=cfg.r, levels=cfg.levels)
 
     def _retry_exact(part, pad):
         """Slow path for (rare) cap overflows: recompute the batch with no
@@ -142,12 +184,8 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
         xl, yl, cl, _ = index_step(
             torch.from_numpy(codes).to(device),
             torch.from_numpy(lens.astype(np.int32)).to(device),
-            torch.from_numpy(part.astype(np.int64)).to(device),
-            w=cfg.w, k=cfg.k, r=cfg.r, levels=cfg.levels, cap=0)
-        xl, yl, cl = _to_host(xl), _to_host(yl), cl.cpu().numpy()
-        for b, rid in enumerate(part):
-            xs[rid] = xl[b, :cl[b]].copy()
-            ys[rid] = yl[b, :cl[b]].copy()
+            torch.from_numpy(part.astype(np.int64)).to(device), cap=0, **step)
+        _drain(xl, yl, cl, part, xs, ys)
 
     # long sequences (contigs/references) take the fixed-shape segmented
     # route: pad classes above sketch_pad_len are not index batch shapes
@@ -155,6 +193,8 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
     for rid in rids_all[long_sel]:
         lx, ly = sketch_long_np(db.codes(rid), int(rid), cfg.w, cfg.k, device,
                                 seg=cfg.sketch_pad_len)
+        if keep_l0:
+            l0xs[rid], l0ys[rid] = lx, ly
         for _ in range(cfg.levels):
             lx, ly = reduce_flat_np(lx, ly, cfg.r, device)
         xs[rid], ys[rid] = lx, ly
@@ -171,33 +211,24 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
         batch_rids = rids_all[sel]
         bsz = max(1, min(cfg.sketch_batch,
                          (cfg.sketch_batch * cfg.sketch_pad_len) // pad))
-        cap = max(256, pad // 8)
+        # the level-0 records leave uncapped, as in the JAX package
+        cap = 0 if keep_l0 else max(256, pad // 8)
         for i in range(0, len(batch_rids), bsz):
             part = batch_rids[i:i + bsz]
             offs = torch.from_numpy(db.offsets[part].astype(np.int64))
             lens = torch.from_numpy(db.lengths[part].astype(np.int32))
             codes = gather_codes(packed, offs, lens, torch.zeros_like(lens),
                                  pad, fill=4)
-            xl, yl, cl, c0 = index_step(
+            xl, yl, cl, c0, *l0 = index_step(
                 codes, lens.to(device),
                 torch.from_numpy(part.astype(np.int64)).to(device),
-                w=cfg.w, k=cfg.k, r=cfg.r, levels=cfg.levels, cap=cap)
-            C = xl.shape[1]
-            c0h, clh = c0.cpu().numpy(), cl.cpu().numpy()
-            if (c0h > cap).any() or (clh > C).any():
+                cap=cap, keep_l0=keep_l0, **step)
+            if keep_l0:
+                _drain(*l0, c0, part, l0xs, l0ys)
+            elif ((c0 > cap) | (cl > xl.shape[1])).any().item():
                 _retry_exact(part, pad)
                 continue
-            # drain only the valid prefix of each row, in (row, slot) order
-            valid = torch.arange(C, device=xl.device)[None, :] < cl[:, None]
-            xf, yf = _to_host(xl[valid]), _to_host(yl[valid])
-            offs_h = np.zeros(len(part) + 1, np.int64)
-            np.cumsum(clh, out=offs_h[1:])
-            for b, rid in enumerate(part):
-                xs[rid] = xf[offs_h[b]:offs_h[b + 1]]
-                ys[rid] = yf[offs_h[b]:offs_h[b + 1]]
+            _drain(xl, yl, cl, part, xs, ys)
 
-    order = sorted(xs)
-    x = np.concatenate([xs[r] for r in order]) if order else np.zeros(0, np.uint64)
-    y = np.concatenate([ys[r] for r in order]) if order else np.zeros(0, np.uint64)
-    mh, mc = _merge_counts(x >> np.uint64(8), np.ones(len(x), np.uint32))
-    return ShimmerIndex(x, y, mh, mc)
+    idx = _index_of(xs, ys)
+    return (idx, _index_of(l0xs, l0ys)) if keep_l0 else idx

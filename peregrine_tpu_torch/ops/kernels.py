@@ -1,12 +1,13 @@
-"""The four SHIMMER index kernels: CUDA wrappers beside plain PyTorch.
+"""The five SHIMMER index kernels: CUDA wrappers beside plain PyTorch.
 
 Each public function here replaces one Pallas kernel of
 peregrine_tpu/ops/compact_pallas.py:
 
-  build_stream  <- build_stream :229 (pallas_call :243)
-  move_plane    <- move_plane   :112 (pallas_call :124)
-  emit_mask     <- emit_mask    :331 (pallas_call :351)
-  reduce_step   <- reduce_step  :451 (pallas_call :464)
+  build_stream    <- build_stream   :230 (pallas_call :243)
+  move_plane      <- move_plane     :113 (pallas_call :124)
+  emit_mask       <- emit_mask      :333 (pallas_call :351)
+  reduce_step     <- reduce_step    :452 (pallas_call :464)
+  compact_planes  <- compact_planes :365 (pallas_call :391)
 
 On a CUDA tensor a function launches its kernel from
 csrc/shimmer_kernels.cu (built with nvcc for sm_90a on first use, bound
@@ -24,8 +25,10 @@ so the u32 planes ride in int32 tensors holding the same bits; the plain
 versions widen to int64 & 0xFFFFFFFF before any compare.  Where the TPU
 kernels returned shift distances r, these return a destination column
 (`dest`, the rank among kept entries, -1 where dropped): dest = col - r
-on kept entries.  Positions of a compacted plane at or past its count are
-stale, as on the TPU; every consumer masks by count.
+on kept entries.  Positions of a plane compacted by move_plane at or past
+its count are stale, as on the TPU; every consumer masks by count.
+compact_planes instead fills them with each plane's fill value, which
+the wide sketch reads.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ _CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _U32 = 0xFFFFFFFF
-_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of each C entry, in the order of its prototype in the .cu file
 # (tests check the two agree).  ctypes passes any argument past a short
 # list, and every argument of a function without one, as a C int, which
@@ -53,6 +56,7 @@ SIGNATURES = {
     "pg_move_plane": [_VP] * 3 + [_INT] * 2 + [_VP],
     "pg_emit_mask": [_VP] * 6 + [_INT] * 4 + [_VP],
     "pg_reduce_step": [_VP] * 7 + [_INT] * 3 + [_VP],
+    "pg_compact_planes": [_VP] * 8 + [_I64] * 3 + [_INT] * 5 + [_VP],
 }
 _lib = None
 
@@ -138,10 +142,10 @@ def _dest(keep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def hash64(key: torch.Tensor, mask: int) -> torch.Tensor:
     """Invertible minimizer hash (peregrine_tpu/ops/sketch.py:hash64) on
-    non-negative int64 keys below 2^32, under a mask of at most 32 bits:
+    non-negative int64 keys under a mask of at most 56 bits (k <= 28):
     every step is masked before the next right shift, so torch's
-    arithmetic shift and wrapping int64 products give the unsigned
-    result."""
+    arithmetic shift sees a non-negative value, and the left shifts and
+    adds wrap modulo 2^64 as they do in uint64."""
     key = (~key + (key << 21)) & mask
     key = key ^ (key >> 24)
     key = (key + (key << 3) + (key << 8)) & mask
@@ -190,8 +194,8 @@ def build_stream(codes: torch.Tensor, lengths: torch.Tensor, *, k: int):
     entry's stream column, and the stream count per row."""
     B, L = codes.shape
     if not 0 < k <= 16:
-        raise ValueError(f"build_stream: k={k} outside 1..16 (the wide "
-                         "k > 16 sketch is not yet ported)")
+        raise ValueError(f"build_stream: k={k} outside 1..16 (k > 16 "
+                         "takes the wide sketch, ops.sketch.sketch_wide)")
     _check(codes, torch.uint8, (B, L), "codes")
     _check(lengths, torch.int32, (B,), "lengths")
     if _route(codes, lengths) == "cpu":
@@ -348,7 +352,65 @@ def reduce_step(H: torch.Tensor, P: torch.Tensor, n: torch.Tensor, *, r: int):
 
 reduce_step.launches = 0
 
-KERNELS = (build_stream, move_plane, emit_mask, reduce_step)
+# --- compact_planes -------------------------------------------------------
+
+_MAX_PLANES = 3
+
+
+def _signed(v: int, bits: int) -> int:
+    """An int in [-2^(bits-1), 2^bits) as the signed value of its bits."""
+    v &= (1 << bits) - 1
+    return v - (1 << bits) if v >> (bits - 1) else v
+
+
+def compact_planes_plain(keep: torch.Tensor, planes, fills):
+    """Plain version of compact_planes: a cumsum, an index scatter and a
+    fill."""
+    dest, count = _dest(keep)
+    kept = dest >= 0
+    rows = torch.arange(keep.shape[0], device=keep.device)[:, None]
+    rows, cols = rows.expand_as(dest)[kept], dest[kept].to(torch.int64)
+    outs = []
+    for p, f in zip(planes, fills):
+        out = torch.full_like(p, _signed(f, p.element_size() * 8))
+        out[rows, cols] = p[kept]
+        outs.append(out)
+    return tuple(outs), count
+
+
+def compact_planes(keep: torch.Tensor, planes, fills):
+    """Stable compaction of up to three [B, L] int64 or int32 planes by one
+    [B, L] bool mask: kept entries go to the row front in order, every
+    column at or past the row's count holds that plane's fill (given as
+    the plane's bits, e.g. -1 or 0xFFFFFFFF), and count [B] int32 is
+    exact.  Returns (planes', count)."""
+    B, L = keep.shape
+    planes, fills = tuple(planes), tuple(fills)
+    if not 0 < len(planes) <= _MAX_PLANES or len(fills) != len(planes):
+        raise ValueError(f"compact_planes: 1..{_MAX_PLANES} planes with one "
+                         f"fill each, got {len(planes)} and {len(fills)}")
+    _check(keep, torch.bool, (B, L), "keep")
+    for i, p in enumerate(planes):
+        if p.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"plane {i}: want int32 or int64, got {p.dtype}")
+        _check(p, p.dtype, (B, L), f"plane {i}")
+    if _route(keep, *planes) == "cpu":
+        return compact_planes_plain(keep, planes, fills)
+    outs = tuple(torch.empty_like(p) for p in planes)
+    count = torch.zeros(B, dtype=torch.int32, device=keep.device)
+    if B and L:
+        pad = _MAX_PLANES - len(planes)
+        _call(library().pg_compact_planes, keep, *planes, *[0] * pad,
+              *outs, *[0] * pad, count,
+              *[_signed(f, 64) for f in fills], *[0] * pad,
+              *[p.element_size() for p in planes], *[0] * pad, B, L)
+        compact_planes.launches += 1
+    return outs, count
+
+
+compact_planes.launches = 0
+
+KERNELS = (build_stream, move_plane, emit_mask, reduce_step, compact_planes)
 
 
 def reset_launches() -> None:

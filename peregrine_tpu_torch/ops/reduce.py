@@ -1,14 +1,22 @@
-"""Hierarchical SHIMMER reduction of flat record lists, on packed planes.
+"""Hierarchical SHIMMER reduction: records in rows, on the device.
 
-The port of peregrine_tpu/ops/reduce.py's host entry points.  The JAX
-package reduces uint64 records with reduce_impl (composite key
-(x & ~0xFF) | ring slot, then the compact_planes kernel); for k <= 16,
-x = hash << 8 | k, so that key orders exactly as (hash, slot) — the order
-of the reduce_step kernel, which this module runs with move_plane and
-never compact_planes (tests/test_reduce.py asserts the equality on the
-JAX side).  The record's y word rides through as its low 32 bits
-(pos << 1 | strand): within one read it is unique, which is all the
-dedup compares.  Spans above 16 (the wide sketch) raise.
+The port of peregrine_tpu/ops/reduce.py.  reduce_impl is the general
+reduction on int64 records: the window winner at column j minimizes the
+composite key (x & ~0xFF) | (j % r) (hash in the high 56 bits, the ring
+slot in place of the span byte) over the r trailing columns, in unsigned
+order; winners are deduplicated against the previous column and
+compacted by the compact_planes kernel.  The reference's ring buffer
+scans slots in array order with a strict '<', so hash ties go to the
+lowest slot (src/shmr_reduce.c:53-90); slots within a window are
+distinct, so the key has no ties.
+
+For k <= 16, x = hash << 8 | k, so the key orders exactly as
+(hash, slot) — the order of the reduce_step kernel, which
+reduce_flat_np runs on packed (H, P) planes with move_plane instead
+(tests/test_reduce.py asserts the equality on the JAX side).  Its y word
+rides through as its low 32 bits (pos << 1 | strand): within one read it
+is unique, which is all the dedup compares.  Wider spans (k > 16) take
+reduce_impl.
 """
 
 from __future__ import annotations
@@ -16,40 +24,66 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels import move_plane, reduce_step
+from .kernels import _shift_right, compact_planes, move_plane, reduce_step
+from .sketch import INF, SIGN
 
 
-def reduce_flat_np(x: np.ndarray, y: np.ndarray, r: int, device
-                   ) -> tuple[np.ndarray, np.ndarray]:
-    """Reduce a concatenated (rid-ordered) minimizer list by one level.
+def reduce_impl(x: torch.Tensor, y: torch.Tensor, count: torch.Tensor, *,
+                r: int):
+    """Reduce per-read rows of records by a factor of ~r.
 
-    Splits by the rid field of y into rows of planes, runs reduce_step and
-    move_plane on `device`, and re-flattens; dedup never fires across rid
-    boundaries because each rid is its own row.
-    """
-    if len(x) == 0:
-        return x.copy(), y.copy()
-    span = x & np.uint64(0xFF)
-    k = int(span[0])
-    if k > 16 or (span != span[0]).any():
-        raise ValueError("reduce_flat_np: packed planes need one span "
-                         f"<= 16, got {np.unique(span)[:4].tolist()} (the "
-                         "wide k > 16 path is not yet ported)")
+    x, y: [B, C] int64 records compacted per row (INF padding); count: [B]
+    int32 valid entries per row.  Returns (x', y', count') in the same
+    layout."""
+    if not 0 < r < 256:
+        raise ValueError(f"reduce_impl: r={r} outside 1..255")
+    B, C = x.shape
+    col = torch.arange(C, device=x.device)[None, :]
+    key = ((x & ~0xFF) | (col % r)) ^ SIGN
+    best_k, best_x, best_y = key, x, y
+    for d in range(1, r):
+        kd = _shift_right(key, d, INF ^ SIGN)
+        win = kd < best_k
+        best_k = torch.where(win, kd, best_k)
+        best_x = torch.where(win, _shift_right(x, d, INF), best_x)
+        best_y = torch.where(win, _shift_right(y, d, INF), best_y)
+    valid = (col >= r - 1) & (col < count.to(torch.int64)[:, None])
+    emit = valid & ((best_y != _shift_right(best_y, 1, INF))
+                    | ~_shift_right(valid, 1, False))
+    (ox, oy), ocount = compact_planes(
+        emit, (torch.where(emit, best_x, INF), torch.where(emit, best_y, INF)),
+        (INF, INF))
+    return ox, oy, ocount
+
+
+def _rows(x: np.ndarray, y: np.ndarray):
+    """One row per run of equal rid in y: (rids, starts, lens, row, col)
+    with record i at [row[i], col[i]]."""
     rids = (y >> np.uint64(32)).astype(np.int64)
     starts = np.flatnonzero(np.r_[True, np.diff(rids) != 0])
     lens = np.diff(np.r_[starts, len(x)])
+    row = np.repeat(np.arange(len(starts)), lens)
+    col = np.arange(len(x)) - np.repeat(starts, lens)
+    return rids, starts, lens, row, col
+
+
+def _reduce_packed(x: np.ndarray, y: np.ndarray, r: int, device):
+    """reduce_flat_np on packed (H, P) planes: reduce_step + move_plane.
+    Needs one span of at most 16 (a 32-bit hash)."""
+    span = x & np.uint64(0xFF)
+    k = int(span[0])
+    if k > 16 or (span != span[0]).any():
+        raise ValueError("packed planes need one span <= 16, got "
+                         f"{np.unique(span)[:4].tolist()}")
+    rids, starts, lens, row, colj = _rows(x, y)
     B, C = len(starts), int(lens.max())
-    # row b, column j <- record starts[b] + j
-    row = np.repeat(np.arange(B), lens)
-    colj = np.arange(len(x)) - np.repeat(starts, lens)
     H = np.full((B, C), -1, np.int32)
     P = np.full((B, C), -1, np.int32)
     H[row, colj] = (x >> np.uint64(8)).astype(np.uint32).view(np.int32)
     P[row, colj] = (y & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
-    Ht = torch.from_numpy(H).to(device)
-    Pt = torch.from_numpy(P).to(device)
     n = torch.from_numpy(lens.astype(np.int32)).to(device)
-    H2, P2, dest, count = reduce_step(Ht, Pt, n, r=r)
+    H2, P2, dest, count = reduce_step(torch.from_numpy(H).to(device),
+                                      torch.from_numpy(P).to(device), n, r=r)
     oH = move_plane(dest, H2)
     oP = move_plane(dest, P2)
     valid = torch.arange(C, device=oH.device)[None, :] < count[:, None]
@@ -58,6 +92,39 @@ def reduce_flat_np(x: np.ndarray, y: np.ndarray, r: int, device
     orid = np.repeat(rids[starts], count.cpu().numpy()).astype(np.uint64)
     return ((oh << np.uint64(8)) | np.uint64(k),
             (orid << np.uint64(32)) | op)
+
+
+def _reduce_records(x: np.ndarray, y: np.ndarray, r: int, device):
+    """reduce_flat_np on int64 record rows: reduce_impl."""
+    _, starts, lens, row, colj = _rows(x, y)
+    B, C = len(starts), int(lens.max())
+    X = np.full((B, C), -1, np.int64)
+    Y = np.full((B, C), -1, np.int64)
+    X[row, colj] = x.view(np.int64)
+    Y[row, colj] = y.view(np.int64)
+    ox, oy, count = reduce_impl(
+        torch.from_numpy(X).to(device), torch.from_numpy(Y).to(device),
+        torch.from_numpy(lens.astype(np.int32)).to(device), r=r)
+    valid = torch.arange(C, device=ox.device)[None, :] < count[:, None]
+    return (ox[valid].cpu().numpy().view(np.uint64),
+            oy[valid].cpu().numpy().view(np.uint64))
+
+
+def reduce_flat_np(x: np.ndarray, y: np.ndarray, r: int, device
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Reduce a concatenated (rid-ordered) minimizer list by one level.
+
+    Splits by the rid field of y into rows, reduces them on `device` and
+    re-flattens; dedup never fires across rid boundaries because each rid
+    is its own row.  One span of at most 16 runs the packed kernels; any
+    other list runs reduce_impl.
+    """
+    if len(x) == 0:
+        return x.copy(), y.copy()
+    span = x & np.uint64(0xFF)
+    if span[0] <= 16 and (span == span[0]).all():
+        return _reduce_packed(x, y, r, device)
+    return _reduce_records(x, y, r, device)
 
 
 def end_filter_np(x: np.ndarray, y: np.ndarray, read_lengths: np.ndarray,

@@ -1,18 +1,20 @@
-"""Assembly pipeline orchestrator, stages 0-3 (the draft path).
+"""Assembly pipeline orchestrator, stages 0-4.
 
-The port of peregrine_tpu/pipeline/run.py's default path.  Stages run
-in-process with file-checkpointed outputs in the reference's directory
-layout, byte-identical to the JAX package's, so either package resumes
-the other's output directory:
+The port of peregrine_tpu/pipeline/run.py's single-device path.  Stages
+run in-process with file-checkpointed outputs in the reference's
+directory layout, byte-identical to the JAX package's, so either package
+resumes the other's output directory:
 
     0-seqdb/   seq_dataset.seqdb + .idx
-    1-index/   shmr-L{level}-*.dat + MC files
+    1-index/   shmr-L{level}-*.dat + MC files (and L0 with keep_l0)
     2-ovlp/    preads.ovl
     3-asm/     sg_edges_list, utg_data, ctg_paths, p_ctg_tiling_path, p_ctg.fa
+    4-cns/     ctg.seqdb, read_map.txt, p_ctg_cns.fa (4-cns-alt/ with_alt)
 
-Stage 1 runs on the given device (the SHIMMER kernels); stages 0, 2 and 3
-are host numpy and native C++.  Not yet ported (each raises): stage 4
-consensus, the mesh/multihost runs, and the device pair map and aligner.
+Stage 1 and stage 4's contig index run on the given device (the SHIMMER
+kernels); stages 0, 2 and 3 and stage 4's mapping and consensus are host
+numpy and native C++.  Not yet ported (each raises): the mesh/multihost
+runs, and the device pair map and aligner.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import resource
 import time
 
+import numpy as np
 import torch
 
 from ..config import AsmConfig
@@ -29,7 +32,7 @@ from ..graph.contig import tiling_to_contigs
 from ..graph.layout import assemble_graph
 from ..graph.string_graph import generate_string_graph
 from ..graph.tiling import tiling_paths
-from ..io.seqdb import SeqDB
+from ..io.seqdb import SeqDB, read_fastx
 from ..ops.index import ShimmerIndex, build_index
 from ..ops.overlap import overlap_all
 
@@ -212,7 +215,7 @@ class Assembly:
         self.db: SeqDB | None = None
         self.idx: ShimmerIndex | None = None
         self._save_thread = None  # async stage-0 checkpoint write
-        self._pairs = None        # read pair map (stage 2)
+        self._pairs = None        # read pair map shared by stages 2 and 4
 
     def _invalidate_stages(self) -> None:
         """Remove config-dependent stage checkpoints (1-index through 4-cns
@@ -256,12 +259,15 @@ class Assembly:
         return self.db
 
     # --- stage 1: SHIMMER index ----------------------------------------
-    def build_shimmer_index(self) -> ShimmerIndex:
+    def build_shimmer_index(self, keep_l0: bool = False) -> ShimmerIndex:
+        """Stage 1; keep_l0 (--with-L0-index) also writes the level-0
+        index, shmr-L0-*.dat, and resumes only when both levels exist."""
         prefix = os.path.join(self.outdir, "1-index", "shmr")
         level = self.cfg.levels
         mm = f"{prefix}-L{level}-01-of-01.dat"
         mc = f"{prefix}-L{level}-MC-01-of-01.dat"
-        if _stage_done(mm):
+        if _stage_done(mm) and (not keep_l0 or _stage_done(
+                f"{prefix}-L0-MC-01-of-01.dat")):
             self.idx = ShimmerIndex.load_chunks([mm], [mc])
         else:
             t0 = time.time()
@@ -271,13 +277,18 @@ class Assembly:
                     f"indexing a {self.db.data.nbytes / (1 << 30):.1f} GB "
                     f"seqdb past the {budget / (1 << 30):.1f} GB device "
                     "budget", "queue 1, the in-process segmented build")
-            self.idx = build_index(self.db, self.cfg, self.device)
+            built = build_index(self.db, self.cfg, self.device,
+                                keep_l0=keep_l0)
+            self.idx, l0 = built if keep_l0 else (built, None)
             self.idx.save(prefix, level=level)
+            if keep_l0:
+                l0.save(prefix, level=0)
             wall = time.time() - t0
-            log.info("stage 1 index: %d SHIMMERs, %d distinct (%.1fs on %s; "
-                     "peak RSS %.1f GB%s)",
-                     len(self.idx.x), len(self.idx.mc_hash), wall,
-                     self.device, _peak_rss_gb(),
+            log.info("stage 1 index: %d SHIMMERs, %d distinct%s (%.1fs on "
+                     "%s; peak RSS %.1f GB%s)",
+                     len(self.idx.x), len(self.idx.mc_hash),
+                     f"; {len(l0.x)} level-0 minimizers" if keep_l0 else "",
+                     wall, self.device, _peak_rss_gb(),
                      _device_mem_line(self.device),
                      extra={"stage_wall": ("index", wall)})
         return self.idx
@@ -330,8 +341,8 @@ class Assembly:
                                  "overlap stage spill")
             if self.cfg.dedup_overlap and self.cfg.spill_dir is not None:
                 # low-memory mode: overlap_all_spec builds and frees its
-                # own pair map (stage 4, which would share it, is not
-                # ported)
+                # own pair map, and stage 4 rebuilds it (the JAX package
+                # shares it when the spill filesystem has room)
                 from ..ops.overlap import overlap_all_spec
                 ovlps = overlap_all_spec(
                     self.db, self.idx, self.cfg,
@@ -349,7 +360,6 @@ class Assembly:
                            else None))
             from ..ops.overlap import write_ovl_file
             n_rows = write_ovl_file(path, ovlps)
-            self._pairs = None  # only stage 4 would reuse it
             wall = time.time() - t0
             log.info("stage 2 overlap: %d records -> %d rows (%.1fs; "
                      "peak RSS %.1f GB, anon %.1f GB)",
@@ -412,10 +422,111 @@ class Assembly:
                  wall, _peak_rss_gb(), extra={"stage_wall": ("layout", wall)})
         return fa
 
-    # --- not yet ported --------------------------------------------------
+    # --- stage 4: mapping + consensus polish ----------------------------
     def build_consensus(self, n_workers: int | None = None) -> str:
-        raise not_ported("stage 4 (mapping + consensus, --with-consensus)",
-                         "queue 1, stage 4")
+        out = self._polish("p_ctg.fa", "4-cns", "p_ctg_cns.fa", n_workers)
+        if self.with_alt:
+            # alt-contig polish pass: the reference reruns the consensus
+            # stage against a_ctg.fa when it is non-trivial (>500 kB)
+            # (py/scripts/pg_run.py:622-633)
+            a_fa = os.path.join(self.outdir, "3-asm", "a_ctg.fa")
+            if (os.path.exists(a_fa)
+                    and os.stat(a_fa).st_size > self.cfg.alt_cns_min_size):
+                self._polish("a_ctg.fa", "4-cns-alt", "a_ctg_cns.fa",
+                             n_workers)
+        self._pairs = None  # free the shared pair map (GBs at scale)
+        return out
+
+    def _polish(self, ctg_fa: str, cns_subdir: str, out_name: str,
+                n_workers: int | None = None) -> str:
+        """Polish one contig file: its SHIMMER index on the device, the
+        reads mapped to it, and the window consensus.  Log records carry
+        stage walls ctg_index, mapping and consensus (alt_* for the alt
+        pass)."""
+        from ..native import write_rows
+        from ..ops.consensus import consensus_for_contig, consensus_parallel
+        from ..ops.mapping import map_reads_to_ref, map_reads_to_ref_grouped
+
+        cns_dir = os.path.join(self.outdir, cns_subdir)
+        os.makedirs(cns_dir, exist_ok=True)
+        out_fa = os.path.join(cns_dir, out_name)
+        if _stage_done(out_fa):
+            return out_fa
+        tag = "" if cns_subdir == "4-cns" else "alt_"
+        t0 = time.time()
+        ctg_prefix = os.path.join(cns_dir, "ctg")
+        ctg_db = SeqDB.from_reads(
+            read_fastx(os.path.join(self.outdir, "3-asm", ctg_fa)))
+        ctg_db.save(ctg_prefix)
+        t_db = time.time()
+        ctg_idx = build_index(ctg_db, self.cfg, self.device)
+        t_idx = time.time()
+        log.info("stage 4 contig index: %d contigs, %d SHIMMERs (ctg db "
+                 "%.1fs, index %.1fs on %s%s)%s", len(ctg_db), len(ctg_idx.x),
+                 t_db - t0, t_idx - t_db, self.device,
+                 _device_mem_line(self.device),
+                 "" if self._pairs is not None
+                 else "; the pair map is rebuilt next",
+                 extra={"stage_wall": (tag + "ctg_index", t_idx - t_db)})
+        # external grouped emission bounds this stage's anonymous peak
+        # (the reference's `sort -T tmp -S 8g` analog,
+        # py/scripts/pg_run.py:491-496): rows land grouped by contig in
+        # a disk-backed memmap; per-contig content and order match the
+        # in-memory path, only read_map.txt's row order differs
+        external = (os.environ.get("PG_MAP_EXTERNAL") == "1"
+                    or self.db.data.nbytes > (8 << 30))
+        if external:
+            mm, offs = map_reads_to_ref_grouped(
+                self.idx, self.db.lengths, ctg_idx, self.cfg,
+                os.path.join(cns_dir, "read_map.npy"), len(ctg_db),
+                pairs=self._pairs)
+            np.save(os.path.join(cns_dir, "read_map_offs.npy"), offs)
+            write_rows(mm, os.path.join(cns_dir, "read_map.txt"))
+            n_rows = len(mm)
+            contig_rows = {rid: mm[offs[rid]:offs[rid + 1]]
+                           for rid in range(len(ctg_db))}
+        else:
+            rows = map_reads_to_ref(self.idx, self.db.lengths, ctg_idx,
+                                    self.cfg, pairs=self._pairs)
+            write_rows(rows.reshape(len(rows), -1),
+                       os.path.join(cns_dir, "read_map.txt"))
+            n_rows = len(rows)
+            contig_rows = {rid: (rows[rows[:, 0] == rid]
+                                 if len(rows) else rows)
+                           for rid in range(len(ctg_db))}
+        t_map = time.time()
+        log.info("stage 4 mapping: %d rows (%.1fs%s)", n_rows, t_map - t_idx,
+                 "; external grouped" if external else "",
+                 extra={"stage_wall": (tag + "mapping", t_map - t_idx)})
+
+        if n_workers is None:
+            # consensus workers are GIL-releasing threads: always parallel
+            n_workers = os.cpu_count() or 1
+        if self._save_thread is not None:
+            # the window threads re-open the seqdb from disk
+            self._save_thread.join()
+            self._save_thread = None
+        if n_workers > 1:
+            seqs = consensus_parallel(
+                os.path.join(self.outdir, "0-seqdb", "seq_dataset"),
+                ctg_prefix, contig_rows, ctg_db.lengths, self.cfg, n_workers)
+        else:
+            seqs = {rid: consensus_for_contig(self.db, ctg_db, rid,
+                                              contig_rows[rid], self.cfg)
+                    for rid in range(len(ctg_db))}
+        with open(out_fa + ".tmp", "w") as f:
+            for ctg_rid in range(len(ctg_db)):
+                f.write(f">{ctg_db.names[ctg_rid]}\n"
+                        f"{seqs[ctg_rid].decode()}\n")
+        os.replace(out_fa + ".tmp", out_fa)
+        wall = time.time() - t_map
+        log.info("stage 4 consensus: %d contigs (%.1fs; peak RSS %.1f GB, "
+                 "anon %.1f GB)", len(ctg_db), wall, _peak_rss_gb(),
+                 _anon_rss_gb(),
+                 extra={"stage_wall": (tag + "consensus", wall)})
+        return out_fa
+
+    # --- not yet ported --------------------------------------------------
 
     def run_multihost(self, reads_list: str, with_consensus: bool = False):
         raise not_ported("the multihost pipeline (--multihost)",

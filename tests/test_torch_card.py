@@ -1,5 +1,6 @@
 """The SHIMMER kernels on a CUDA card: each equals its plain version and
-writes nothing outside its outputs.  Skipped without a card.
+writes nothing outside its outputs; the int64 scans the wide sketch rests
+on agree with the CPU.  Skipped without a card.
 
 This file imports no jax (the card's machine has none), so it also runs
 there on its own:
@@ -26,15 +27,14 @@ CANARY = 0x5A5A5A5A
 GUARD = 4096
 
 
-def _guarded(*shape):
+def _guarded(*shape, dtype=torch.int32):
     n = int(np.prod(shape))
-    buf = torch.full((n + 2 * GUARD,), CANARY, dtype=torch.int32,
-                     device="cuda")
+    buf = torch.full((n + 2 * GUARD,), CANARY, dtype=dtype, device="cuda")
     return buf, buf[GUARD:GUARD + n].view(shape)
 
 
-def _outputs(*shapes):
-    bufs, views = zip(*(_guarded(*s) for s in shapes))
+def _outputs(*shapes, dtype=torch.int32):
+    bufs, views = zip(*(_guarded(*s, dtype=dtype) for s in shapes))
     return list(bufs), list(views)
 
 
@@ -85,3 +85,47 @@ def test_kernels_match_plain_and_stay_in_their_outputs(L):
     _launch("pg_reduce_step", bufs, sH, sP, n, *outs, B, L, R)
     for got, ref in zip(outs, kn.reduce_step_plain(sH, sP, n, R)):
         assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("L", [1000, 8192])
+@pytest.mark.parametrize("density", [0.98, 2 / (W + 1)])
+def test_compact_planes_matches_plain_and_stays_in_its_outputs(L, density):
+    """Two int64 planes and one int32 plane, whole rows (fills included),
+    with rows that keep nothing and rows that keep everything."""
+    rng = np.random.default_rng(L)
+    keep = rng.random((B, L)) < density
+    keep[0], keep[1] = False, True
+    keep = torch.from_numpy(keep).cuda()
+    x, y = (torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (B, L),
+                                          dtype=np.int64)).cuda()
+            for _ in range(2))
+    li = torch.from_numpy(rng.integers(0, 2**31, (B, L)).astype(np.int32)).cuda()
+    bufs64, (ox, oy) = _outputs((B, L), (B, L), dtype=torch.int64)
+    bufs32, (oli, count) = _outputs((B, L), (B,))
+    _launch("pg_compact_planes", bufs64 + bufs32, keep, x, y, li, ox, oy, oli,
+            count, -1, -1, 0, 8, 8, 4, B, L)
+    (wx, wy, wli), wc = kn.compact_planes_plain(keep, (x, y, li), (-1, -1, 0))
+    for got, ref in ((ox, wx), (oy, wy), (oli, wli), (count, wc)):
+        assert torch.equal(got, ref)
+    assert count[0] == 0 and count[1] == L
+
+
+def test_int64_cummin_cummax_match_the_cpu():
+    """The wide sketch's window extrema rest on torch.cummin / cummax of
+    int64 along the last axis, forwards and flipped, with values across
+    the whole int64 range (the unsigned order after x ^ 2^63)."""
+    from peregrine_tpu_torch.ops import sketch
+
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (B, 512, 80),
+                                      dtype=np.int64))
+    a[:, :, ::7] = -1
+    for op in (torch.cummin, torch.cummax):
+        for t in (a, a.flip(2)):
+            assert torch.equal(op(t.cuda(), dim=2).values.cpu(),
+                               op(t, dim=2).values)
+    flat = a.view(B, -1)
+    for fn, fill in ((sketch._sliding_min_trailing, -1),
+                     (sketch._sliding_max_leading, 0)):
+        assert torch.equal(fn(flat.cuda(), 80, fill).cpu(),
+                           fn(flat, 80, fill))

@@ -215,15 +215,17 @@ def test_other_devices_and_bad_inputs_raise():
 
 def test_bindings_match_c_prototypes():
     """Every extern "C" entry of the .cu file has a ctypes signature with
-    its arguments' count and kinds (pointer -> c_void_p, int -> c_int): a
-    missing or short one passes the stream handle as a 32-bit int."""
+    its arguments' count and kinds (pointer -> c_void_p, long long ->
+    c_longlong, int -> c_int): a missing or short one passes the stream
+    handle as a 32-bit int."""
     with open(kn._CU) as f:
         src = f.read()
     block = src.split('extern "C" {')[1]
     protos = re.findall(r"^int (pg_\w+)\(([^)]*)\)", block, re.M)
     assert sorted(name for name, _ in protos) == sorted(kn.SIGNATURES)
     for name, params in protos:
-        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+        kinds = [ctypes.c_void_p if "*" in p
+                 else ctypes.c_longlong if "long long" in p else ctypes.c_int
                  for p in params.split(",")]
         assert kinds == kn.SIGNATURES[name], name
 

@@ -201,10 +201,19 @@ def test_reduce_flat_tie_slot_break():
 
 
 def test_reduce_flat_rejects_wide_spans():
-    x = np.array([(5 << 8) | 20] * 8, dtype=np.uint64)
+    """The packed planes hold 32-bit hashes: their route rejects spans
+    above 16, and reduce_flat_np sends such lists to reduce_impl."""
+    x = np.array([(5 << 8) | 20, (9 << 8) | 20, (5 << 8) | 20,
+                  (2 << 8) | 20, (7 << 8) | 20, (5 << 8) | 20,
+                  (1 << 8) | 20, (8 << 8) | 20], dtype=np.uint64)
     y = np.arange(8, dtype=np.uint64) << np.uint64(1)
     with pytest.raises(ValueError):
-        reduce.reduce_flat_np(x, y, 3, CPU)
+        reduce._reduce_packed(x, y, 3, CPU)
+    gx, gy = reduce.reduce_flat_np(x, y, 3, CPU)
+    jx, jy = jreduce.reduce_flat_np(x, y, 3)
+    np.testing.assert_array_equal(gx, jx)
+    np.testing.assert_array_equal(gy, jy)
+    assert _pairs(gx, gy) == oracles.mm_reduce(_pairs(x, y), 3)
 
 
 # --- build_index -------------------------------------------------------

@@ -4,7 +4,8 @@ The JAX package's CLI and the port's CLI (--device cpu) run on the same
 simulated reads; the index files, preads.ovl and p_ctg.fa must be
 byte-identical.  Also: resume in the port, a JAX-written output directory
 resumed by the port, and the port's refusals (unported flags, a missing
-CUDA device, a changed config).
+CUDA device, a changed config).  Stage 4 (--with-consensus) and the
+level-0 index are in tests/test_torch_consensus.py.
 """
 
 import filecmp
@@ -134,8 +135,7 @@ def test_config_change_detection(tmp_path):
     Assembly(wd, cfg.replace(k=14, sketch_batch=32), device="cpu")
 
 
-@pytest.mark.parametrize("flag", ["--with-consensus", "--with-L0-index",
-                                  "--device-aligner", "--hybrid-overlap",
+@pytest.mark.parametrize("flag", ["--device-aligner", "--hybrid-overlap",
                                   "--shard-overlap", "--device-pairs",
                                   "--mesh", "--multihost",
                                   "--profile-dir=prof"])
