@@ -10,10 +10,18 @@ Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the SHIMMER kernels (nvcc, sm_90a) and the native host library;
   3. each of the five kernels against its plain PyTorch version on the
-     card, exactly, at the main paths' shapes (B=64, L in 8192/32768/40960;
-     reduce_step at L=4096; compact_planes on two int64 planes and one
-     int32 plane at keep densities 0.98 and 2/(w+1)), with kernel and
-     plain times (CUDA events, median after warm-up);
+     card, exactly, at the main paths' shapes (B=64, L in 8192/16384/
+     24576/32768/40960, 16384 being the draft's main bucket; reduce_step
+     at L=2048, the sketch cap; compact_planes on two int64 planes and
+     one int32 plane at keep densities 0.98 and 2/(w+1)), and
+     build_stream and emit_mask on the chunk-boundary and tie-heavy rows
+     of tests/torch_kernel_cases.py (L = CHUNK - 1, CHUNK + 1, 16384;
+     w = 1, 5, 80, 255), after which the look-back status that the next
+     launch will take must be zeroed;
+     kernel times are device times (many launches back to back between
+     two CUDA events, divided by their number), plain times the same
+     over a few calls; each kernel's byte bound at its main-path shape
+     from this run's inputs;
   4. build_index of 512 simulated reads (k=16), of 256 at k=28 with and
      without the level-0 index (uncapped and capped), and of 64 at k=28,
      w=8 (cap overflow, exact retry); sketch_long_np of a 200 kb genome
@@ -71,6 +79,8 @@ REPLACES = {
 }
 K, W, R = 16, 80, 6
 K_WIDE = 28
+MAIN_L, CAP = 16384, 2048  # the draft's main read bucket and sketch cap
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 PROFILE_PAIRS = 6  # kernel/plain stage-1 builds compared by --index-profile
 GENOME, READ_LEN, COVERAGE, WRAP = 4_600_000, 15_000, 30.0, 40_000
 
@@ -84,21 +94,51 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() on the card (CUDA events)."""
+def _events():
     import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def kernel_ms(fn, n: int = 50) -> float:
+    """Device milliseconds per call of a kernel wrapper fn: n calls back to
+    back between two CUDA events, divided by n.  A spin on the card holds
+    the stream while the host queues the calls, so the events time the
+    kernel on the device and not the wrapper's host path; the spin grows until the first event is still
+    pending when the last call has been queued."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000
+    for _ in range(6):
+        a, b = _events()
+        torch.cuda._sleep(cycles)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
+        held = not a.query()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        if held:
+            return a.elapsed_time(b) / n
+        cycles *= 4
+    raise SystemExit("chip_smoke FAILED: the host could not queue "
+                     f"{n} launches inside the hold")
+
+
+def plain_ms(fn, n: int = 5) -> float:
+    """Milliseconds per call of a plain version: n calls between two CUDA
+    events after one warm-up call (host gaps included: several of them
+    synchronise)."""
+    import torch
+    fn()
+    a, b = _events()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def max_err(pairs) -> int:
@@ -120,99 +160,143 @@ def prefix_pairs(out_a, out_b, counts):
     return [(out_a[valid], out_b[valid])]
 
 
+def load_kernel_cases():
+    """tests/torch_kernel_cases.py, the chunked kernels' edge-case rows."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_cases", os.path.join(ROOT, "tests",
+                                           "torch_kernel_cases.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def phase_kernels(results: dict) -> None:
     import torch
 
     from peregrine_tpu_torch.ops import kernels as kn
 
+    kernel_cases = load_kernel_cases()
+
     dev = torch.device("cuda")
     rng = np.random.default_rng(42)
     B = 64
     stats = {name: {"err": 0, "times": {}} for name in REPLACES}
+    moved = {}  # bytes each kernel must move at its main-path shape
+
+    def note(name, pairs):
+        stats[name]["err"] = max(stats[name]["err"], max_err(pairs))
+
+    def times(name, key, fn, plain):
+        stats[name]["times"][key] = (kernel_ms(fn), plain_ms(plain))
+
+    def on_card(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
     reduce_input = None
-    for L in (8192, 32768, 40960):
+    for L in (8192, MAIN_L, 24576, 32768, 40960):
         codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
         codes[rng.random((B, L)) < 0.01] = 4
         lens = rng.integers(L // 2, L + 1, B).astype(np.int32)
         lens[0] = L
         lens[1] = 0
-        c = torch.from_numpy(codes).to(dev)
-        ln = torch.from_numpy(lens).to(dev)
+        c, ln = on_card(codes, lens)
 
-        got = kn.build_stream(c, ln, k=K)
-        want = kn.build_stream_plain(c, ln, K)
-        e = max_err(zip(got, want))
-        stats["build_stream"]["err"] = max(stats["build_stream"]["err"], e)
-        H, P, dest, n = want
+        note("build_stream", zip(kn.build_stream(c, ln, k=K),
+                                 kn.build_stream_plain(c, ln, K)))
+        H, P, dest, n = kn.build_stream_plain(c, ln, K)
 
         sH = kn.move_plane(dest, H)
         sP = kn.move_plane(dest, P)
         sH_p = kn.move_plane_plain(dest, H)
         sP_p = kn.move_plane_plain(dest, P)
-        e = max_err(prefix_pairs(sH, sH_p, n) + prefix_pairs(sP, sP_p, n))
-        stats["move_plane"]["err"] = max(stats["move_plane"]["err"], e)
+        note("move_plane", prefix_pairs(sH, sH_p, n) + prefix_pairs(sP, sP_p, n))
 
-        got = kn.emit_mask(sH_p, sP_p, n, w=W, k=K)
         want = kn.emit_mask_plain(sH_p, sP_p, n, W, K)
-        e = max_err(zip(got, want))
-        stats["emit_mask"]["err"] = max(stats["emit_mask"]["err"], e)
-        if L == 32768:
+        note("emit_mask", zip(kn.emit_mask(sH_p, sP_p, n, w=W, k=K), want))
+        if L == MAIN_L:
             oH = kn.move_plane_plain(want[0], sH_p)
             oP = kn.move_plane_plain(want[0], sP_p)
-            cap = L // 8
-            reduce_input = (oH[:, :cap].contiguous(), oP[:, :cap].contiguous(),
-                            torch.clamp(want[1], max=cap))
+            reduce_input = (oH[:, :CAP].contiguous(), oP[:, :CAP].contiguous(),
+                            torch.clamp(want[1], max=CAP))
+            kept = int((dest >= 0).sum())
+            moved["build_stream"] = 13 * B * L + 8 * B
+            moved["move_plane"] = 4 * B * L + 8 * kept
+            moved["emit_mask"] = 8 * int(n.sum()) + 4 * B * L + 8 * B
 
-        t = stats["build_stream"]["times"]
-        t[L] = (cuda_ms(lambda: kn.build_stream(c, ln, k=K)),
-                cuda_ms(lambda: kn.build_stream_plain(c, ln, K)))
-        t = stats["move_plane"]["times"]
-        t[L] = (cuda_ms(lambda: kn.move_plane(dest, H)),
-                cuda_ms(lambda: kn.move_plane_plain(dest, H)))
-        t = stats["emit_mask"]["times"]
-        t[L] = (cuda_ms(lambda: kn.emit_mask(sH_p, sP_p, n, w=W, k=K)),
-                cuda_ms(lambda: kn.emit_mask_plain(sH_p, sP_p, n, W, K)))
+        times("build_stream", L, lambda: kn.build_stream(c, ln, k=K),
+              lambda: kn.build_stream_plain(c, ln, K))
+        times("move_plane", L, lambda: kn.move_plane(dest, H),
+              lambda: kn.move_plane_plain(dest, H))
+        times("emit_mask", L, lambda: kn.emit_mask(sH_p, sP_p, n, w=W, k=K),
+              lambda: kn.emit_mask_plain(sH_p, sP_p, n, W, K))
 
-    for L in (8192, 32768, 40960):
+    # rows that put lengths, counts, placeholders and final windows on the
+    # chunk boundaries of build_stream and emit_mask, with and without ties
+    for L in (kn.CHUNK - 1, kn.CHUNK + 1, MAIN_L):
+        c, ln = on_card(*kernel_cases.stream_codes(rng, B, L, K, kn.CHUNK))
+        note("build_stream", zip(kn.build_stream(c, ln, k=K),
+                                 kn.build_stream_plain(c, ln, K)))
+        for w in (1, 5, W, 255):
+            for ties in (False, True):
+                sH, sP, n = kernel_cases.emit_stream(rng, B, L, w, K,
+                                                     kn.CHUNK, ties)
+                sH, sP, n = on_card(sH.view(np.int32), sP.view(np.int32), n)
+                note("emit_mask", zip(kn.emit_mask(sH, sP, n, w=w, k=K),
+                                      kn.emit_mask_plain(sH, sP, n, w, K)))
+    check(not any(bool(pair[0].any()) for pair in kn._status_pairs.values()),
+          "the next chunked launch's look-back status is not zeroed")
+    say(f"kernel checks: build_stream and emit_mask on the chunk-boundary "
+        f"rows at L {kn.CHUNK - 1}/{kn.CHUNK + 1}/{MAIN_L}, emit_mask at w "
+        f"1/5/{W}/255 with and without ties")
+
+    for L in (8192, MAIN_L, 32768, 40960):
         for density in (0.98, 2 / (W + 1)):
             keep = torch.from_numpy(rng.random((B, L)) < density).to(dev)
-            planes = tuple(torch.from_numpy(
-                rng.integers(-2**63, 2**63 - 1, (B, L), dtype=np.int64))
-                .to(dev) for _ in range(2))
-            planes += (torch.from_numpy(rng.integers(
-                0, 2**31, (B, L)).astype(np.int32)).to(dev),)
+            planes = tuple(on_card(*(rng.integers(
+                -2**63, 2**63 - 1, (B, L), dtype=np.int64) for _ in range(2))))
+            planes += tuple(on_card(rng.integers(0, 2**31, (B, L))
+                                    .astype(np.int32)))
             fills = (-1, -1, 0)
             got = kn.compact_planes(keep, planes, fills)
             want = kn.compact_planes_plain(keep, planes, fills)
-            e = max_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
-            st = stats["compact_planes"]
-            st["err"] = max(st["err"], e)
-            st["times"][(L, round(density, 4))] = (
-                cuda_ms(lambda: kn.compact_planes(keep, planes, fills)),
-                cuda_ms(lambda: kn.compact_planes_plain(keep, planes, fills)))
+            note("compact_planes", list(zip(got[0], want[0]))
+                 + [(got[1], want[1])])
+            times("compact_planes", (L, round(density, 4)),
+                  lambda: kn.compact_planes(keep, planes, fills),
+                  lambda: kn.compact_planes_plain(keep, planes, fills))
+            if (L, density) == (MAIN_L, 0.98):
+                kept = int(keep.sum())
+                moved["compact_planes"] = B * L + 4 * B + sum(
+                    p.element_size() * (kept + B * L) for p in planes)
 
     Hr, Pr, nr = reduce_input
-    got = kn.reduce_step(Hr, Pr, nr, r=R)
-    want = kn.reduce_step_plain(Hr, Pr, nr, R)
-    stats["reduce_step"]["err"] = max_err(zip(got, want))
-    stats["reduce_step"]["times"][Hr.shape[1]] = (
-        cuda_ms(lambda: kn.reduce_step(Hr, Pr, nr, r=R)),
-        cuda_ms(lambda: kn.reduce_step_plain(Hr, Pr, nr, R)))
+    note("reduce_step", zip(kn.reduce_step(Hr, Pr, nr, r=R),
+                            kn.reduce_step_plain(Hr, Pr, nr, R)))
+    times("reduce_step", CAP, lambda: kn.reduce_step(Hr, Pr, nr, r=R),
+          lambda: kn.reduce_step_plain(Hr, Pr, nr, R))
+    moved["reduce_step"] = 20 * B * CAP + 8 * B
     torch.cuda.synchronize()
 
     for name, st in stats.items():
-        for L, (ms, pms) in st["times"].items():
-            shape = (f"L={L[0]} keep density {L[1]}" if isinstance(L, tuple)
-                     else f"L={L}")
+        for key, (ms, pms) in st["times"].items():
+            shape = (f"L={key[0]} keep density {key[1]}"
+                     if isinstance(key, tuple) else f"L={key}")
             say(f"kernel {name} B={B} {shape}: {ms:.4f} ms, plain "
                 f"{pms:.4f} ms, max_abs_err {st['err']} (tolerance 0)")
         check(st["err"] == 0, f"{name} disagrees with its plain version "
               f"(max_abs_err {st['err']})")
-        main_L = {"reduce_step": 4096,
-                  "compact_planes": (32768, 0.98)}.get(name, 32768)
-        results[name] = {"max_abs_err": st["err"],
-                         "ms": st["times"][main_L][0],
-                         "plain_ms": st["times"][main_L][1]}
+        main = {"reduce_step": CAP,
+                "compact_planes": (MAIN_L, 0.98)}.get(name, MAIN_L)
+        ms, pms = st["times"][main]
+        bound_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        results[name] = {"max_abs_err": st["err"], "ms": ms, "plain_ms": pms,
+                         "bound_ms": bound_ms, "bound_by": "bytes",
+                         "library_ms": None, "bound_us": bound_ms * 1e3,
+                         "share_of_bound": bound_ms / ms}
+        say(f"kernel {name} at its main-path shape ({main}): {moved[name]} "
+            f"bytes, bound {bound_ms * 1e3:.3f} us, kernel {ms * 1e3:.3f} us,"
+            f" {bound_ms / ms:.4f} of the bound")
 
 
 def phase_index(reads, genome) -> None:
@@ -368,7 +452,9 @@ def phase_index_profile(reads, k: int) -> None:
         f"device busy {busy:.1f} ms (union of {len(dev)} device intervals); "
         f"idle share {1 - busy / (wall * 1000):.4f}")
     say("index profile: device ms by kernel: " + ", ".join(
-        f"{name} {ms:.2f} ({launches[name]} launches)"
+        f"{name} {ms:.2f} ({launches[name]} launches"
+        + (f", {ms / launches[name] * 1e3:.2f} us each)" if launches[name]
+           else ")")
         for name, ms in ours.items())
         + f"; other kernels {other:.2f}; copies and memsets {copies:.2f}")
     for key, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
@@ -586,11 +672,7 @@ def main(argv=None) -> int:
         shutil.rmtree(wd, ignore_errors=True)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name],
-                "launches": results[name]["launches"],
-                "max_abs_err": results[name]["max_abs_err"],
-                "ms": results[name]["ms"],
-                "plain_ms": results[name]["plain_ms"]}
+                "replaces": REPLACES[name], **results[name]}
                for name in REPLACES]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

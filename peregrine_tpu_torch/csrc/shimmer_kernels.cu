@@ -10,23 +10,26 @@
 // The first four run the packed k <= 16 path on [B, L] row-major uint32
 // planes (the wrappers in ops/kernels.py hand over int32 tensors holding
 // the same bits); compact_planes serves the wide k > 16 sketch and the
-// general reduction on int64 records.  Every kernel except move_plane
-// runs one thread block per row and walks the row in tiles of blockDim
-// columns, carrying each running prefix (count, max) from tile to tile,
-// so any L works.  Instead of the TPU kernels' shift distances r, the
-// producers write a destination column (the rank among kept entries, -1
-// where dropped) and move_plane scatters by it.
+// general reduction on int64 records.  Instead of the TPU kernels' shift
+// distances r, the producers write a destination column (the rank among
+// kept entries, -1 where dropped) and move_plane scatters by it.
+//
+// Two layouts.  build_stream and emit_mask split each row into chunks of
+// a few thousand columns, one block per chunk, so that B x the chunks of a
+// row fill the SMs; a block stages its chunk and a halo in shared memory by
+// cp.async and carries the row-wide prefixes it needs (counts, the last
+// ambiguous base) from the chunks before it by a decoupled look-back over
+// a zeroed status buffer (no fence: each published value is two
+// self-marking 64-bit words).  Each launch also zeroes the status of the
+// launch before it, so the wrappers alternate two buffers and never
+// launch a memset.  reduce_step and compact_planes still run one block per
+// row and walk the row in tiles of blockDim columns, carrying each running
+// prefix from tile to tile (64 rows give 64 blocks on 132 SMs);
+// move_plane is one thread per column.
 //
 // What bounds them: each kernel reads and writes about three to four
-// B x L x 4-byte planes once, so device-memory bytes bound them; the
-// windowed loops (k, w, r taps per column) re-read neighbours that a
-// block fetched moments before, which the L1 cache serves.  compact_planes
-// reads the 1-byte mask and each plane once and writes each plane once
-// (21 bytes in and 20 out per column for the wide sketch's x, y, l).
-// These are the simple-first versions: 64 rows give 64 blocks on 132 SMs
-// (one block for the single long row of a contig's reduction), and
-// move_plane is a separate pass over memory (ROADMAP lists fusing it
-// into its producers and filling the SMs as the first speed work).
+// B x L x 4-byte planes once, so device-memory bytes bound them (the
+// source note above each kernel gives its bytes per column).
 //
 // Each extern "C" entry launches on the given stream and returns
 // cudaGetLastError(), which the Python wrapper checks.
@@ -40,6 +43,38 @@ constexpr int kThreads = 1024;           // threads per row block
 constexpr int kWarps = kThreads / 32;
 constexpr uint32_t kInf = 0xFFFFFFFFu;   // undefined / hole hash
 
+// The chunked kernels: kChunk columns of one row per block of
+// kChunkThreads threads (kPerThread consecutive columns per thread in
+// build_stream).  CHUNK in ops/kernels.py must equal kChunk (a CPU test
+// reads both).
+constexpr int kChunk = 4096;
+constexpr int kChunkThreads = 512;
+constexpr int kChunkWarps = kChunkThreads / 32;
+constexpr int kPerThread = kChunk / kChunkThreads;
+constexpr int kMaxW = 255;               // emit_mask's window, 1..255
+constexpr int kMaxK = 16;                // the packed path's k, 1..16
+// emit_mask stages the columns [c0 - (w + k - 2), c0 + kChunk + w - 1) of
+// a chunk at c0, plus up to 3 words of 16-byte alignment slack.
+constexpr int kExt = (kChunk + (kMaxW + kMaxK - 2) + (kMaxW - 1) + 3 + 31) /
+                     32 * 32;
+// Padding on either side of emit_mask's staged columns: the identity of
+// the sliding minimum (kInf) before them and of the maximum (0) after,
+// as far as a window reaches, so the doubling passes need no bounds test.
+constexpr int kPad = 256;
+constexpr int kExtPer = (kExt + kChunkThreads - 1) / kChunkThreads;
+// Look-back status: slots of kSlot int32 words.  Slot 0 holds the ticket
+// counter; tile t (chunk j of row b, t = b * chunks + j) owns slot t + 1,
+// four 64-bit words: the aggregate (x, y) and the inclusive prefix (x, y),
+// each word with bit 0 set once written (see to_words).  STATUS_SLOT in
+// ops/kernels.py must equal kSlot.
+constexpr int kSlot = 8;
+
+static_assert(kChunk % kChunkThreads == 0, "whole columns per thread");
+static_assert(kChunk % 32 == 0, "transpose padding assumes whole warps");
+static_assert(2 * kPerThread <= 32 && kExtPer <= 32, "per-thread bit masks");
+static_assert(kPad >= kMaxW && kPad % 4 == 0, "pads cover a window");
+static_assert(kMaxW < kChunkThreads, "one final-window column per thread");
+
 struct Sum {
   __device__ int operator()(int a, int b) const { return a + b; }
 };
@@ -47,39 +82,79 @@ struct Max {
   __device__ int operator()(int a, int b) const { return a > b ? a : b; }
 };
 
-// Inclusive scan of one int per thread over the whole block; *total gets
-// the block-wide result.  `scratch` holds kWarps ints of shared memory.
-// Every thread of the block must call it.
-template <typename Op>
-__device__ int block_scan(int v, int identity, Op op, int* scratch,
-                          int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    int n = __shfl_up_sync(0xFFFFFFFFu, v, off);
-    if (lane >= off) v = op(v, n);
+// build_stream's row prefix: valid non-symmetric entries, included
+// entries, and the count of valid non-symmetric entries at the last
+// ambiguous base (-1: none).  StreamOp(a, b) is a followed by b.
+struct Stream {
+  int vns, inc, amb;
+};
+struct StreamOp {
+  __device__ Stream operator()(const Stream& a, const Stream& b) const {
+    return {a.vns + b.vns, a.inc + b.inc, b.amb >= 0 ? a.vns + b.amb : a.amb};
   }
-  if (lane == 31) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < kWarps ? scratch[lane] : identity;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      int n = __shfl_up_sync(0xFFFFFFFFu, s, off);
-      if (lane >= off) s = op(s, n);
-    }
-    scratch[lane] = s;
-  }
-  __syncthreads();
-  if (warp > 0) v = op(scratch[warp - 1], v);
-  *total = scratch[kWarps - 1];
-  __syncthreads();  // scratch is reused by the next call
-  return v;
+};
+
+__device__ __forceinline__ int shfl_up(int v, int off) {
+  return __shfl_up_sync(0xFFFFFFFFu, v, off);
+}
+__device__ __forceinline__ Stream shfl_up(const Stream& s, int off) {
+  return {shfl_up(s.vns, off), shfl_up(s.inc, off), shfl_up(s.amb, off)};
 }
 
-// Block-wide unsigned minimum / signed maximum (every thread gets it).
-__device__ uint32_t block_min_u32(uint32_t v, uint32_t* scratch) {
+__device__ __forceinline__ int shfl_from(int v, int lane) {
+  return __shfl_sync(0xFFFFFFFFu, v, lane);
+}
+__device__ __forceinline__ Stream shfl_from(const Stream& s, int lane) {
+  return {shfl_from(s.vns, lane), shfl_from(s.inc, lane),
+          shfl_from(s.amb, lane)};
+}
+__device__ __forceinline__ int shfl_down(int v, int off) {
+  return __shfl_down_sync(0xFFFFFFFFu, v, off);
+}
+__device__ __forceinline__ Stream shfl_down(const Stream& s, int off) {
+  return {shfl_down(s.vns, off), shfl_down(s.inc, off),
+          shfl_down(s.amb, off)};
+}
+
+// Exclusive scan of one value per thread over a block of kW warps, for an
+// associative op(earlier, later) with identity `id`; *total gets the
+// block's aggregate.  `scratch` holds kW values of shared memory.  Every
+// thread of the block must call it.
+template <int kW, typename T, typename Op>
+__device__ T block_scan(T v, T id, Op op, T* scratch, T* total) {
+  static_assert(kW <= 32, "one warp scans the warp totals");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  T inc = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T n = shfl_up(inc, off);
+    if (lane >= off) inc = op(n, inc);
+  }
+  if (lane == 31) scratch[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    T s = lane < kW ? scratch[lane] : id;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const T n = shfl_up(s, off);
+      if (lane >= off) s = op(n, s);
+    }
+    if (lane < kW) scratch[lane] = s;
+  }
+  __syncthreads();
+  T ex = shfl_up(inc, 1);
+  if (lane == 0) ex = id;
+  if (warp > 0) ex = op(scratch[warp - 1], ex);
+  *total = scratch[kW - 1];
+  __syncthreads();  // scratch is reused by the next call
+  return ex;
+}
+
+// Minimum of a 64-bit key over a block of kChunkThreads threads (every
+// thread gets it).
+__device__ unsigned long long block_min_u64(unsigned long long v,
+                                            unsigned long long* scratch) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -87,24 +162,212 @@ __device__ uint32_t block_min_u32(uint32_t v, uint32_t* scratch) {
     v = min(v, __shfl_xor_sync(0xFFFFFFFFu, v, off));
   if (lane == 0) scratch[warp] = v;
   __syncthreads();
-  uint32_t r = scratch[0];
-  for (int i = 1; i < kWarps; ++i) r = min(r, scratch[i]);
+  unsigned long long r = scratch[0];
+  for (int i = 1; i < kChunkWarps; ++i) r = min(r, scratch[i]);
   __syncthreads();
   return r;
 }
 
-__device__ int block_max_i32(int v, int* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = max(v, __shfl_xor_sync(0xFFFFFFFFu, v, off));
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  int r = scratch[0];
-  for (int i = 1; i < kWarps; ++i) r = max(r, scratch[i]);
-  __syncthreads();
+// --- the decoupled look-back ----------------------------------------------
+
+// A published value as two 64-bit words, each written once and carrying
+// bit 0 = written, so a reader that sees both words written has one whole
+// publication without any fence: x = vns << 1 | inc << 32 and
+// y = (amb + 1) << 1 for a Stream, x = count << 1 for a count.
+__device__ __forceinline__ void to_words(int v, unsigned long long* x,
+                                         unsigned long long* y) {
+  *x = 1ull | (unsigned long long)(unsigned)v << 1;
+  *y = 1ull;
+}
+__device__ __forceinline__ void to_words(const Stream& v,
+                                         unsigned long long* x,
+                                         unsigned long long* y) {
+  *x = 1ull | (unsigned long long)(unsigned)v.vns << 1 |
+       (unsigned long long)(unsigned)v.inc << 32;
+  *y = 1ull | (unsigned long long)(unsigned)(v.amb + 1) << 1;
+}
+__device__ __forceinline__ void from_words(unsigned long long x,
+                                           unsigned long long, int* v) {
+  *v = (int)(unsigned)(x >> 1);
+}
+__device__ __forceinline__ void from_words(unsigned long long x,
+                                           unsigned long long y, Stream* v) {
+  *v = {(int)((x >> 1) & 0x7FFFFFFFu), (int)(unsigned)(x >> 32),
+        (int)(unsigned)(y >> 1) - 1};
+}
+
+// The two words of a publication, stored and loaded as one 16-byte
+// access (each 8-byte half is read whole, which is all a reader needs).
+__device__ __forceinline__ void store_pair(volatile ulonglong2* w,
+                                           unsigned long long x,
+                                           unsigned long long y) {
+  asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};\n" ::"l"(w),
+               "l"(x), "l"(y)
+               : "memory");
+}
+__device__ __forceinline__ ulonglong2 load_pair(const volatile ulonglong2* w) {
+  ulonglong2 r;
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];\n"
+               : "=l"(r.x), "=l"(r.y)
+               : "l"(w)
+               : "memory");
   return r;
+}
+
+template <typename T>
+__device__ __forceinline__ void publish_words(volatile ulonglong2* w,
+                                              const T& v) {
+  unsigned long long x, y;
+  to_words(v, &x, &y);
+  store_pair(w, x, y);
+}
+
+// The block's tile, in the order blocks start: a block only ever waits on
+// tiles of lower numbers, which have started, so the look-back cannot
+// deadlock whatever order the hardware schedules blocks in.
+__device__ __forceinline__ int take_ticket(int* status, int* shared) {
+  if (threadIdx.x == 0) *shared = atomicAdd(status, 1);
+  __syncthreads();
+  return *shared;
+}
+
+// Single-pass prefix across the chunks of a row, called by the 32 threads
+// of warp 0 of the block holding tile `tile` (chunk j of its row) with the
+// chunk's aggregate: publish the aggregate; read the slots of up to 32
+// predecessors at once, one per lane, and combine their values back to the
+// nearest one that has published its inclusive prefix (window after window
+// of 32 if none has); publish this chunk's inclusive prefix; return the
+// exclusive one to every lane.
+template <typename T, typename Op>
+__device__ T look_back(int* status, int tile, int j, const T& agg,
+                       const T& id, Op op) {
+  constexpr int kPairs = kSlot / 4;  // (aggregate, inclusive prefix)
+  const int lane = threadIdx.x & 31;
+  auto slot = [status](int t) {
+    return (volatile ulonglong2*)status + kPairs * (t + 1);
+  };
+  if (j > 0 && lane == 0) publish_words(slot(tile), agg);
+  T excl = id;
+  for (int p0 = tile - 1; p0 >= tile - j; p0 -= 32) {
+    const int p = p0 - lane;
+    const bool in_row = p >= tile - j;
+    bool inclusive_here = false;
+    T v = id;
+    if (in_row) {
+      const volatile ulonglong2* s = slot(p);
+      for (;;) {
+        const ulonglong2 a = load_pair(s), i = load_pair(s + 1);
+        if (i.x & i.y & 1u) {
+          inclusive_here = true;
+          from_words(i.x, i.y, &v);
+          break;
+        }
+        if (a.x & a.y & 1u) {
+          from_words(a.x, a.y, &v);
+          break;
+        }
+      }
+    }
+    __syncwarp();
+    const unsigned inclusive = __ballot_sync(0xFFFFFFFFu, inclusive_here);
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    if (lane > stop) v = id;
+    // combine lanes stop .. 0, the earliest first: a scan towards lane 0
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const T n = shfl_down(v, off);
+      if (lane + off < 32) v = op(n, v);
+    }
+    excl = op(shfl_from(v, 0), excl);
+    if (inclusive) break;
+  }
+  if (lane == 0) publish_words(slot(tile) + 1, op(excl, agg));
+  return excl;
+}
+
+// Zero the first `words` int32 words (a multiple of kSlot) of `stale`,
+// the status of the launch before this one on the stream, which has
+// ended, so that the launch after this one can take it: the grid's
+// threads share the stores and nothing waits on them.  `stale` must not
+// be this launch's status.
+__device__ __forceinline__ void clear_stale(int* stale, int words) {
+  int4* s = reinterpret_cast<int4*>(stale);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < words / 4;
+       i += gridDim.x * blockDim.x)
+    s[i] = make_int4(0, 0, 0, 0);
+}
+
+// --- staging and storing a chunk ------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Wait for all but the most recent committed group.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Start copying nbytes from global src to shared dst (16-byte aligned) so
+// that src[i] lands at dst[off + i], off = the address of src mod 16:
+// every whole aligned 16-byte group by cp.async, the bytes of a partial
+// first or last group by plain copies (all loads issued before any
+// store, so they overlap).  Returns off.  The caller waits with
+// cp_async_wait_all() and a barrier.
+__device__ int stage_async(uint8_t* dst, const uint8_t* src, int nbytes) {
+  const uintptr_t a = (uintptr_t)src;
+  const int off = (int)(a & 15);
+  const uintptr_t a0 = a - off;
+  const int groups = (off + nbytes + 15) >> 4;
+  for (int g = threadIdx.x; g < groups; g += kChunkThreads) {
+    const int lo = 16 * g - off;  // the group's first byte, relative to src
+    if (lo >= 0 && lo + 16 <= nbytes) {
+      cp_async16(dst + 16 * g, (const void*)(a0 + 16 * g));
+    } else {
+      uint8_t b[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        b[i] = lo + i >= 0 && lo + i < nbytes ? src[lo + i] : 0;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (lo + i >= 0 && lo + i < nbytes) dst[16 * g + i] = b[i];
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  return off;
+}
+
+// Write the chunk's columns [0, ncols) of two planes, thread i holding
+// columns i * kPerThread ...: through shared memory (tb, two planes of
+// kTransposed words, padded so neither side has bank conflicts) so that
+// each warp stores 32 consecutive words.
+constexpr int kTransposed = kChunk + kChunk / 32;
+__device__ __forceinline__ void store_chunk(uint32_t* out0,
+                                            const uint32_t (&v0)[kPerThread],
+                                            uint32_t* out1,
+                                            const uint32_t (&v1)[kPerThread],
+                                            int ncols, uint32_t* tb) {
+  __syncthreads();  // tb is free
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const int x = threadIdx.x * kPerThread + q;
+    if (x < ncols) {
+      tb[x + (x >> 5)] = v0[q];
+      tb[kTransposed + x + (x >> 5)] = v1[q];
+    }
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < ncols; x += kChunkThreads) {
+    out0[x] = tb[x + (x >> 5)];
+    out1[x] = tb[kTransposed + x + (x >> 5)];
+  }
 }
 
 // Invertible minimizer hash (peregrine_tpu/ops/sketch.py:hash64) on 32-bit
@@ -120,68 +383,131 @@ __device__ __forceinline__ uint32_t hash32(uint32_t key, uint32_t mask) {
   return key;
 }
 
-// Stream-entry build.  Per column t of a read: the forward and reverse-
-// complement k-mers ending at t from the codes c[t-k+1..t] & 3 (zeros
-// before column 0), the canonical k-mer and its strand, its hash, and
-// whether it is defined: valid, not strand-symmetric, and at least k such
-// entries since the last ambiguous base.  Emits H (hash or kInf),
-// P = t<<2 | strand<<1 | amb, the stream destination of entries that are
-// valid-non-symmetric or ambiguous, and the stream count n.
-__global__ void __launch_bounds__(kThreads)
+// Stream-entry build (replaces build_stream, compact_pallas.py:230).  Per
+// column t of a read: the forward and reverse-complement k-mers ending at
+// t from the codes c[t-k+1..t] & 3 (zeros before column 0), the canonical
+// k-mer and its strand, its hash, and whether it is defined: valid, not
+// strand-symmetric, and at least k such entries since the last ambiguous
+// base.  Emits H (hash or kInf), P = t<<2 | strand<<1 | amb, the stream
+// destination of entries that are valid-non-symmetric or ambiguous, and
+// the stream count n.
+//
+// Bound: 13 bytes per column (codes in, H, P, dest out), 4.07 us at
+// B=64, L=16,384 on 3.35 TB/s.  Design: one block per chunk of a row
+// (B x ceil(L / kChunk) blocks); the chunk's codes and a k-1 halo are
+// staged in shared memory by cp.async; each thread rolls the k-mers over
+// its kPerThread consecutive columns (k + kPerThread - 1 shared reads
+// instead of k per column); one block scan and one decoupled look-back
+// carry the three row prefixes (Stream) across chunks, since `defined`
+// reaches back to the last ambiguous base however far away; the outputs
+// leave through a shared transpose as coalesced stores, P (which needs no
+// prefix) while warp 0 waits on the look-back, H and dest after it; the
+// hashes, which the chunk's aggregate does not need, are computed in that
+// wait too.  Three blocks fit an SM (at most 42 registers a thread), so
+// the 384 blocks of a B=64, L=24,576 batch run in one wave on 132 SMs.
+__global__ void __launch_bounds__(kChunkThreads, 3)
 build_stream_kernel(const uint8_t* __restrict__ codes,
                     const int32_t* __restrict__ lengths,
-                    uint32_t* __restrict__ H, uint32_t* __restrict__ P,
-                    int32_t* __restrict__ dest, int32_t* __restrict__ n_out,
-                    int L, int k) {
-  __shared__ int scratch[kWarps];
-  const size_t base = (size_t)blockIdx.x * L;
-  const uint8_t* c = codes + base;
-  const int len = lengths[blockIdx.x];
+                    int* __restrict__ status, int* __restrict__ stale,
+                    int stale_words, uint32_t* __restrict__ H,
+                    uint32_t* __restrict__ P, int32_t* __restrict__ dest,
+                    int32_t* __restrict__ n_out, int L, int k, int chunks) {
+  __shared__ __align__(16) uint8_t cs[kChunk + 32];
+  __shared__ uint32_t tb[2 * kTransposed];
+  __shared__ Stream scratch[kChunkWarps];
+  __shared__ int ticket;
+  __shared__ Stream carried;
+
+  const int tile = take_ticket(status, &ticket);
+  clear_stale(stale, stale_words);
+  const int row = tile / chunks, j = tile - row * chunks;
+  const int c0 = j * kChunk, ncols = min(kChunk, L - c0);
+  const size_t base = (size_t)row * L;
+  const int len = lengths[row];
+  const int g0 = max(0, c0 - (k - 1));
+  const int off = stage_async(cs, codes + base + g0, c0 + ncols - g0);
+  const uint8_t* c = cs + off;  // c[t - g0] is column t's code
+  cp_async_wait_all();
+  __syncthreads();
+
   const uint32_t mask = k >= 16 ? 0xFFFFFFFFu : ((1u << (2 * k)) - 1u);
-  int carry_cv = 0, carry_ci = 0, carry_amb = 0;
-  for (int t0 = 0; t0 < L; t0 += kThreads) {
-    const int t = t0 + threadIdx.x;
-    const bool active = t < L;
-    const bool inlen = active && t < len;
-    const int ct = active ? c[t] : 4;
-    const bool valid = inlen && ct < 4;
-    const bool amb = inlen && ct >= 4;
-    uint32_t fwd = 0, rev = 0;
-    if (active) {
-      for (int d = 0; d < k && d <= t; ++d) {
-        const uint32_t b = c[t - d] & 3u;
+  const int t0 = c0 + threadIdx.x * kPerThread;
+  uint32_t fwd = 0, rev = 0;
+  if (t0 < c0 + ncols) {
+#pragma unroll
+    for (int d = 1; d < kMaxK; ++d) {
+      if (d < k && d <= t0) {
+        const uint32_t b = c[t0 - d - g0] & 3u;
         fwd |= b << (2 * d);
         rev |= (b ^ 3u) << (2 * (k - 1 - d));
       }
     }
-    fwd &= mask;
-    const bool sym = valid && fwd == rev;
-    const uint32_t strand = fwd < rev ? 0u : 1u;
-    const uint32_t h = hash32(min(fwd, rev), mask);
-    const bool vns = valid && !sym;
-    const bool inc = vns || amb;
-    // one scan carries both counts: vns in the low 16 bits, inc in the
-    // high 16 (a tile holds at most kThreads < 2^16 of each)
-    int tot;
-    const int s = block_scan((vns ? 1 : 0) | ((inc ? 1 : 0) << 16), 0, Sum(),
-                             scratch, &tot);
-    const int cv = carry_cv + (s & 0xFFFF);
-    const int ci = carry_ci + (s >> 16);
-    int tot_amb;
-    const int at_amb = max(carry_amb,
-                           block_scan(amb ? cv : 0, 0, Max(), scratch,
-                                      &tot_amb));
-    const bool defined = vns && (cv - at_amb) >= k;
-    if (active) {
-      H[base + t] = defined ? h : kInf;
-      P[base + t] = ((uint32_t)t << 2) | (strand << 1) | (amb ? 1u : 0u);
-      dest[base + t] = inc ? ci - 1 : -1;
-    }
-    carry_cv += tot & 0xFFFF;
-    carry_ci += tot >> 16;
-    carry_amb = max(carry_amb, tot_amb);
+    fwd >>= 2;  // the loop below shifts column t0 in
+    rev <<= 2;
   }
-  if (threadIdx.x == 0) n_out[blockIdx.x] = carry_ci;
+  uint32_t hv[kPerThread];  // the canonical k-mer, then its hash
+  uint32_t bits = 0;        // per column q, bits 2q, 2q + 1: vns, amb
+  Stream loc = {0, 0, -1};
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const int t = t0 + q;
+    hv[q] = kInf;
+    if (t < c0 + ncols) {
+      const uint32_t ct = c[t - g0];
+      const uint32_t b = ct & 3u;
+      fwd = ((fwd << 2) | b) & mask;
+      rev = (rev >> 2) | ((b ^ 3u) << (2 * (k - 1)));
+      const bool inlen = t < len;
+      const bool valid = inlen && ct < 4;
+      const bool amb = inlen && ct >= 4;
+      const bool sym = valid && fwd == rev;
+      const uint32_t strand = fwd < rev ? 0u : 1u;
+      hv[q] = min(fwd, rev);
+      const bool vns = valid && !sym;
+      if (amb) loc.amb = loc.vns;
+      loc.vns += vns;
+      loc.inc += vns || amb;
+      bits |= ((vns ? 1u : 0u) | (amb ? 2u : 0u)) << (2 * q);
+      // P needs no row prefix: into the transpose buffer's second plane
+      const int x = t - c0;
+      tb[kTransposed + x + (x >> 5)] =
+          ((uint32_t)t << 2) | (strand << 1) | (amb ? 1u : 0u);
+    }
+  }
+
+  const Stream id = {0, 0, -1};
+  Stream agg;
+  const Stream ex =
+      block_scan<kChunkWarps>(loc, id, StreamOp(), scratch, &agg);
+  // warp 0 carries the row prefix while the other warps store P (the scan's
+  // barriers ordered its transpose writes before these reads) and hash
+  if (threadIdx.x < 32) {
+    const Stream c = look_back(status, tile, j, agg, id, StreamOp());
+    if (threadIdx.x == 0) carried = c;
+  } else {
+    for (int x = threadIdx.x - 32; x < ncols; x += kChunkThreads - 32)
+      P[base + c0 + x] = tb[kTransposed + x + (x >> 5)];
+  }
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) hv[q] = hash32(hv[q], mask);
+  __syncthreads();
+  const Stream pre = StreamOp()(carried, ex);
+
+  uint32_t hp[kPerThread], dp[kPerThread];
+  int cv = pre.vns, ci = pre.inc, at_amb = max(pre.amb, 0);
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const uint32_t f = bits >> (2 * q);
+    const bool vns = f & 1u, amb = f & 2u;
+    cv += vns;
+    ci += vns || amb;
+    if (amb) at_amb = cv;
+    const bool defined = vns && (cv - at_amb) >= k;
+    hp[q] = defined ? hv[q] : kInf;
+    dp[q] = (vns || amb) ? (uint32_t)(ci - 1) : kInf;
+  }
+  store_chunk(H + base + c0, hp, (uint32_t*)dest + base + c0, dp, ncols, tb);
+  if (threadIdx.x == 0 && j == chunks - 1) n_out[row] = carried.inc + agg.inc;
 }
 
 // Stable compaction of one plane: out[row, dest[i]] = in[row, i] where
@@ -197,70 +523,247 @@ __global__ void move_plane_kernel(const int32_t* __restrict__ dest,
   if (d >= 0) out[(i / L) * L + d] = in[i];
 }
 
-// Window-minimum emission over a compacted stream (sH, sP, n).  Pass 1:
-// the distance to the last ambiguous placeholder, the trailing minimum of
-// sH over w, and Ap = that minimum where the window is complete (else 0),
-// written to the scratch plane.  Then the final window's minimum and its
-// newest (largest) column.  Pass 2: the leading maximum of Ap over w; an
-// entry is emitted where it equals its own hash, or where it is the held
-// minimum of the final window.  Writes the emitted entries' destinations
-// and their count.
-__global__ void __launch_bounds__(kThreads)
+// One doubling step of a sliding extremum held in registers: v[q], the
+// value at staged column i = threadIdx.x + q * kChunkThreads (i < E),
+// takes in src[i + d] (src is padded with the identity on the side that
+// d reaches).  The barrier after the reads lets the caller overwrite src.
+template <bool kIsMax>
+__device__ __forceinline__ void combine(uint32_t (&v)[kExtPer],
+                                        const uint32_t* src, int E, int d) {
+#pragma unroll
+  for (int q = 0; q < kExtPer; ++q) {
+    const int i = threadIdx.x + q * kChunkThreads;
+    if (i < E) v[q] = kIsMax ? max(v[q], src[i + d]) : min(v[q], src[i + d]);
+  }
+  __syncthreads();
+}
+
+// Write the registers' values to their staged columns of dst, then a
+// barrier.
+__device__ __forceinline__ void publish(uint32_t* dst,
+                                        const uint32_t (&v)[kExtPer], int E) {
+#pragma unroll
+  for (int q = 0; q < kExtPer; ++q) {
+    const int i = threadIdx.x + q * kChunkThreads;
+    if (i < E) dst[i] = v[q];
+  }
+  __syncthreads();
+}
+
+// emit_mask's segments: for column-layout register q, warp w holds the 32
+// staged columns from q * kChunkThreads + 32 w, and the segments in order
+// q * kChunkWarps + w run in column order.
+constexpr int kSegs = kExtPer * kChunkWarps;
+
+// Exclusive prefix, in place, of one int per segment under op (identity
+// id); called by warp 0, which gets the total.
+template <typename Op>
+__device__ int segment_scan(int* seg, int id, Op op) {
+  constexpr int kEach = (kSegs + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  int own[kEach], acc = id;
+#pragma unroll
+  for (int e = 0; e < kEach; ++e) {
+    const int x = lane * kEach + e;
+    own[e] = x < kSegs ? seg[x] : id;
+    acc = op(acc, own[e]);
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int n = __shfl_up_sync(0xFFFFFFFFu, acc, off);
+    if (lane >= off) acc = op(n, acc);
+  }
+  const int total = __shfl_sync(0xFFFFFFFFu, acc, 31);
+  int before = __shfl_up_sync(0xFFFFFFFFu, acc, 1);
+  if (lane == 0) before = id;
+#pragma unroll
+  for (int e = 0; e < kEach; ++e) {
+    const int x = lane * kEach + e;
+    if (x < kSegs) seg[x] = before;
+    before = op(before, own[e]);
+  }
+  return total;
+}
+
+// Window-minimum emission over a compacted stream (sH, sP, n) (replaces
+// emit_mask, compact_pallas.py:333).  W = the trailing minimum of sH over
+// w; Ap = W where the window is complete, else 0; M = the leading maximum
+// of Ap over w.  An entry t < n is emitted where M equals its own hash
+// (not kInf), or where it is the newest minimum of the final window
+// [max(0, n - w), n).  `complete` is a window test: the TPU kernel's
+// t - (last ambiguous placeholder at or before t) >= w + k - 1 holds
+// exactly when t >= w + k - 2 and no placeholder lies in
+// [t - (w + k - 2), t].  Writes the emitted entries' destinations (-1
+// elsewhere, and at or past n) and their count.
+//
+// Bound: 12 bytes per column (sH, sP in for the columns below n, dest out
+// for all), 3.76 us at B=64, L=16,384 with full rows on 3.35 TB/s.
+// Design: one block per chunk of a row; the chunk's sH and sP with a halo
+// of w + k - 2 columns before and w - 1 after, clipped to [0, n), are
+// staged in shared memory by cp.async, sP first so that `complete` (warp
+// ballots of the placeholder bits and one warp's prefix over the 32-column
+// segments) runs while sH arrives; the trailing minimum and the leading
+// maximum are log-step sparse tables, each column's value in a register
+// and its neighbour read from shared memory (about 2 log2(w) steps of one
+// shared load each, where a column used to read 2w taps from device memory
+// and round-trip Ap through a scratch plane); the final window lies inside
+// the staged columns of the chunks it meets; the emitted entries' ranks
+// come from ballots, one warp's prefix over the segments and a decoupled
+// look-back, and each warp stores its 32 columns of dest at once.
+__global__ void __launch_bounds__(kChunkThreads)
 emit_mask_kernel(const uint32_t* __restrict__ sH,
                  const uint32_t* __restrict__ sP,
-                 const int32_t* __restrict__ n_in, uint32_t* Ap,
+                 const int32_t* __restrict__ n_in, int* __restrict__ status,
+                 int* __restrict__ stale, int stale_words,
                  int32_t* __restrict__ dest, int32_t* __restrict__ count,
-                 int L, int w, int k) {
-  __shared__ int scratch[kWarps];
-  const size_t base = (size_t)blockIdx.x * L;
-  const uint32_t* h = sH + base;
-  const uint32_t* p = sP + base;
-  uint32_t* ap = Ap + base;
-  const int n = n_in[blockIdx.x];
+                 int L, int w, int k, int chunks) {
+  __shared__ __align__(16) uint32_t Hs[kPad + kExt];
+  __shared__ __align__(16) uint32_t As[kPad + kExt + kPad];
+  __shared__ int seg[kSegs];
+  __shared__ unsigned long long red[kChunkWarps];
+  __shared__ int shared_int;
 
-  int carry_la = -1;
-  for (int t0 = 0; t0 < L; t0 += kThreads) {
-    const int t = t0 + threadIdx.x;
-    const bool in_n = t < n && t < L;
-    const bool samb = in_n && (p[t] & 1u);
-    int tot;
-    const int la = max(carry_la,
-                       block_scan(samb ? t : -1, -1, Max(), scratch, &tot));
-    carry_la = max(carry_la, tot);
-    if (t < L) {
-      uint32_t W = kInf;
-      for (int d = 0; d < w && d <= t; ++d) W = min(W, h[t - d]);
-      const bool complete = in_n && (t - la) >= w + k - 1;
-      ap[t] = complete ? W : 0u;
+  const int tile = take_ticket(status, &shared_int);
+  clear_stale(stale, stale_words);
+  const int row = tile / chunks, j = tile - row * chunks;
+  const int c0 = j * kChunk, ncols = min(kChunk, L - c0);
+  const size_t base = (size_t)row * L;
+  const int n = max(0, min(n_in[row], L));  // a count: never past the row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g0 = max(0, c0 - (w + k - 2));
+  uint32_t em[kExtPer];  // ballots of the emitted columns
+  int agg = 0;           // the chunk's emitted entries, in warp 0
+
+  if (c0 < n) {  // block-uniform; chunks at or past n emit nothing
+    const int E = min(n, c0 + kChunk + w - 1) - g0;
+    // sP first: `complete` needs only its placeholder bits, and runs while
+    // sH is still arriving
+    const int offP = stage_async((uint8_t*)(As + kPad),
+                                 (const uint8_t*)(sP + base + g0), 4 * E);
+    const int offH = stage_async((uint8_t*)(Hs + kPad),
+                                 (const uint8_t*)(sH + base + g0), 4 * E);
+    uint32_t* hs = Hs + kPad + offH / 4;  // hs[i], as[i]: column g0 + i
+    uint32_t* as = As + kPad + offP / 4;
+    for (int i = threadIdx.x; i < kPad + offH / 4; i += kChunkThreads)
+      Hs[i] = kInf;
+    for (int i = threadIdx.x; i < kPad + offP / 4; i += kChunkThreads)
+      As[i] = kInf;
+    for (int i = threadIdx.x; i < kPad; i += kChunkThreads) as[E + i] = 0;
+    cp_async_wait_one();
+    __syncthreads();
+
+    // complete: the last placeholder at or before each column, from a
+    // ballot over each warp's 32 columns and a prefix (last) over these
+    // segments in column order
+    uint32_t amb[kExtPer];
+#pragma unroll
+    for (int q = 0; q < kExtPer; ++q) {
+      const int i = threadIdx.x + q * kChunkThreads;
+      amb[q] = __ballot_sync(0xFFFFFFFFu, i < E && (as[i] & 1u));
+      if (lane == 0)
+        seg[q * kChunkWarps + warp] =
+            amb[q] ? i + 31 - __clz(amb[q]) : -1;  // i: the segment's start
     }
-  }
-  __syncthreads();  // Ap of the whole row is visible to the block
-
-  // final window: columns [max(0, n - w), n); w < kThreads
-  const int lo = max(0, n - w);
-  const int col = lo + (int)threadIdx.x;
-  const bool in_final = col < n;
-  const uint32_t v = in_final ? h[col] : kInf;
-  const uint32_t fmin = block_min_u32(v, (uint32_t*)scratch);
-  const int t_f = block_max_i32(in_final && v == fmin ? col : -1, scratch);
-  const bool has_final = fmin != kInf && t_f >= 0;
-
-  int carry = 0;
-  for (int t0 = 0; t0 < L; t0 += kThreads) {
-    const int t = t0 + threadIdx.x;
-    bool emit = false;
-    if (t < n && t < L) {
-      uint32_t M = 0;
-      for (int d = 0; d < w && t + d < L; ++d) M = max(M, ap[t + d]);
-      const uint32_t ht = h[t];
-      emit = (ht != kInf && M == ht) || (has_final && t == t_f);
+    __syncthreads();
+    if (warp == 0) segment_scan(seg, -1, Max());
+    cp_async_wait_all();
+    __syncthreads();
+    uint32_t v[kExtPer];
+    uint32_t cmask = 0;  // bit q: that column's window is complete
+#pragma unroll
+    for (int q = 0; q < kExtPer; ++q) {
+      const int i = threadIdx.x + q * kChunkThreads;
+      if (i < E) {
+        v[q] = hs[i];
+        const uint32_t upto = amb[q] & (0xFFFFFFFFu >> (31 - lane));
+        const int la = upto ? i - lane + 31 - __clz(upto)
+                            : seg[q * kChunkWarps + warp];
+        const int t_amb = la >= 0 ? g0 + la : -1;
+        if (g0 + i - t_amb >= w + k - 1) cmask |= 1u << q;
+      }
     }
-    int tot;
-    const int s = block_scan(emit ? 1 : 0, 0, Sum(), scratch, &tot);
-    if (t < L) dest[base + t] = emit ? carry + s - 1 : -1;
-    carry += tot;
+
+    // W, the trailing minimum over w: doublings cover jj columns, and a
+    // last step overlaps two of them to cover w
+    int jj = 1;
+    for (; 2 * jj <= w; jj *= 2) {
+      if (jj > 1) publish(as, v, E);
+      combine<false>(v, jj > 1 ? as : hs, E, -jj);
+    }
+    if (w > jj) {
+      publish(as, v, E);
+      combine<false>(v, as, E, jj - w);
+    }
+    // Ap = W where complete, else 0; M, the leading maximum of Ap over w
+#pragma unroll
+    for (int q = 0; q < kExtPer; ++q)
+      if (!(cmask >> q & 1u)) v[q] = 0;
+    publish(as, v, E);
+    for (jj = 1; 2 * jj <= w; jj *= 2) {
+      if (jj > 1) publish(as, v, E);
+      combine<true>(v, as, E, jj);
+    }
+    if (w > jj) {
+      if (jj > 1) publish(as, v, E);
+      combine<true>(v, as, E, w - jj);
+    }
+
+    // the final window's minimum and its newest column, in the chunks it
+    // meets: the least key (hash, ~column)
+    bool has_final = false;
+    int t_f = -1;
+    const int lo_f = max(0, n - w);
+    if (c0 + kChunk > lo_f) {  // block-uniform
+      const int t = lo_f + (int)threadIdx.x;
+      const unsigned long long key =
+          t < n ? ((unsigned long long)hs[t - g0] << 32) | (kInf - (uint32_t)t)
+                : ~0ull;
+      const unsigned long long m = block_min_u64(key, red);
+      has_final = (uint32_t)(m >> 32) != kInf;
+      t_f = (int)(kInf - (uint32_t)m);
+    }
+
+    // emitted columns of the chunk, by ballots in the column layout; their
+    // ranks are a prefix over the segments' counts plus a popcount
+#pragma unroll
+    for (int q = 0; q < kExtPer; ++q) {
+      const int i = threadIdx.x + q * kChunkThreads;
+      const int t = g0 + i;
+      bool e = false;
+      if (i < E && t >= c0 && t < c0 + ncols) {
+        const uint32_t h = hs[i];
+        e = (h != kInf && v[q] == h) || (has_final && t == t_f);
+      }
+      em[q] = __ballot_sync(0xFFFFFFFFu, e);
+      if (lane == 0) seg[q * kChunkWarps + warp] = __popc(em[q]);
+    }
+    __syncthreads();
+    if (warp == 0) agg = segment_scan(seg, 0, Sum());
+    __syncthreads();
   }
-  if (threadIdx.x == 0) count[blockIdx.x] = carry;
+
+  if (threadIdx.x < 32) {
+    const int c = look_back(status, tile, j, agg, 0, Sum());
+    if (threadIdx.x == 0) shared_int = c;
+  }
+  __syncthreads();
+  const int pre = shared_int;
+  if (c0 < n) {
+#pragma unroll
+    for (int q = 0; q < kExtPer; ++q) {
+      const int t = g0 + threadIdx.x + q * kChunkThreads;
+      if (t >= c0 && t < c0 + ncols)
+        dest[base + t] =
+            em[q] >> lane & 1u
+                ? pre + seg[q * kChunkWarps + warp] +
+                      __popc(em[q] & ((1u << lane) - 1u))
+                : -1;
+    }
+  } else {
+    for (int x = threadIdx.x; x < ncols; x += kChunkThreads)
+      dest[base + c0 + x] = -1;
+  }
+  if (threadIdx.x == 0 && j == chunks - 1) count[row] = pre + agg;
 }
 
 // The winner at column j of the r-wide trailing window: the least
@@ -316,8 +819,8 @@ reduce_step_kernel(const uint32_t* __restrict__ H,
       }
     }
     int tot;
-    const int s = block_scan(emit ? 1 : 0, 0, Sum(), scratch, &tot);
-    if (j < L) dest[base + j] = emit ? carry + s - 1 : -1;
+    const int s = block_scan<kWarps>(emit ? 1 : 0, 0, Sum(), scratch, &tot);
+    if (j < L) dest[base + j] = emit ? carry + s : -1;
     carry += tot;
   }
   if (threadIdx.x == 0) count[blockIdx.x] = carry;
@@ -362,11 +865,11 @@ compact_planes_kernel(const uint8_t* __restrict__ keep, Planes pl,
     const int t = t0 + threadIdx.x;
     const bool kept = t < L && keep[base + t] != 0;
     int tot;
-    const int s = block_scan(kept ? 1 : 0, 0, Sum(), scratch, &tot);
+    const int s = block_scan<kWarps>(kept ? 1 : 0, 0, Sum(), scratch, &tot);
     if (kept) {
 #pragma unroll
       for (int p = 0; p < kMaxPlanes; ++p)
-        put(pl, p, base + carry + s - 1, base + t, true);
+        put(pl, p, base + carry + s, base + t, true);
     }
     carry += tot;
   }
@@ -381,12 +884,17 @@ compact_planes_kernel(const uint8_t* __restrict__ keep, Planes pl,
 
 extern "C" {
 
-int pg_build_stream(const void* codes, const void* lengths, void* H, void* P,
+int pg_build_stream(const void* codes, const void* lengths, void* status,
+                    void* stale, int stale_words, void* H, void* P,
                     void* dest, void* n_out, int B, int L, int k,
                     void* stream) {
-  build_stream_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (const int32_t*)lengths, (uint32_t*)H,
-      (uint32_t*)P, (int32_t*)dest, (int32_t*)n_out, L, k);
+  if (k < 1 || k > kMaxK || stale_words % kSlot)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (L + kChunk - 1) / kChunk;
+  build_stream_kernel<<<B * chunks, kChunkThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (const int32_t*)lengths, (int*)status,
+      (int*)stale, stale_words, (uint32_t*)H, (uint32_t*)P, (int32_t*)dest,
+      (int32_t*)n_out, L, k, chunks);
   return (int)cudaGetLastError();
 }
 
@@ -400,12 +908,16 @@ int pg_move_plane(const void* dest, const void* in, void* out, int B, int L,
   return (int)cudaGetLastError();
 }
 
-int pg_emit_mask(const void* sH, const void* sP, const void* n_in, void* Ap,
-                 void* dest, void* count, int B, int L, int w, int k,
-                 void* stream) {
-  emit_mask_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+int pg_emit_mask(const void* sH, const void* sP, const void* n_in,
+                 void* status, void* stale, int stale_words, void* dest,
+                 void* count, int B, int L, int w, int k, void* stream) {
+  if (w < 1 || w > kMaxW || k < 1 || k > kMaxK || stale_words % kSlot)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (L + kChunk - 1) / kChunk;
+  emit_mask_kernel<<<B * chunks, kChunkThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)sH, (const uint32_t*)sP, (const int32_t*)n_in,
-      (uint32_t*)Ap, (int32_t*)dest, (int32_t*)count, L, w, k);
+      (int*)status, (int*)stale, stale_words, (int32_t*)dest, (int32_t*)count,
+      L, w, k, chunks);
   return (int)cudaGetLastError();
 }
 

@@ -17,8 +17,12 @@ through a plain C interface with ctypes) and counts the launch in its
 CPU tests hold against the Pallas kernels.  Any other device raises.
 
 What bounds the kernels on an H100: device-memory bytes (each reads and
-writes about three to four B x L x 4-byte planes once); the windowed taps
-re-read neighbours through L1.  See the source note in the .cu file.
+writes about three to four B x L x 4-byte planes once).  build_stream and
+emit_mask split rows into chunks of CHUNK columns, one block each, and
+carry row prefixes across chunks by a decoupled look-back over a zeroed
+status buffer; each launch zeroes the one the launch before it used, so
+the wrappers alternate two (`_call_chunked`).  See the source note in
+the .cu file.
 
 Conventions: torch has no usable uint32 (no shifts, compares or minimum),
 so the u32 planes ride in int32 tensors holding the same bits; the plain
@@ -52,13 +56,21 @@ _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # list, and every argument of a function without one, as a C int, which
 # cuts a 64-bit pointer or stream handle to 32 bits without an error.
 SIGNATURES = {
-    "pg_build_stream": [_VP] * 6 + [_INT] * 3 + [_VP],
+    "pg_build_stream": [_VP] * 4 + [_INT] + [_VP] * 4 + [_INT] * 3 + [_VP],
     "pg_move_plane": [_VP] * 3 + [_INT] * 2 + [_VP],
-    "pg_emit_mask": [_VP] * 6 + [_INT] * 4 + [_VP],
+    "pg_emit_mask": [_VP] * 5 + [_INT] + [_VP] * 2 + [_INT] * 4 + [_VP],
     "pg_reduce_step": [_VP] * 7 + [_INT] * 3 + [_VP],
     "pg_compact_planes": [_VP] * 8 + [_I64] * 3 + [_INT] * 5 + [_VP],
 }
+# The chunked kernels' layout (kChunk and kSlot in the .cu file; tests
+# check the two agree): columns per block, and int32 words per look-back
+# status slot (slot 0 holds the ticket counter, then one per chunk).
+CHUNK = 4096
+STATUS_SLOT = 8
 _lib = None
+# (device, stream) -> [status of the next launch, status of the last, the
+# words the last launch used]
+_status_pairs: dict = {}
 
 
 def _nvcc() -> str:
@@ -111,6 +123,24 @@ def _call(fn, *args) -> None:
     rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+
+
+def _call_chunked(fn, B: int, L: int, device, inputs, outputs, *tail):
+    """Launch chunked kernel fn(*inputs, status, stale, stale_words,
+    *outputs, *tail): status is zeroed look-back status for this launch,
+    and the kernel zeroes the first stale_words of stale, the status of the
+    last launch on this stream, which then serves the next.  The two
+    buffers start as zeros and are replaced by larger ones as needed."""
+    words = STATUS_SLOT * (1 + B * -(-L // CHUNK))
+    key = (device, torch.cuda.current_stream(device).cuda_stream
+           if device.type == "cuda" else None)
+    pair = _status_pairs.get(key)
+    if pair is None or pair[0].numel() < words:
+        pair = [torch.zeros(words, dtype=torch.int32, device=device)
+                for _ in range(2)] + [0]
+    status, stale, stale_words = pair
+    _call(fn, *inputs, status, stale, stale_words, *outputs, *tail)
+    _status_pairs[key] = [stale, status, words]
 
 
 def u32(t: torch.Tensor) -> torch.Tensor:
@@ -205,8 +235,8 @@ def build_stream(codes: torch.Tensor, lengths: torch.Tensor, *, k: int):
     dest = torch.empty_like(H)
     n = torch.empty(B, dtype=torch.int32, device=codes.device)
     if B and L:
-        _call(library().pg_build_stream, codes, lengths, H, P, dest, n,
-              B, L, k)
+        _call_chunked(library().pg_build_stream, B, L, codes.device,
+                      (codes, lengths), (H, P, dest, n), B, L, k)
         build_stream.launches += 1
     else:
         n.zero_()
@@ -257,14 +287,17 @@ def emit_mask_plain(sH: torch.Tensor, sP: torch.Tensor, n: torch.Tensor,
         return _dest(in_n)
     h = u32(sH)
     samb = ((sP & 1) != 0) & in_n
-    last_amb = torch.cummax(torch.where(samb, col, -1), dim=1).values
     W = h.clone()
     for d in range(1, w):
         W = torch.minimum(W, _shift_right(h, d, _U32))
-    complete = (col - last_amb) >= (w + k - 1)
+    # complete: t >= w + k - 2 and no placeholder in [t - (w + k - 2), t],
+    # the window form of the TPU kernel's t - last_amb >= w + k - 1
+    span = w + k - 1
+    n_amb = torch.cumsum(samb.to(torch.int32), dim=1)
+    complete = (col >= span - 1) & (n_amb == _shift_right(n_amb, span, 0))
     Ap = torch.where(complete & in_n, W, 0)
     M = Ap.clone()
-    for d in range(1, w):
+    for d in range(1, min(w, L)):
         M[:, :L - d] = torch.maximum(M[:, :L - d], Ap[:, d:])
     emit = (h != _U32) & (M == h)
     in_final = (col >= n.to(torch.int64)[:, None] - w) & in_n
@@ -282,19 +315,22 @@ def emit_mask(sH: torch.Tensor, sP: torch.Tensor, n: torch.Tensor, *,
     """Window-minimum emission over the compacted stream (sH, sP, n):
     returns (dest, count) of the emitted entries."""
     B, L = sH.shape
-    if not 0 < w < 256:
-        raise ValueError(f"emit_mask: w={w} outside 1..255")
+    if not 0 < w < 256 or not 0 < k <= 16:
+        raise ValueError(f"emit_mask: w={w} outside 1..255 or k={k} "
+                         "outside 1..16")
     _check(sH, torch.int32, (B, L), "sH")
     _check(sP, torch.int32, (B, L), "sP")
     _check(n, torch.int32, (B,), "n")
     if _route(sH, sP, n) == "cpu":
         return emit_mask_plain(sH, sP, n, w, k)
-    Ap = torch.empty_like(sH)  # scratch plane: the gated window minima
     dest = torch.empty_like(sH)
-    count = torch.zeros(B, dtype=torch.int32, device=sH.device)
-    if B and L:
-        _call(library().pg_emit_mask, sH, sP, n, Ap, dest, count, B, L, w, k)
+    count = torch.empty(B, dtype=torch.int32, device=sH.device)
+    if B and L:  # the last chunk of each row writes its count
+        _call_chunked(library().pg_emit_mask, B, L, sH.device, (sH, sP, n),
+                      (dest, count), B, L, w, k)
         emit_mask.launches += 1
+    else:
+        count.zero_()
     return dest, count
 
 

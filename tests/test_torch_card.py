@@ -9,6 +9,13 @@ there on its own:
 
 Every output of a launch is a view into a larger buffer whose margins
 hold a canary; a write past either end of an output changes a margin.
+build_stream and emit_mask split rows into chunks of CHUNK columns and
+carry row prefixes by a decoupled look-back over a zeroed status buffer,
+and each launch zeroes the status of the launch before it: their cases
+put lengths, counts, placeholders and final windows on chunk boundaries
+(torch_kernel_cases), check what each launch published to its status and
+that it zeroed the earlier one, and repeat launches on two status buffers
+in turn to catch races.
 """
 
 import numpy as np
@@ -16,6 +23,7 @@ import pytest
 import torch
 
 from peregrine_tpu_torch.ops import kernels as kn
+import torch_kernel_cases as kernel_cases
 
 pytestmark = [pytest.mark.cuda,
               pytest.mark.skipif(not torch.cuda.is_available(),
@@ -25,6 +33,8 @@ pytestmark = [pytest.mark.cuda,
 B, K, W, R = 64, 16, 80, 6
 CANARY = 0x5A5A5A5A
 GUARD = 4096
+C, SLOT = kn.CHUNK, kn.STATUS_SLOT
+CHUNKED_L = [C - 1, C, C + 1, 16384, 24576, 40960]
 
 
 def _guarded(*shape, dtype=torch.int32):
@@ -36,6 +46,47 @@ def _guarded(*shape, dtype=torch.int32):
 def _outputs(*shapes, dtype=torch.int32):
     bufs, views = zip(*(_guarded(*s, dtype=dtype) for s in shapes))
     return list(bufs), list(views)
+
+
+def _status(L, fill=0):
+    """A look-back status buffer for rows of length L inside canary
+    margins: zeros, or `fill` for the status of an earlier launch, which
+    the launch must zero."""
+    buf, view = _guarded(SLOT * (1 + B * -(-L // C)))
+    view.fill_(fill)
+    return buf, view
+
+
+def _check_status(status, L, field, counts, total):
+    """After a launch every tile took one ticket and published its
+    inclusive prefix, and every chunk but the first its aggregate, each as
+    two 64-bit words with bit 0 set (field 0 of x >> 1 is a count, x >> 32
+    field 1); `field` of the aggregates equals the per-chunk `counts`
+    [B, chunks], the inclusive prefixes are their running sums, and the
+    last is the row's `total`."""
+    chunks = -(-L // C)
+    st = status.view(torch.int64).view(-1, SLOT // 2)
+    assert st[0, 0] == B * chunks and not st[0, 1:].any()
+    tiles = st[1:].view(B, chunks, SLOT // 2)
+    assert ((tiles[..., 2] & tiles[..., 3] & 1) == 1).all()
+    assert ((tiles[:, 1:, 0] & tiles[:, 1:, 1] & 1) == 1).all()
+    assert not tiles[:, 0, :2].any()
+
+    def value(x):
+        return ((x >> 32) if field else (x >> 1) & 0x7FFFFFFF).to(torch.int32)
+
+    assert torch.equal(value(tiles[:, 1:, 0]), counts[:, 1:])
+    assert torch.equal(value(tiles[..., 2]),
+                       counts.cumsum(1, dtype=torch.int32))
+    assert torch.equal(value(tiles[:, -1, 2]), total)
+
+
+def _chunk_counts(dest, L):
+    """Kept entries (dest >= 0) per chunk of each row."""
+    chunks = -(-L // C)
+    kept = torch.zeros((B, chunks * C), dtype=torch.int32, device="cuda")
+    kept[:, :L] = (dest >= 0).int()
+    return kept.view(B, chunks, C).sum(2, dtype=torch.int32)
 
 
 def _launch(name, bufs, *args):
@@ -62,10 +113,13 @@ def test_kernels_match_plain_and_stay_in_their_outputs(L):
     codes, lens = _codes(np.random.default_rng(L), L)
 
     bufs, (H, P, dest, n) = _outputs((B, L), (B, L), (B, L), (B,))
-    _launch("pg_build_stream", bufs, codes, lens, H, P, dest, n, B, L, K)
+    (sbuf, status), (xbuf, stale) = _status(L), _status(L, -1)
+    _launch("pg_build_stream", bufs + [sbuf, xbuf], codes, lens, status,
+            stale, stale.numel(), H, P, dest, n, B, L, K)
     want = kn.build_stream_plain(codes, lens, K)
     for got, ref in zip((H, P, dest, n), want):
         assert torch.equal(got, ref)
+    assert not stale.any()
 
     bufs, (sH,) = _outputs((B, L))
     _launch("pg_move_plane", bufs, dest, H, sH, B, L)
@@ -74,17 +128,105 @@ def test_kernels_match_plain_and_stay_in_their_outputs(L):
     assert torch.equal(sH[valid], ref[valid])
     sH, sP = ref, kn.move_plane_plain(dest, P)
 
-    bufs, (Ap, edest, count) = _outputs((B, L), (B, L), (B,))
-    count.zero_()
-    _launch("pg_emit_mask", bufs, sH, sP, n, Ap, edest, count, B, L, W, K)
+    bufs, (edest, count) = _outputs((B, L), (B,))
+    (sbuf, status), (xbuf, stale) = _status(L), _status(L, -1)
+    _launch("pg_emit_mask", bufs + [sbuf, xbuf], sH, sP, n, status, stale,
+            stale.numel(), edest, count, B, L, W, K)
     for got, ref in zip((edest, count), kn.emit_mask_plain(sH, sP, n, W, K)):
         assert torch.equal(got, ref)
+    assert not stale.any()
 
     bufs, outs = _outputs((B, L), (B, L), (B, L), (B,))
     outs[3].zero_()
     _launch("pg_reduce_step", bufs, sH, sP, n, *outs, B, L, R)
     for got, ref in zip(outs, kn.reduce_step_plain(sH, sP, n, R)):
         assert torch.equal(got, ref)
+
+
+def _build_stream(codes, lens, L, k, statuses=None):
+    """One guarded build_stream launch, on a zeroed status and a junk
+    earlier status, or on `statuses` ((buffer, view) of each), checked
+    against its plain version and its status, and the earlier status
+    checked zeroed; returns the outputs."""
+    bufs, outs = _outputs((B, L), (B, L), (B, L), (B,))
+    (sbuf, status), (xbuf, stale) = statuses or (_status(L), _status(L, -1))
+    _launch("pg_build_stream", bufs + [sbuf, xbuf], codes, lens, status,
+            stale, stale.numel(), *outs, B, L, k)
+    for got, ref in zip(outs, kn.build_stream_plain(codes, lens, k)):
+        assert torch.equal(got, ref)
+    _check_status(status, L, 1, _chunk_counts(outs[2], L), outs[3])
+    assert not stale.any()
+    return outs
+
+
+def _emit_mask(sH, sP, n, L, w, k, statuses=None):
+    """One guarded emit_mask launch (statuses as for _build_stream),
+    checked against its plain version and its status, and the earlier
+    status checked zeroed; returns the outputs."""
+    bufs, (dest, count) = _outputs((B, L), (B,))
+    (sbuf, status), (xbuf, stale) = statuses or (_status(L), _status(L, -1))
+    _launch("pg_emit_mask", bufs + [sbuf, xbuf], sH, sP, n, status, stale,
+            stale.numel(), dest, count, B, L, w, k)
+    want = kn.emit_mask_plain(sH, sP, n, w, k)
+    assert torch.equal(dest, want[0]) and torch.equal(count, want[1])
+    _check_status(status, L, 0, _chunk_counts(dest, L), count)
+    assert not stale.any()
+    return dest, count
+
+
+def _stream_inputs(L, w, ties, seed):
+    sH, sP, n = kernel_cases.emit_stream(np.random.default_rng(seed), B, L,
+                                         w, K, C, ties)
+    return (torch.from_numpy(sH.view(np.int32)).cuda(),
+            torch.from_numpy(sP.view(np.int32)).cuda(),
+            torch.from_numpy(n).cuda())
+
+
+@pytest.mark.parametrize("L", CHUNKED_L)
+@pytest.mark.parametrize("k", [5, 16])
+def test_build_stream_across_chunks(L, k):
+    """Rows of length 0, L, on a boundary and one either side; an all-
+    ambiguous row; ambiguous bases ending at each boundary; an ambiguous
+    base followed by strand-symmetric k-mers across a boundary."""
+    codes, lens = kernel_cases.stream_codes(np.random.default_rng(L + k), B,
+                                            L, k, C)
+    _build_stream(torch.from_numpy(codes).cuda(),
+                  torch.from_numpy(lens).cuda(), L, k)
+
+
+@pytest.mark.parametrize("L", CHUNKED_L)
+@pytest.mark.parametrize("w", [1, 5, 80, 255])
+@pytest.mark.parametrize("ties", [False, True])
+def test_emit_mask_across_chunks(L, w, ties):
+    """Placeholders exactly w+k-3, w+k-2 and w+k-1 columns before the least
+    hash at each boundary, one at column 0, n = 0, L, on a boundary, and a
+    final window across a boundary; hashes below 50 when `ties`."""
+    _emit_mask(*_stream_inputs(L, w, ties, L + w), L, w, K)
+
+
+def test_repeated_launches_are_identical():
+    """Twenty launches of each chunked kernel on the same inputs at
+    L = 40960 (ten chunks a row) give the same outputs, on two status
+    buffers in turn as the wrappers use them (each launch zeroes the one
+    the launch before it used): a race in the look-back, or a status not
+    zeroed for the launch after, would show as a difference."""
+    L = 40960
+    codes, lens = kernel_cases.stream_codes(np.random.default_rng(7), B, L,
+                                            K, C)
+    codes, lens = torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda()
+    a, b = _status(L), _status(L, -1)
+    turns = [(a, b), (b, a)]
+    first = _build_stream(codes, lens, L, K, turns[0])
+    for i in range(1, 20):
+        for got, ref in zip(_build_stream(codes, lens, L, K, turns[i % 2]),
+                            first):
+            assert torch.equal(got, ref)
+    stream = _stream_inputs(L, W, True, 7)
+    first = _emit_mask(*stream, L, W, K, turns[0])
+    for i in range(1, 20):
+        for got, ref in zip(_emit_mask(*stream, L, W, K, turns[i % 2]),
+                            first):
+            assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("L", [1000, 8192])

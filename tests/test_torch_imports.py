@@ -1,7 +1,7 @@
 """The port stands without JAX: no module of peregrine_tpu_torch (nor
-chip_smoke.py) imports jax or the JAX package, every module imports with
-both made unimportable, and chip_smoke.py refuses to run without a card
-or outside a checkout."""
+chip_smoke.py, nor the kernel cases it loads) imports jax or the JAX
+package, every module imports with both made unimportable, and
+chip_smoke.py refuses to run without a card or outside a checkout."""
 
 import ast
 import os
@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "peregrine_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_kernel_cases.py"]
 
 
 def _imported(path: pathlib.Path):

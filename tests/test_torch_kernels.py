@@ -19,10 +19,12 @@ import torch
 import jax.numpy as jnp
 from peregrine_tpu.ops import compact_pallas as pl
 from peregrine_tpu_torch.ops import kernels as kn
+import torch_kernel_cases as kernel_cases
 
 torch.set_num_threads(2)
 
 B = 8
+CHUNK = 256  # where kernel_cases puts its features at these small shapes
 
 
 def _t(a) -> torch.Tensor:
@@ -69,21 +71,27 @@ def _codes(rng, L):
 @pytest.mark.parametrize("L", [512, 640])
 @pytest.mark.parametrize("k", [11, 12, 16])
 def test_build_stream_matches_pallas(rng, L, k):
-    codes, lengths = _codes(rng, L)
-    H, P, r1, n = pl.build_stream(jnp.asarray(codes), jnp.asarray(lengths),
-                                  k=k, interpret=True)
-    tH, tP, dest, tn = kn.build_stream(_t(codes), _t(lengths), k=k)
-    np.testing.assert_array_equal(_u32(tH), np.asarray(H))
-    np.testing.assert_array_equal(_u32(tP), np.asarray(P))
-    np.testing.assert_array_equal(tn.numpy(), np.asarray(n))
-    assert tn[1] == 0 and tn[2] == L
-    _assert_dest_matches_r(dest, tn, r1, n)
-    # compacted stream planes agree up to the counts
-    for jp, tp in ((H, tH), (P, tP)):
-        want = np.asarray(pl.move_plane(r1, jp, interpret=True))
-        got = _u32(kn.move_plane(dest, tp))
-        for b in range(B):
-            np.testing.assert_array_equal(got[b, :tn[b]], want[b, :tn[b]])
+    """Random codes, then kernel_cases' rows: lengths on and beside a
+    boundary, ambiguous bases ending at one, and an ambiguous base
+    followed by strand-symmetric k-mers (even k)."""
+    for codes, lengths in (_codes(rng, L),
+                           kernel_cases.stream_codes(rng, B, L, k, CHUNK)):
+        H, P, r1, n = pl.build_stream(jnp.asarray(codes),
+                                      jnp.asarray(lengths), k=k,
+                                      interpret=True)
+        tH, tP, dest, tn = kn.build_stream(_t(codes), _t(lengths), k=k)
+        np.testing.assert_array_equal(_u32(tH), np.asarray(H))
+        np.testing.assert_array_equal(_u32(tP), np.asarray(P))
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(n))
+        assert tn[2] == L and (tn[1] == 0) == (lengths[1] == 0)
+        _assert_dest_matches_r(dest, tn, r1, n)
+        # compacted stream planes agree up to the counts
+        for jp, tp in ((H, tH), (P, tP)):
+            want = np.asarray(pl.move_plane(r1, jp, interpret=True))
+            got = _u32(kn.move_plane(dest, tp))
+            for b in range(B):
+                np.testing.assert_array_equal(got[b, :tn[b]],
+                                              want[b, :tn[b]])
 
 
 @pytest.mark.parametrize("L", [512, 640])
@@ -126,12 +134,18 @@ def _stream(rng, L, ties):
                                         (512, 24, 12, True),
                                         (640, 80, 16, True)])
 def test_emit_mask_matches_pallas(rng, L, w, k, ties):
-    sH, sP, n = _stream(rng, L, ties)
-    r2, cnt = pl.emit_mask(jnp.asarray(sH), jnp.asarray(sP), jnp.asarray(n),
-                           w=w, k=k, interpret=True)
-    dest, count = kn.emit_mask(_t(sH.view(np.int32)), _t(sP.view(np.int32)),
-                               _t(n), w=w, k=k)
-    _assert_dest_matches_r(dest, count, r2, cnt)
+    """A random stream, then kernel_cases' rows: a placeholder at column
+    0, and placeholders exactly w+k-3, w+k-2 and w+k-1 columns before the
+    least hash at each boundary — where the windowed `complete` of
+    emit_mask_plain and the kernel flips — n on a boundary and a final
+    window across one."""
+    for sH, sP, n in (_stream(rng, L, ties),
+                      kernel_cases.emit_stream(rng, B, L, w, k, CHUNK, ties)):
+        r2, cnt = pl.emit_mask(jnp.asarray(sH), jnp.asarray(sP),
+                               jnp.asarray(n), w=w, k=k, interpret=True)
+        dest, count = kn.emit_mask(_t(sH.view(np.int32)),
+                                   _t(sP.view(np.int32)), _t(n), w=w, k=k)
+        _assert_dest_matches_r(dest, count, r2, cnt)
 
 
 @pytest.mark.parametrize("C,r", [(512, 4), (640, 6)])
@@ -217,17 +231,64 @@ def test_bindings_match_c_prototypes():
     """Every extern "C" entry of the .cu file has a ctypes signature with
     its arguments' count and kinds (pointer -> c_void_p, long long ->
     c_longlong, int -> c_int): a missing or short one passes the stream
-    handle as a 32-bit int."""
+    handle as a 32-bit int.  The chunked kernels take the look-back
+    status and the last launch's status, to zero, where the wrappers pass
+    them, and emit_mask no scratch plane."""
     with open(kn._CU) as f:
         src = f.read()
     block = src.split('extern "C" {')[1]
     protos = re.findall(r"^int (pg_\w+)\(([^)]*)\)", block, re.M)
     assert sorted(name for name, _ in protos) == sorted(kn.SIGNATURES)
+    names = {}
     for name, params in protos:
         kinds = [ctypes.c_void_p if "*" in p
                  else ctypes.c_longlong if "long long" in p else ctypes.c_int
                  for p in params.split(",")]
         assert kinds == kn.SIGNATURES[name], name
+        names[name] = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    assert names["pg_build_stream"][:9] == [
+        "codes", "lengths", "status", "stale", "stale_words", "H", "P",
+        "dest", "n_out"]
+    assert names["pg_emit_mask"][:8] == [
+        "sH", "sP", "n_in", "status", "stale", "stale_words", "dest", "count"]
+
+
+def test_chunk_layout_matches_the_source():
+    """The wrappers size the look-back status from CHUNK and STATUS_SLOT,
+    which the kernels know as kChunk and kSlot."""
+    with open(kn._CU) as f:
+        src = f.read()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(const["kChunk"]) == kn.CHUNK
+    assert int(const["kSlot"]) == kn.STATUS_SLOT
+
+
+def test_chunked_launches_alternate_two_status_buffers(monkeypatch):
+    """Two zeroed buffers trade places: each launch gets the one the
+    launch before it had it zero, and the words that launch used, so
+    that no launch needs a memset; a launch that raises leaves the turn
+    where it was."""
+    calls = []
+    monkeypatch.setattr(kn, "_call", lambda fn, *args: calls.append(args))
+    monkeypatch.setattr(kn, "_status_pairs", {})
+    cpu = torch.device("cpu")
+    kn._call_chunked("fn", 3, kn.CHUNK + 1, cpu, ("in",), ("out",), 7)
+    kn._call_chunked("fn", 2, 1, cpu, ("in",), ("out",), 7)
+    (_, a, b, wa, *rest), (_, a2, b2, wb, *_) = calls
+    assert rest == ["out", 7]
+    assert a.shape == b.shape == (kn.STATUS_SLOT * 7,)
+    assert not a.any() and not b.any() and wa == 0
+    assert a2 is b and b2 is a and wb == kn.STATUS_SLOT * 7
+
+    def fails(fn, *args):
+        raise RuntimeError("launch failed")
+
+    monkeypatch.setattr(kn, "_call", fails)
+    with pytest.raises(RuntimeError):
+        kn._call_chunked("fn", 2, 1, cpu, ("in",), ("out",), 7)
+    monkeypatch.setattr(kn, "_call", lambda fn, *args: calls.append(args))
+    kn._call_chunked("fn", 2, 1, cpu, ("in",), ("out",), 7)
+    assert calls[-1][1] is a and calls[-1][3] == kn.STATUS_SLOT * 3
 
 
 def test_call_rejects_a_wrong_argument_count():
