@@ -11,25 +11,32 @@ Phases, in order; any failure raises and exits non-zero:
   2. build the SHIMMER kernels (nvcc, sm_90a) and the native host library;
   3. each of the five kernels against its plain PyTorch version on the
      card, exactly, at the main paths' shapes (B=64, L in 8192/16384/
-     24576/32768/40960, 16384 being the draft's main bucket; reduce_step
-     at L=2048, the sketch cap; compact_planes on two int64 planes and
-     one int32 plane at keep densities 0.98 and 2/(w+1)), and
-     build_stream and emit_mask on the chunk-boundary and tie-heavy rows
-     of tests/torch_kernel_cases.py (L = CHUNK - 1, CHUNK + 1, 16384;
-     w = 1, 5, 80, 255), after which the look-back status that the next
-     launch will take must be zeroed;
+     24576/32768/40960, 16384 being the draft's main bucket; move_plane
+     moving both stream planes in one launch; reduce_step on the draft's
+     two levels at L=2048, the sketch cap, and on one row of 131,072
+     columns; compact_planes on two int64 planes and one int32 plane at
+     keep densities 0.98 and 2/(w+1)), and the chunked kernels on the
+     chunk-boundary and tie-heavy rows of tests/torch_kernel_cases.py
+     (build_stream and emit_mask at L = CHUNK - 1, CHUNK + 1, 16384 and
+     w = 1, 5, 80, 255; reduce_step at L = REDUCE_CHUNK - 1,
+     REDUCE_CHUNK + 1, 2048 and r = 2, 6, 255), after which the
+     look-back status that the next launch will take must be zeroed;
      kernel times are device times (many launches back to back between
      two CUDA events, divided by their number), plain times the same
      over a few calls; each kernel's byte bound at its main-path shape
-     from this run's inputs;
+     from this run's inputs (what they need: the columns below the
+     counts, the kept and emitted entries);
   4. build_index of 512 simulated reads (k=16), of 256 at k=28 with and
      without the level-0 index (uncapped and capped), and of 64 at k=28,
      w=8 (cap overflow, exact retry); sketch_long_np of a 200 kb genome
-     slice at k=16 and k=28: cuda equals cpu;
+     slice at k=16 and k=28 and two reduce_flat_np levels of it (one long
+     row each, as stage 4's contig index runs them): cuda equals cpu;
   5. the draft path: `pg-tpu-torch asm` (cli.main, k=16) on a simulated
      E. coli-class set (4.6 Mb circular genome, 30x of 15 kb reads, 1%
      error, 40 kb wrap, seed 42), with stage walls, kernel launch counts
-     (each of its four kernels must be > 0), peak device memory, and a
+     (each of its four kernels must be > 0, and move_plane must run twice
+     per build_stream: the reduction levels move nothing), peak device
+     memory, and a
      check of the draft: the longest contig covers >= 0.9 of the genome
      and >= 0.7 of its 21-mers occur in the genome or its reverse
      complement;
@@ -49,8 +56,9 @@ the E. coli-class set instead of phases 3-6: build_index walls with the
 kernels and with their plain versions on the card (one warm-up each, then
 six of each in ABBA order; median, min and max), then one kernel-route
 build under torch.profiler, whose trace gives the device's busy time (the
-union of its kernel, copy and memset intervals) and the device time of
-each kernel.
+union of its kernel, copy and memset intervals), the device time of
+each kernel, in all and by launch grid (which tells its shapes apart),
+and the number of device intervals (fill kernels counted apart).
 """
 
 from __future__ import annotations
@@ -206,28 +214,25 @@ def phase_kernels(results: dict) -> None:
                                  kn.build_stream_plain(c, ln, K)))
         H, P, dest, n = kn.build_stream_plain(c, ln, K)
 
-        sH = kn.move_plane(dest, H)
-        sP = kn.move_plane(dest, P)
-        sH_p = kn.move_plane_plain(dest, H)
-        sP_p = kn.move_plane_plain(dest, P)
+        sH, sP = kn.move_plane(dest, H, P)
+        sH_p, sP_p = kn.move_plane_plain(dest, H, P)
         note("move_plane", prefix_pairs(sH, sH_p, n) + prefix_pairs(sP, sP_p, n))
 
         want = kn.emit_mask_plain(sH_p, sP_p, n, W, K)
         note("emit_mask", zip(kn.emit_mask(sH_p, sP_p, n, w=W, k=K), want))
         if L == MAIN_L:
-            oH = kn.move_plane_plain(want[0], sH_p)
-            oP = kn.move_plane_plain(want[0], sP_p)
+            oH, oP = kn.move_plane_plain(want[0], sH_p, sP_p)
             reduce_input = (oH[:, :CAP].contiguous(), oP[:, :CAP].contiguous(),
                             torch.clamp(want[1], max=CAP))
             kept = int((dest >= 0).sum())
             moved["build_stream"] = 13 * B * L + 8 * B
-            moved["move_plane"] = 4 * B * L + 8 * kept
+            moved["move_plane"] = 4 * B * L + 16 * kept
             moved["emit_mask"] = 8 * int(n.sum()) + 4 * B * L + 8 * B
 
         times("build_stream", L, lambda: kn.build_stream(c, ln, k=K),
               lambda: kn.build_stream_plain(c, ln, K))
-        times("move_plane", L, lambda: kn.move_plane(dest, H),
-              lambda: kn.move_plane_plain(dest, H))
+        times("move_plane", L, lambda: kn.move_plane(dest, H, P),
+              lambda: kn.move_plane_plain(dest, H, P))
         times("emit_mask", L, lambda: kn.emit_mask(sH_p, sP_p, n, w=W, k=K),
               lambda: kn.emit_mask_plain(sH_p, sP_p, n, W, K))
 
@@ -270,23 +275,62 @@ def phase_kernels(results: dict) -> None:
                 moved["compact_planes"] = B * L + 4 * B + sum(
                     p.element_size() * (kept + B * L) for p in planes)
 
+    # reduce_step: the draft's two levels on the main bucket's capped
+    # sketch (level 2 reads level 1's kernel output, stale tails and all),
+    # the chunk-boundary and tie-heavy rows, and one long row as stage 4's
+    # contig index gives it
+    def level_pairs(got, want):
+        return (prefix_pairs(got[0], want[0], want[2])
+                + prefix_pairs(got[1], want[1], want[2]) + [(got[2], want[2])])
+
     Hr, Pr, nr = reduce_input
-    note("reduce_step", zip(kn.reduce_step(Hr, Pr, nr, r=R),
-                            kn.reduce_step_plain(Hr, Pr, nr, R)))
+    got1, want1 = kn.reduce_step(Hr, Pr, nr, r=R), kn.reduce_step_plain(
+        Hr, Pr, nr, R)
+    got2 = kn.reduce_step(*got1, r=R)
+    want2 = kn.reduce_step_plain(*want1, R)
+    note("reduce_step", level_pairs(got1, want1) + level_pairs(got2, want2))
     times("reduce_step", CAP, lambda: kn.reduce_step(Hr, Pr, nr, r=R),
           lambda: kn.reduce_step_plain(Hr, Pr, nr, R))
-    moved["reduce_step"] = 20 * B * CAP + 8 * B
+    times("reduce_step", f"{CAP}, level 2", lambda: kn.reduce_step(*got1, r=R),
+          lambda: kn.reduce_step_plain(*want1, R))
+    moved["reduce_step"] = 8 * int(nr.clamp(0, CAP).sum()) + 8 * int(
+        want1[2].sum()) + 8 * B
+    for L in (kn.REDUCE_CHUNK - 1, kn.REDUCE_CHUNK + 1, CAP):
+        for r in (2, R, 255):
+            for ties in (False, True):
+                Hc, Pc, nc = kernel_cases.reduce_rows(rng, B, L, r,
+                                                      kn.REDUCE_CHUNK, ties)
+                Hc, Pc, nc = on_card(Hc.view(np.int32), Pc.view(np.int32), nc)
+                note("reduce_step", level_pairs(
+                    kn.reduce_step(Hc, Pc, nc, r=r),
+                    kn.reduce_step_plain(Hc, Pc, nc, r)))
+    LONG = 131072
+    Hl, Pl = on_card(*(rng.integers(0, 1 << 31, (1, LONG)).astype(np.int32)
+                       for _ in range(2)))
+    nl = torch.tensor([LONG], dtype=torch.int32, device=dev)
+    note("reduce_step", level_pairs(kn.reduce_step(Hl, Pl, nl, r=R),
+                                    kn.reduce_step_plain(Hl, Pl, nl, R)))
+    times("reduce_step", f"B=1 L={LONG}",
+          lambda: kn.reduce_step(Hl, Pl, nl, r=R),
+          lambda: kn.reduce_step_plain(Hl, Pl, nl, R))
+    check(not any(bool(pair[0].any()) for pair in kn._status_pairs.values()),
+          "the next chunked launch's look-back status is not zeroed")
+    say(f"kernel checks: reduce_step on two levels at L={CAP}, on the "
+        f"chunk-boundary rows at L {kn.REDUCE_CHUNK - 1}/"
+        f"{kn.REDUCE_CHUNK + 1}/{CAP}, r 2/{R}/255 with and without ties, "
+        f"and on one row of {LONG}")
     torch.cuda.synchronize()
 
     for name, st in stats.items():
         for key, (ms, pms) in st["times"].items():
-            shape = (f"L={key[0]} keep density {key[1]}"
-                     if isinstance(key, tuple) else f"L={key}")
-            say(f"kernel {name} B={B} {shape}: {ms:.4f} ms, plain "
+            shape = (f"B={B} L={key[0]} keep density {key[1]}"
+                     if isinstance(key, tuple) else
+                     key if str(key).startswith("B=") else f"B={B} L={key}")
+            say(f"kernel {name} {shape}: {ms:.4f} ms, plain "
                 f"{pms:.4f} ms, max_abs_err {st['err']} (tolerance 0)")
         check(st["err"] == 0, f"{name} disagrees with its plain version "
               f"(max_abs_err {st['err']})")
-        main = {"reduce_step": CAP,
+        main = {"reduce_step": CAP,  # level 1
                 "compact_planes": (MAIN_L, 0.98)}.get(name, MAIN_L)
         ms, pms = st["times"][main]
         bound_ms = moved[name] / HBM_BYTES_PER_S * 1e3
@@ -305,6 +349,7 @@ def phase_index(reads, genome) -> None:
     from peregrine_tpu_torch.config import AsmConfig
     from peregrine_tpu_torch.io.seqdb import SeqDB, seq_to_codes
     from peregrine_tpu_torch.ops.index import build_index
+    from peregrine_tpu_torch.ops.reduce import reduce_flat_np
     from peregrine_tpu_torch.ops.sketch import sketch_long_np
 
     torch.set_num_threads(os.cpu_count() or 1)
@@ -336,8 +381,15 @@ def phase_index(reads, genome) -> None:
         xc, yc = sketch_long_np(codes, 3, W, k, "cpu")
         check(np.array_equal(xg, xc) and np.array_equal(yg, yc),
               f"sketch_long_np k={k} cuda != cpu")
-        say(f"index check: sketch_long_np k={k} of a 200 kb slice, "
-            f"{len(xg)} minimizers, cuda == cpu")
+        n0 = len(xg)
+        for _ in range(2):  # the contig index's levels: one long row each
+            xg, yg = reduce_flat_np(xg, yg, R, "cuda")
+            xc, yc = reduce_flat_np(xc, yc, R, "cpu")
+            check(np.array_equal(xg, xc) and np.array_equal(yg, yc),
+                  f"reduce_flat_np k={k} cuda != cpu")
+        say(f"index check: sketch_long_np k={k} of a 200 kb slice, {n0} "
+            f"minimizers, and two reduce_flat_np levels, {len(xg)} "
+            "SHIMMERs, cuda == cpu")
 
 
 def smi(fields: str) -> str:
@@ -440,9 +492,12 @@ def phase_index_profile(reads, k: int) -> None:
     check(any(e["cat"] == "kernel" for e in dev),
           "the profiler trace holds no device kernel")
     per: dict = {}
+    count: dict = {}
     for e in dev:
         key = e["name"] if e["cat"] == "kernel" else e["cat"]
         per[key] = per.get(key, 0.0) + e["dur"] / 1000
+        count[key] = count.get(key, 0) + 1
+    fills = sum(c for key, c in count.items() if "FillFunctor" in key)
     ours = {name: sum(ms for key, ms in per.items()
                       if f"{name}_kernel" in key) for name in REPLACES}
     busy = busy_ms(dev)
@@ -456,14 +511,29 @@ def phase_index_profile(reads, k: int) -> None:
         + (f", {ms / launches[name] * 1e3:.2f} us each)" if launches[name]
            else ")")
         for name, ms in ours.items())
-        + f"; other kernels {other:.2f}; copies and memsets {copies:.2f}")
+        + f"; other kernels {other:.2f}; copies and memsets {copies:.2f}; "
+        f"{sum(count.values())} device intervals, {fills} of them fill "
+        "kernels")
     for key, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
-        say(f"    {ms:9.3f} ms  {key[:100]}")
+        say(f"    {ms:9.3f} ms {count[key]:6d}x  {key[:100]}")
+    # each kernel's launches by grid, which tells its shapes apart
+    by_grid: dict = {}
+    for e in dev:
+        name = next((n for n in REPLACES if f"{n}_kernel" in e["name"]), None)
+        if e["cat"] == "kernel" and name:
+            cell = by_grid.setdefault(name, {}).setdefault(
+                str(e.get("args", {}).get("grid")), [0, 0.0])
+            cell[0] += 1
+            cell[1] += e["dur"]
+    for name, grids in by_grid.items():
+        say(f"index profile: {name} by grid: " + ", ".join(
+            f"{grid} {n}x {us / n:.2f} us" for grid, (n, us) in grids.items()))
     say(json.dumps({"index_profile": {
         "walls_s": walls, "records": records.pop(), "profiled_wall_ms":
         wall * 1000, "device_busy_ms": busy, "kernels_ms": ours,
         "other_kernels_ms": other, "copies_ms": copies,
-        "launches": launches}}))
+        "device_intervals": sum(count.values()), "fill_launches": fills,
+        "launches": launches, "by_grid": by_grid}}))
 
 
 def kmers21(seq: bytes) -> np.ndarray:
@@ -544,6 +614,10 @@ def phase_draft(lst: str, genome, wd: str, results: dict) -> float:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the draft path")
         results[name]["launches"] = launches[name]
+    # two-plane moves, two per sketch; the reduction levels move nothing
+    check(launches["move_plane"] == 2 * launches["build_stream"],
+          f"move_plane launched {launches['move_plane']} times for "
+          f"{launches['build_stream']} sketches, not twice per sketch")
     x, _ = formats.read_mmlist(os.path.join(out, "1-index",
                                             "shmr-L2-01-of-01.dat"))
     with open(os.path.join(out, "2-ovlp", "preads.ovl"), "rb") as f:

@@ -5,31 +5,34 @@
 //   pg_move_plane     <- move_plane     (compact_pallas.py:113, call :124)
 //   pg_emit_mask      <- emit_mask      (compact_pallas.py:333, call :351)
 //   pg_reduce_step    <- reduce_step    (compact_pallas.py:452, call :464)
+//                        followed by its two move_plane calls
 //   pg_compact_planes <- compact_planes (compact_pallas.py:365, call :391)
 //
 // The first four run the packed k <= 16 path on [B, L] row-major uint32
 // planes (the wrappers in ops/kernels.py hand over int32 tensors holding
 // the same bits); compact_planes serves the wide k > 16 sketch and the
 // general reduction on int64 records.  Instead of the TPU kernels' shift
-// distances r, the producers write a destination column (the rank among
-// kept entries, -1 where dropped) and move_plane scatters by it.
+// distances r, build_stream and emit_mask write a destination column (the
+// rank among kept entries, -1 where dropped) and move_plane scatters one
+// or two planes by it in one launch; reduce_step writes its winners to
+// their ranks itself.
 //
-// Two layouts.  build_stream and emit_mask split each row into chunks of
-// a few thousand columns, one block per chunk, so that B x the chunks of a
-// row fill the SMs; a block stages its chunk and a halo in shared memory by
+// Two layouts.  build_stream, emit_mask and reduce_step split each row
+// into chunks, one block per chunk, so that B x the chunks of a row fill
+// the SMs; a block stages its chunk and a halo in shared memory by
 // cp.async and carries the row-wide prefixes it needs (counts, the last
 // ambiguous base) from the chunks before it by a decoupled look-back over
 // a zeroed status buffer (no fence: each published value is two
 // self-marking 64-bit words).  Each launch also zeroes the status of the
 // launch before it, so the wrappers alternate two buffers and never
-// launch a memset.  reduce_step and compact_planes still run one block per
-// row and walk the row in tiles of blockDim columns, carrying each running
-// prefix from tile to tile (64 rows give 64 blocks on 132 SMs);
-// move_plane is one thread per column.
+// launch a memset.  compact_planes still runs one block per row and walks
+// the row in tiles of blockDim columns, carrying each running prefix from
+// tile to tile (64 rows give 64 blocks on 132 SMs); move_plane is one
+// thread per four columns.
 //
-// What bounds them: each kernel reads and writes about three to four
-// B x L x 4-byte planes once, so device-memory bytes bound them (the
-// source note above each kernel gives its bytes per column).
+// What bounds them: each kernel reads and writes a few bytes per column
+// once, so device-memory bytes bound them (the source note above each
+// kernel gives its bytes per column).
 //
 // Each extern "C" entry launches on the given stream and returns
 // cudaGetLastError(), which the Python wrapper checks.
@@ -69,6 +72,29 @@ constexpr int kExtPer = (kExt + kChunkThreads - 1) / kChunkThreads;
 // ops/kernels.py must equal kSlot.
 constexpr int kSlot = 8;
 
+// reduce_step: kRChunk columns of one row per block of kRThreads threads,
+// column x of the chunk in thread x % kRThreads, register x / kRThreads.
+// REDUCE_CHUNK in ops/kernels.py must equal kRChunk.  A block stages the
+// columns [c0 - r, c0 + kRChunk) of a chunk at c0 (the window of column
+// c0 - 1 too), plus up to 3 words of 16-byte alignment slack.  The draft
+// reduces rows of 2,048 and 3,072 columns (the sketch cap of its two read
+// buckets): each fits one chunk.  On the H100 fewer columns a thread ran
+// faster, even where the further register slots held no column below n,
+// and 512 threads faster than 1,024.
+constexpr int kRChunk = 3072;
+constexpr int kRThreads = kChunkThreads;  // as stage_async strides
+constexpr int kRWarps = kRThreads / 32;
+constexpr int kRPer = kRChunk / kRThreads;
+constexpr int kRSegs = kRPer * kRWarps;   // 32-column segments of a chunk
+constexpr int kMaxR = 255;                // reduce_step's window, 2..255
+constexpr int kRExt = (kRChunk + kMaxR + 3 + 3) / 4 * 4;
+constexpr int kREarly = 512;  // columns staged before n is known
+// move_plane: four consecutive columns per thread.
+constexpr int kMoveThreads = 256;
+
+static_assert(kRChunk % kRThreads == 0 && kRSegs <= 32 * 32, "segments");
+static_assert(kMaxR < kRChunk, "a window reaches into one chunk before");
+static_assert(kREarly <= kRChunk, "early columns lie in the chunk");
 static_assert(kChunk % kChunkThreads == 0, "whole columns per thread");
 static_assert(kChunk % 32 == 0, "transpose padding assumes whole warps");
 static_assert(2 * kPerThread <= 32 && kExtPer <= 32, "per-thread bit masks");
@@ -319,8 +345,8 @@ __device__ __forceinline__ void cp_async_wait_one() {
 // that src[i] lands at dst[off + i], off = the address of src mod 16:
 // every whole aligned 16-byte group by cp.async, the bytes of a partial
 // first or last group by plain copies (all loads issued before any
-// store, so they overlap).  Returns off.  The caller waits with
-// cp_async_wait_all() and a barrier.
+// store, so they overlap).  Returns off.  The caller, a block of
+// kChunkThreads threads, waits with cp_async_wait_all() and a barrier.
 __device__ int stage_async(uint8_t* dst, const uint8_t* src, int nbytes) {
   const uintptr_t a = (uintptr_t)src;
   const int off = (int)(a & 15);
@@ -342,6 +368,13 @@ __device__ int stage_async(uint8_t* dst, const uint8_t* src, int nbytes) {
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   return off;
+}
+
+// Stage bytes [from, to) of src to where the stage_async(dst, src, .)
+// that returned off put them (src[i] at dst[off + i]).
+__device__ void stage_rest(uint8_t* dst, int off, const uint8_t* src,
+                           int from, int to) {
+  stage_async(dst + ((off + from) & ~15), src + from, to - from);
 }
 
 // Write the chunk's columns [0, ncols) of two planes, thread i holding
@@ -510,17 +543,62 @@ build_stream_kernel(const uint8_t* __restrict__ codes,
   if (threadIdx.x == 0 && j == chunks - 1) n_out[row] = carried.inc + agg.inc;
 }
 
-// Stable compaction of one plane: out[row, dest[i]] = in[row, i] where
-// dest >= 0.  Destinations within a row are distinct, so the scatter is
-// race-free; columns at or past the row's count are left as they were.
-__global__ void move_plane_kernel(const int32_t* __restrict__ dest,
-                                  const uint32_t* __restrict__ in,
-                                  uint32_t* __restrict__ out, int L,
-                                  size_t total) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int d = dest[i];
-  if (d >= 0) out[(i / L) * L + d] = in[i];
+// Stable compaction of one or two planes by one destination plane
+// (replaces move_plane, compact_pallas.py:113, called once per plane):
+// out_p[row, dest[i]] = in_p[row, i] where dest >= 0, for in1/out1 too
+// unless they are null.  Destinations within a row are distinct, so the
+// scatter is race-free; columns at or past the row's count are left as
+// they were.
+//
+// Bound: 4 bytes per column (dest) and 16 per kept entry (two planes in
+// and out): 5.0 us for the stream move at B=64, L=16,384 with rows of
+// L/2..L on 3.35 TB/s.  Design: dest is read once for both planes (the
+// TPU kernel, and the port before, moved each plane in its own launch);
+// each thread takes four consecutive columns with one 16-byte load of
+// dest where kVec (L % 4 == 0 and 16-byte aligned planes), so a quad
+// never crosses a row, and loads a plane's quad, again 16 bytes, only
+// where one of its columns is kept (a sector holds 32 bytes, so the
+// dropped columns of such a quad cost no extra device-memory traffic);
+// one quad per thread gives B x L / 1024 blocks (1,024 at the stream
+// shape, 7.8 per SM).
+template <bool kVec>
+__global__ void __launch_bounds__(kMoveThreads)
+move_plane_kernel(const int32_t* __restrict__ dest,
+                  const uint32_t* __restrict__ in0,
+                  const uint32_t* __restrict__ in1,
+                  uint32_t* __restrict__ out0, uint32_t* __restrict__ out1,
+                  int L, size_t total) {
+  const size_t i0 = 4 * ((size_t)blockIdx.x * kMoveThreads + threadIdx.x);
+  if (i0 >= total) return;
+  if (kVec) {
+    const int4 d4 = *reinterpret_cast<const int4*>(dest + i0);
+    if ((d4.x & d4.y & d4.z & d4.w) < 0) return;  // all four dropped
+    const int d[4] = {d4.x, d4.y, d4.z, d4.w};
+    const size_t row = i0 - i0 % L;  // the row's column 0
+    const uint4 a = *reinterpret_cast<const uint4*>(in0 + i0);
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (d[q] >= 0) out0[row + d[q]] = av[q];
+    if (in1) {
+      const uint4 b = *reinterpret_cast<const uint4*>(in1 + i0);
+      const uint32_t bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (d[q] >= 0) out1[row + d[q]] = bv[q];
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const size_t i = i0 + q;
+      const int d = i < total ? dest[i] : -1;
+      if (d >= 0) {
+        const size_t o = i - i % L + d;
+        out0[o] = in0[i];
+        if (in1) out1[o] = in1[i];
+      }
+    }
+  }
 }
 
 // One doubling step of a sliding extremum held in registers: v[q], the
@@ -555,17 +633,17 @@ __device__ __forceinline__ void publish(uint32_t* dst,
 // q * kChunkWarps + w run in column order.
 constexpr int kSegs = kExtPer * kChunkWarps;
 
-// Exclusive prefix, in place, of one int per segment under op (identity
-// id); called by warp 0, which gets the total.
-template <typename Op>
+// Exclusive prefix, in place, of one int per segment (kN of them) under
+// op (identity id); called by warp 0, which gets the total.
+template <int kN = kSegs, typename Op>
 __device__ int segment_scan(int* seg, int id, Op op) {
-  constexpr int kEach = (kSegs + 31) / 32;
+  constexpr int kEach = (kN + 31) / 32;
   const int lane = threadIdx.x & 31;
   int own[kEach], acc = id;
 #pragma unroll
   for (int e = 0; e < kEach; ++e) {
     const int x = lane * kEach + e;
-    own[e] = x < kSegs ? seg[x] : id;
+    own[e] = x < kN ? seg[x] : id;
     acc = op(acc, own[e]);
   }
 #pragma unroll
@@ -579,7 +657,7 @@ __device__ int segment_scan(int* seg, int id, Op op) {
 #pragma unroll
   for (int e = 0; e < kEach; ++e) {
     const int x = lane * kEach + e;
-    if (x < kSegs) seg[x] = before;
+    if (x < kN) seg[x] = before;
     before = op(before, own[e]);
   }
   return total;
@@ -766,64 +844,160 @@ emit_mask_kernel(const uint32_t* __restrict__ sH,
   if (threadIdx.x == 0 && j == chunks - 1) count[row] = pre + agg;
 }
 
-// The winner at column j of the r-wide trailing window: the least
-// (hash, ring slot = column % r), ring slots being distinct in a window.
-__device__ __forceinline__ void window_winner(const uint32_t* h,
-                                              const uint32_t* p, int j, int r,
-                                              uint32_t* bh, uint32_t* bp) {
-  uint32_t best_h = h[j], best_s = (uint32_t)(j % r), best_p = p[j];
-  for (int d = 1; d < r && d <= j; ++d) {
-    const int i = j - d;
-    const uint32_t hd = h[i], sd = (uint32_t)(i % r);
-    if (hd < best_h || (hd == best_h && sd < best_s)) {
-      best_h = hd;
-      best_s = sd;
-      best_p = p[i];
+// The winner of the r-wide trailing window at column col, whose hash is
+// hs[i]: the least (hash, ring slot = column % r), ring slots being
+// distinct in a window.  Returns the winner's index into hs.
+__device__ __forceinline__ int window_winner(const uint32_t* hs, int i,
+                                             int col, int r) {
+  const int s0 = col % r;
+  uint32_t best_h = hs[i];
+  int best_s = s0, best = i;
+  for (int d = 1; d < r; ++d) {
+    const uint32_t h = hs[i - d];
+    const int s = d > s0 ? s0 - d + r : s0 - d;
+    if (h < best_h || (h == best_h && s < best_s)) {
+      best_h = h;
+      best_s = s;
+      best = i - d;
     }
   }
-  *bh = best_h;
-  *bp = best_p;
+  return best;
 }
 
-// One SHIMMER reduction level over (H, P, n): the window winner at each
-// column, emitted where the column is valid (r-1 <= j < n) and the winner
-// differs from the previous column's (or that column was not valid).
-// Writes the winners' planes, the emitted destinations and the count.
-__global__ void __launch_bounds__(kThreads)
+// One SHIMMER reduction level over (H, P, n), compacted (replaces
+// reduce_step, compact_pallas.py:452, and the two move_plane calls that
+// followed it): the winner of the r-wide trailing window at each column
+// r - 1 <= col < n, emitted where col == r - 1 or its P differs from the
+// previous column's winner's; the emitted winners' hashes and P go to
+// oH, oP at their rank in the row, and count gets their number.  n is
+// clamped to [0, L]; columns at or past it are never written, and their
+// values never used (the early staging below may read some).
+//
+// Bound: 8 bytes per column below n (H, P in), 8 per emitted winner (oH,
+// oP out) and 8 per row (n, count): 0.25 MB, 0.07 us, at level 1 of the
+// draft (B=64, n ~ 370 of L=2,048) on 3.35 TB/s, so each level is a
+// chain of latencies.  Design: one launch per level where there were
+// three (the per-column planes and destinations the TPU kernel wrote for
+// whole rows went straight to two moves); chunks of kRChunk columns, one
+// block each, so a long row (stage 4's contig index: one row of ~10^5
+// columns) spreads over the SMs and a chunk past n exits after its ticket;
+// where a row fits one chunk, as on the main path, the block takes no
+// ticket and publishes nothing; the chunk's first kREarly columns and an
+// r-column halo are staged in shared memory by cp.async while n loads,
+// the rest of the columns below n after it, so a level of the draft (a
+// few hundred entries a row) waits on one round trip to device memory
+// before its stores, not two; each column's winner is found once (r
+// shared loads), the previous column's comes from the neighbouring lane
+// by a shuffle (from shared memory at a warp's first lane); ranks come
+// from ballots, popcounts, one warp's prefix over the 32-column segments
+// and, across chunks, a decoupled look-back, and each emitted winner is
+// stored at its rank; register slots past the chunk's columns below n
+// skip the shuffles and ballots.
+__global__ void __launch_bounds__(kRThreads)
 reduce_step_kernel(const uint32_t* __restrict__ H,
                    const uint32_t* __restrict__ P,
-                   const int32_t* __restrict__ n_in,
-                   uint32_t* __restrict__ Ho, uint32_t* __restrict__ Po,
-                   int32_t* __restrict__ dest, int32_t* __restrict__ count,
-                   int L, int r) {
-  __shared__ int scratch[kWarps];
-  const size_t base = (size_t)blockIdx.x * L;
-  const uint32_t* h = H + base;
-  const uint32_t* p = P + base;
-  const int n = n_in[blockIdx.x];
-  int carry = 0;
-  for (int t0 = 0; t0 < L; t0 += kThreads) {
-    const int j = t0 + threadIdx.x;
-    bool emit = false;
-    if (j < L) {
-      uint32_t bh, bp;
-      window_winner(h, p, j, r, &bh, &bp);
-      Ho[base + j] = bh;
-      Po[base + j] = bp;
-      const bool valid = j >= r - 1 && j < n;
-      if (valid) {
-        const bool prev_valid = j >= r && j < n + 1;
-        uint32_t ph = 0, pp = 0;
-        if (j >= 1) window_winner(h, p, j - 1, r, &ph, &pp);
-        emit = bp != pp || !prev_valid;
-      }
-    }
-    int tot;
-    const int s = block_scan<kWarps>(emit ? 1 : 0, 0, Sum(), scratch, &tot);
-    if (j < L) dest[base + j] = emit ? carry + s : -1;
-    carry += tot;
+                   const int32_t* __restrict__ n_in, int* __restrict__ status,
+                   int* __restrict__ stale, int stale_words,
+                   uint32_t* __restrict__ oH, uint32_t* __restrict__ oP,
+                   int32_t* __restrict__ count, int L, int r, int chunks) {
+  __shared__ __align__(16) uint32_t Hs[kRExt];
+  __shared__ __align__(16) uint32_t Ps[kRExt];
+  __shared__ int seg[kRSegs];
+  __shared__ uint32_t edge[kRSegs];  // each segment's last winner P
+  __shared__ int shared_int;
+
+  // rows of one chunk need no look-back, and so no ticket
+  const int tile =
+      chunks == 1 ? (int)blockIdx.x : take_ticket(status, &shared_int);
+  clear_stale(stale, stale_words);
+  const int row = tile / chunks, j = tile - row * chunks;
+  const int c0 = j * kRChunk;
+  const size_t base = (size_t)row * L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the chunk's first columns are staged while n loads (the draft's rows
+  // hold a few hundred entries, so most levels need no second round trip)
+  const int g0 = max(0, c0 - r);
+  const int early = min(L, c0 + kREarly) - g0;
+  const uint8_t* h0 = (const uint8_t*)(H + base + g0);
+  const uint8_t* p0 = (const uint8_t*)(P + base + g0);
+  const int offH = stage_async((uint8_t*)Hs, h0, 4 * early);
+  const int offP = stage_async((uint8_t*)Ps, p0, 4 * early);
+  const int n = max(0, min(n_in[row], L));  // a count: never past the row
+  if (c0 >= n) {  // block-uniform: nothing below n, nothing to publish
+    cp_async_wait_all();
+    if (j == 0 && threadIdx.x == 0) count[row] = 0;
+    return;
   }
-  if (threadIdx.x == 0) count[blockIdx.x] = carry;
+  const int ncols = min(kRChunk, n - c0);  // the chunk's columns below n
+  const int E = c0 + ncols - g0;
+  if (E > early) {  // the rest of the chunk below n
+    stage_rest((uint8_t*)Hs, offH, h0, 4 * early, 4 * E);
+    stage_rest((uint8_t*)Ps, offP, p0, 4 * early, 4 * E);
+  }
+  const uint32_t* hs = Hs + offH / 4;  // hs[i], ps[i]: column g0 + i
+  const uint32_t* ps = Ps + offP / 4;
+  // the registers that hold a column below n (block-uniform)
+  const int nq = (ncols + kRThreads - 1) / kRThreads;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // each column's winner, where its window is whole
+  uint32_t wh[kRPer], wp[kRPer];
+  bool full[kRPer];
+#pragma unroll
+  for (int q = 0; q < kRPer; ++q) {
+    const int x = threadIdx.x + q * kRThreads, col = c0 + x;
+    full[q] = x < ncols && col >= r - 1;
+    wh[q] = wp[q] = 0;
+    if (full[q]) {
+      const int b = window_winner(hs, col - g0, col, r);
+      wh[q] = hs[b];
+      wp[q] = ps[b];
+    }
+    if (q < nq && lane == 31) edge[q * kRWarps + warp] = wp[q];
+  }
+  // column c0 - 1's winner, the previous one of the chunk's first column
+  uint32_t before = 0;
+  if (threadIdx.x == 0 && c0 >= r)
+    before = ps[window_winner(hs, c0 - 1 - g0, c0 - 1, r)];
+  __syncthreads();
+
+  // emitted columns by ballots in segments q * kRWarps + warp, which run
+  // in column order
+  uint32_t em[kRPer];
+#pragma unroll
+  for (int q = 0; q < kRPer; ++q) {
+    const int e = q * kRWarps + warp;
+    em[q] = 0;
+    if (q < nq) {
+      uint32_t prev = __shfl_up_sync(0xFFFFFFFFu, wp[q], 1);
+      if (lane == 0) prev = e > 0 ? edge[e - 1] : before;
+      const int col = c0 + threadIdx.x + q * kRThreads;
+      em[q] = __ballot_sync(0xFFFFFFFFu,
+                            full[q] && (col == r - 1 || wp[q] != prev));
+    }
+    if (lane == 0) seg[e] = __popc(em[q]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int agg = segment_scan<kRSegs>(seg, 0, Sum());
+    const int c = chunks == 1 ? 0 : look_back(status, tile, j, agg, 0, Sum());
+    if (lane == 0) {
+      shared_int = c;
+      if (c0 + ncols == n) count[row] = c + agg;  // the chunk of column n-1
+    }
+  }
+  __syncthreads();
+  const int pre = shared_int;
+#pragma unroll
+  for (int q = 0; q < kRPer; ++q) {
+    if (em[q] >> lane & 1u) {
+      const size_t at = base + pre + seg[q * kRWarps + warp] +
+                        __popc(em[q] & ((1u << lane) - 1u));
+      oH[at] = wh[q];
+      oP[at] = wp[q];
+    }
+  }
 }
 
 // Up to kMaxPlanes planes of 4- or 8-byte elements compacted by one mask;
@@ -898,13 +1072,18 @@ int pg_build_stream(const void* codes, const void* lengths, void* status,
   return (int)cudaGetLastError();
 }
 
-int pg_move_plane(const void* dest, const void* in, void* out, int B, int L,
-                  void* stream) {
+int pg_move_plane(const void* dest, const void* in0, const void* in1,
+                  void* out0, void* out1, int B, int L, void* stream) {
+  if ((in1 == nullptr) != (out1 == nullptr)) return (int)cudaErrorInvalidValue;
   const size_t total = (size_t)B * L;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  move_plane_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)dest, (const uint32_t*)in, (uint32_t*)out, L, total);
+  const unsigned blocks =
+      (unsigned)((total + 4 * kMoveThreads - 1) / (4 * kMoveThreads));
+  const bool vec = L % 4 == 0 &&
+                   (((uintptr_t)dest | (uintptr_t)in0 | (uintptr_t)in1) & 15) == 0;
+  const auto kernel = vec ? move_plane_kernel<true> : move_plane_kernel<false>;
+  kernel<<<blocks, kMoveThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)dest, (const uint32_t*)in0, (const uint32_t*)in1,
+      (uint32_t*)out0, (uint32_t*)out1, L, total);
   return (int)cudaGetLastError();
 }
 
@@ -921,12 +1100,16 @@ int pg_emit_mask(const void* sH, const void* sP, const void* n_in,
   return (int)cudaGetLastError();
 }
 
-int pg_reduce_step(const void* H, const void* P, const void* n_in, void* Ho,
-                   void* Po, void* dest, void* count, int B, int L, int r,
-                   void* stream) {
-  reduce_step_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+int pg_reduce_step(const void* H, const void* P, const void* n_in,
+                   void* status, void* stale, int stale_words, void* oH,
+                   void* oP, void* count, int B, int L, int r, void* stream) {
+  if (r < 2 || r > kMaxR || stale_words % kSlot)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (L + kRChunk - 1) / kRChunk;
+  reduce_step_kernel<<<B * chunks, kRThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)H, (const uint32_t*)P, (const int32_t*)n_in,
-      (uint32_t*)Ho, (uint32_t*)Po, (int32_t*)dest, (int32_t*)count, L, r);
+      (int*)status, (int*)stale, stale_words, (uint32_t*)oH, (uint32_t*)oP,
+      (int32_t*)count, L, r, chunks);
   return (int)cudaGetLastError();
 }
 

@@ -27,7 +27,7 @@ from ..config import AsmConfig
 from ..io import formats
 from ..io.seqdb import SeqDB
 from .dbgather import PackedSeqDB, gather_codes, upload_seqdb
-from .kernels import move_plane, reduce_step
+from .kernels import reduce_step
 from .reduce import reduce_flat_np, reduce_impl
 from .sketch import (assemble_records, sketch_long_np, sketch_planes,
                      sketch_wide)
@@ -64,9 +64,7 @@ def index_step(codes: torch.Tensor, lengths: torch.Tensor, rids: torch.Tensor,
         H, P = _capped(H, P, cap)
         c = torch.clamp(c0, max=H.shape[1])
         for _ in range(levels):
-            H2, P2, dest, c = reduce_step(H, P, c, r=r)
-            H = move_plane(dest, H2)
-            P = move_plane(dest, P2)
+            H, P, c = reduce_step(H, P, c, r=r)
         x, y = assemble_records(*_capped(H, P, out_cap), c, rids, k)
     else:
         x, y, c0 = sketch_wide(codes, lengths, rids, w=w, k=k)

@@ -6,7 +6,8 @@ peregrine_tpu/ops/compact_pallas.py:
   build_stream    <- build_stream   :230 (pallas_call :243)
   move_plane      <- move_plane     :113 (pallas_call :124)
   emit_mask       <- emit_mask      :333 (pallas_call :351)
-  reduce_step     <- reduce_step    :452 (pallas_call :464)
+  reduce_step     <- reduce_step    :452 (pallas_call :464), followed by
+                     move_plane on its two planes
   compact_planes  <- compact_planes :365 (pallas_call :391)
 
 On a CUDA tensor a function launches its kernel from
@@ -17,22 +18,23 @@ through a plain C interface with ctypes) and counts the launch in its
 CPU tests hold against the Pallas kernels.  Any other device raises.
 
 What bounds the kernels on an H100: device-memory bytes (each reads and
-writes about three to four B x L x 4-byte planes once).  build_stream and
-emit_mask split rows into chunks of CHUNK columns, one block each, and
-carry row prefixes across chunks by a decoupled look-back over a zeroed
-status buffer; each launch zeroes the one the launch before it used, so
-the wrappers alternate two (`_call_chunked`).  See the source note in
-the .cu file.
+writes a few bytes per column once).  build_stream, emit_mask and
+reduce_step split rows into chunks (CHUNK columns, REDUCE_CHUNK for
+reduce_step), one block each, and carry row prefixes across chunks by a
+decoupled look-back over a zeroed status buffer; each launch zeroes the
+one the launch before it used, so the wrappers alternate two
+(`_call_chunked`).  See the source note in the .cu file.
 
 Conventions: torch has no usable uint32 (no shifts, compares or minimum),
 so the u32 planes ride in int32 tensors holding the same bits; the plain
 versions widen to int64 & 0xFFFFFFFF before any compare.  Where the TPU
-kernels returned shift distances r, these return a destination column
-(`dest`, the rank among kept entries, -1 where dropped): dest = col - r
-on kept entries.  Positions of a plane compacted by move_plane at or past
-its count are stale, as on the TPU; every consumer masks by count.
-compact_planes instead fills them with each plane's fill value, which
-the wide sketch reads.
+kernels returned shift distances r, build_stream and emit_mask return a
+destination column (`dest`, the rank among kept entries, -1 where
+dropped): dest = col - r on kept entries; reduce_step returns its winners
+compacted.  Positions of a plane compacted by move_plane or reduce_step
+at or past its count are stale, as on the TPU; every consumer masks by
+count.  compact_planes instead fills them with each plane's fill value,
+which the wide sketch reads.
 """
 
 from __future__ import annotations
@@ -57,15 +59,17 @@ _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # cuts a 64-bit pointer or stream handle to 32 bits without an error.
 SIGNATURES = {
     "pg_build_stream": [_VP] * 4 + [_INT] + [_VP] * 4 + [_INT] * 3 + [_VP],
-    "pg_move_plane": [_VP] * 3 + [_INT] * 2 + [_VP],
+    "pg_move_plane": [_VP] * 5 + [_INT] * 2 + [_VP],
     "pg_emit_mask": [_VP] * 5 + [_INT] + [_VP] * 2 + [_INT] * 4 + [_VP],
-    "pg_reduce_step": [_VP] * 7 + [_INT] * 3 + [_VP],
+    "pg_reduce_step": [_VP] * 5 + [_INT] + [_VP] * 3 + [_INT] * 3 + [_VP],
     "pg_compact_planes": [_VP] * 8 + [_I64] * 3 + [_INT] * 5 + [_VP],
 }
-# The chunked kernels' layout (kChunk and kSlot in the .cu file; tests
-# check the two agree): columns per block, and int32 words per look-back
-# status slot (slot 0 holds the ticket counter, then one per chunk).
+# The chunked kernels' layout (kChunk, kRChunk and kSlot in the .cu file;
+# tests check they agree): columns per block of build_stream and
+# emit_mask, of reduce_step, and int32 words per look-back status slot
+# (slot 0 holds the ticket counter, then one per chunk).
 CHUNK = 4096
+REDUCE_CHUNK = 3072
 STATUS_SLOT = 8
 _lib = None
 # (device, stream) -> [status of the next launch, status of the last, the
@@ -125,13 +129,15 @@ def _call(fn, *args) -> None:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
-def _call_chunked(fn, B: int, L: int, device, inputs, outputs, *tail):
+def _call_chunked(fn, B: int, L: int, device, inputs, outputs, *tail,
+                  chunk: int = CHUNK):
     """Launch chunked kernel fn(*inputs, status, stale, stale_words,
-    *outputs, *tail): status is zeroed look-back status for this launch,
-    and the kernel zeroes the first stale_words of stale, the status of the
-    last launch on this stream, which then serves the next.  The two
-    buffers start as zeros and are replaced by larger ones as needed."""
-    words = STATUS_SLOT * (1 + B * -(-L // CHUNK))
+    *outputs, *tail) on rows of `chunk`-column chunks: status is zeroed
+    look-back status for this launch, and the kernel zeroes the first
+    stale_words of stale, the status of the last launch on this stream,
+    which then serves the next.  The two buffers start as zeros and are
+    replaced by larger ones as needed."""
+    words = STATUS_SLOT * (1 + B * -(-L // chunk))
     key = (device, torch.cuda.current_stream(device).cuda_stream
            if device.type == "cuda" else None)
     pair = _status_pairs.get(key)
@@ -248,27 +254,38 @@ build_stream.launches = 0
 
 # --- move_plane -----------------------------------------------------------
 
-def move_plane_plain(dest: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
-    out = plane.clone()
+def move_plane_plain(dest: torch.Tensor, *planes: torch.Tensor) -> tuple:
     keep = dest >= 0
-    rows = torch.arange(plane.shape[0], device=plane.device)[:, None]
-    out[rows.expand_as(dest)[keep], dest[keep].to(torch.int64)] = plane[keep]
-    return out
+    rows = torch.arange(dest.shape[0], device=dest.device)[:, None]
+    rows, cols = rows.expand_as(dest)[keep], dest[keep].to(torch.int64)
+    outs = []
+    for plane in planes:
+        out = plane.clone()
+        out[rows, cols] = plane[keep]
+        outs.append(out)
+    return tuple(outs)
 
 
-def move_plane(dest: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
-    """Stable compaction of one int32 plane: out[b, dest[b, i]] =
-    plane[b, i] where dest >= 0.  Columns past the count are stale."""
-    B, L = plane.shape
+def move_plane(dest: torch.Tensor, *planes: torch.Tensor) -> tuple:
+    """Stable compaction of one or two int32 planes by one destination
+    plane, in one launch: out[b, dest[b, i]] = plane[b, i] where
+    dest >= 0.  Returns a tuple of the moved planes; columns past the
+    count are stale."""
+    B, L = dest.shape
+    if not 0 < len(planes) <= 2:
+        raise ValueError(f"move_plane: one or two planes, got {len(planes)}")
     _check(dest, torch.int32, (B, L), "dest")
-    _check(plane, torch.int32, (B, L), "plane")
-    if _route(dest, plane) == "cpu":
-        return move_plane_plain(dest, plane)
-    out = torch.empty_like(plane)
+    for i, p in enumerate(planes):
+        _check(p, torch.int32, (B, L), f"plane {i}")
+    if _route(dest, *planes) == "cpu":
+        return move_plane_plain(dest, *planes)
+    outs = tuple(torch.empty_like(p) for p in planes)
     if B and L:
-        _call(library().pg_move_plane, dest, plane, out, B, L)
+        second = (planes[1], outs[1]) if len(planes) == 2 else (0, 0)
+        _call(library().pg_move_plane, dest, planes[0], second[0], outs[0],
+              second[1], B, L)
         move_plane.launches += 1
-    return out
+    return outs
 
 
 move_plane.launches = 0
@@ -339,11 +356,13 @@ emit_mask.launches = 0
 
 # --- reduce_step ----------------------------------------------------------
 
-def reduce_step_plain(H: torch.Tensor, P: torch.Tensor, n: torch.Tensor,
-                      r: int):
-    """Plain version of reduce_step: the r-wide trailing winner on
-    (hash, ring slot col % r) — the order of the reference composite key
-    (peregrine_tpu/ops/reduce.py:reduce_impl) — then dedup and emission."""
+def reduce_columns_plain(H: torch.Tensor, P: torch.Tensor, n: torch.Tensor,
+                         r: int):
+    """One reduction level per column, as the TPU kernel computed it: the
+    r-wide trailing winner on (hash, ring slot col % r) — the order of the
+    reference composite key (peregrine_tpu/ops/reduce.py:reduce_impl) —
+    then dedup and emission.  Returns the winners' planes (H', P') at
+    every column, the emitted columns' destinations and the count."""
     B, L = H.shape
     col = torch.arange(L, device=H.device)[None, :]
     slot = (col % r).expand(B, L).contiguous()
@@ -365,9 +384,19 @@ def reduce_step_plain(H: torch.Tensor, P: torch.Tensor, n: torch.Tensor,
     return i32(best_h), best_p.contiguous(), dest, count
 
 
+def reduce_step_plain(H: torch.Tensor, P: torch.Tensor, n: torch.Tensor,
+                      r: int):
+    """Plain version of reduce_step: the per-column level, then the
+    compaction of its two planes."""
+    Ho, Po, dest, count = reduce_columns_plain(H, P, n, r)
+    return move_plane_plain(dest, Ho, Po) + (count,)
+
+
 def reduce_step(H: torch.Tensor, P: torch.Tensor, n: torch.Tensor, *, r: int):
-    """One reduction level on (H, P, n): returns (H', P', dest, count);
-    move_plane(dest, .) on H' and P' compacts the winners."""
+    """One reduction level on (H, P, n), in one launch: returns
+    (H', P', count), the emitted winners at the row fronts in column order
+    and their exact count.  Columns of H', P' at or past the count are
+    stale; the values of H, P at or past n are never used."""
     B, L = H.shape
     if not 1 < r < 256:
         raise ValueError(f"reduce_step: r={r} outside 2..255")
@@ -376,14 +405,16 @@ def reduce_step(H: torch.Tensor, P: torch.Tensor, n: torch.Tensor, *, r: int):
     _check(n, torch.int32, (B,), "n")
     if _route(H, P, n) == "cpu":
         return reduce_step_plain(H, P, n, r)
-    Ho = torch.empty_like(H)
-    Po = torch.empty_like(H)
-    dest = torch.empty_like(H)
-    count = torch.zeros(B, dtype=torch.int32, device=H.device)
-    if B and L:
-        _call(library().pg_reduce_step, H, P, n, Ho, Po, dest, count, B, L, r)
+    oH = torch.empty_like(H)
+    oP = torch.empty_like(H)
+    count = torch.empty(B, dtype=torch.int32, device=H.device)
+    if B and L:  # the chunk of each row's column n - 1 writes its count
+        _call_chunked(library().pg_reduce_step, B, L, H.device, (H, P, n),
+                      (oH, oP, count), B, L, r, chunk=REDUCE_CHUNK)
         reduce_step.launches += 1
-    return Ho, Po, dest, count
+    else:
+        count.zero_()
+    return oH, oP, count
 
 
 reduce_step.launches = 0
@@ -433,14 +464,16 @@ def compact_planes(keep: torch.Tensor, planes, fills):
     if _route(keep, *planes) == "cpu":
         return compact_planes_plain(keep, planes, fills)
     outs = tuple(torch.empty_like(p) for p in planes)
-    count = torch.zeros(B, dtype=torch.int32, device=keep.device)
-    if B and L:
+    count = torch.empty(B, dtype=torch.int32, device=keep.device)
+    if B and L:  # each row's block writes its count
         pad = _MAX_PLANES - len(planes)
         _call(library().pg_compact_planes, keep, *planes, *[0] * pad,
               *outs, *[0] * pad, count,
               *[_signed(f, 64) for f in fills], *[0] * pad,
               *[p.element_size() for p in planes], *[0] * pad, B, L)
         compact_planes.launches += 1
+    else:
+        count.zero_()
     return outs, count
 
 

@@ -12,8 +12,9 @@ distinct, so the key has no ties.
 
 For k <= 16, x = hash << 8 | k, so the key orders exactly as
 (hash, slot) — the order of the reduce_step kernel, which
-reduce_flat_np runs on packed (H, P) planes with move_plane instead
-(tests/test_reduce.py asserts the equality on the JAX side).  Its y word
+reduce_flat_np runs on packed (H, P) planes instead, compacting its
+winners in the same launch (tests/test_reduce.py asserts the equality on
+the JAX side).  Its y word
 rides through as its low 32 bits (pos << 1 | strand): within one read it
 is unique, which is all the dedup compares.  Wider spans (k > 16) take
 reduce_impl.
@@ -24,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels import _shift_right, compact_planes, move_plane, reduce_step
+from .kernels import _shift_right, compact_planes, reduce_step
 from .sketch import INF, SIGN
 
 
@@ -68,8 +69,9 @@ def _rows(x: np.ndarray, y: np.ndarray):
 
 
 def _reduce_packed(x: np.ndarray, y: np.ndarray, r: int, device):
-    """reduce_flat_np on packed (H, P) planes: reduce_step + move_plane.
-    Needs one span of at most 16 (a 32-bit hash)."""
+    """reduce_flat_np on packed (H, P) planes: the fused reduce_step
+    kernel, which writes the winners compacted.  Needs one span of at most
+    16 (a 32-bit hash)."""
     span = x & np.uint64(0xFF)
     k = int(span[0])
     if k > 16 or (span != span[0]).any():
@@ -82,10 +84,8 @@ def _reduce_packed(x: np.ndarray, y: np.ndarray, r: int, device):
     H[row, colj] = (x >> np.uint64(8)).astype(np.uint32).view(np.int32)
     P[row, colj] = (y & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
     n = torch.from_numpy(lens.astype(np.int32)).to(device)
-    H2, P2, dest, count = reduce_step(torch.from_numpy(H).to(device),
-                                      torch.from_numpy(P).to(device), n, r=r)
-    oH = move_plane(dest, H2)
-    oP = move_plane(dest, P2)
+    oH, oP, count = reduce_step(torch.from_numpy(H).to(device),
+                                torch.from_numpy(P).to(device), n, r=r)
     valid = torch.arange(C, device=oH.device)[None, :] < count[:, None]
     oh = oH[valid].cpu().numpy().view(np.uint32).astype(np.uint64)
     op = oP[valid].cpu().numpy().view(np.uint32).astype(np.uint64)

@@ -4,8 +4,9 @@ for 17 <= k <= 28.
 The port of peregrine_tpu/ops/sketch.py (see that module's docstring for
 the emission-set semantics and the documented superset divergences from
 the reference).  For k <= 16 one sketch is
-build_stream -> move_plane x2 -> emit_mask -> move_plane x2
-(ops.kernels: CUDA kernels on the card, plain PyTorch on the CPU), and
+build_stream -> move_plane -> emit_mask -> move_plane, each move taking
+both planes (ops.kernels: CUDA kernels on the card, plain PyTorch on the
+CPU), and
 records are assembled only at the end.  For k > 16 the hash needs up to
 56 bits, so sketch_wide works on the records themselves; its two stable
 compactions are the compact_planes kernel and the rest is elementwise
@@ -39,10 +40,9 @@ def sketch_planes(codes: torch.Tensor, lengths: torch.Tensor, *, w: int,
     and their counts (replaces peregrine_tpu's sketch_planes_tpu).
     Columns at or past a row's count are stale."""
     H, P, dest, n = build_stream(codes, lengths, k=k)
-    sH = move_plane(dest, H)
-    sP = move_plane(dest, P)
+    sH, sP = move_plane(dest, H, P)
     dest2, count = emit_mask(sH, sP, n, w=w, k=k)
-    return move_plane(dest2, sH), move_plane(dest2, sP), count
+    return move_plane(dest2, sH, sP) + (count,)
 
 
 def assemble_records(oH: torch.Tensor, oP: torch.Tensor, count: torch.Tensor,

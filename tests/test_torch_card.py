@@ -9,13 +9,15 @@ there on its own:
 
 Every output of a launch is a view into a larger buffer whose margins
 hold a canary; a write past either end of an output changes a margin.
-build_stream and emit_mask split rows into chunks of CHUNK columns and
-carry row prefixes by a decoupled look-back over a zeroed status buffer,
-and each launch zeroes the status of the launch before it: their cases
-put lengths, counts, placeholders and final windows on chunk boundaries
+build_stream and emit_mask split rows into chunks of CHUNK columns, and
+reduce_step into chunks of REDUCE_CHUNK, and carry row prefixes by a
+decoupled look-back over a zeroed status buffer, and each launch zeroes
+the status of the launch before it: their cases put lengths, counts,
+placeholders, final windows and window winners on chunk boundaries
 (torch_kernel_cases), check what each launch published to its status and
 that it zeroed the earlier one, and repeat launches on two status buffers
-in turn to catch races.
+in turn to catch races.  move_plane and reduce_step write only the
+columns below their counts, so the columns past them keep the canary.
 """
 
 import numpy as np
@@ -33,8 +35,9 @@ pytestmark = [pytest.mark.cuda,
 B, K, W, R = 64, 16, 80, 6
 CANARY = 0x5A5A5A5A
 GUARD = 4096
-C, SLOT = kn.CHUNK, kn.STATUS_SLOT
+C, RC, SLOT = kn.CHUNK, kn.REDUCE_CHUNK, kn.STATUS_SLOT
 CHUNKED_L = [C - 1, C, C + 1, 16384, 24576, 40960]
+REDUCE_L = [RC - 1, RC, RC + 1, 2048, 5000, 40960]
 
 
 def _guarded(*shape, dtype=torch.int32):
@@ -48,45 +51,61 @@ def _outputs(*shapes, dtype=torch.int32):
     return list(bufs), list(views)
 
 
-def _status(L, fill=0):
-    """A look-back status buffer for rows of length L inside canary
-    margins: zeros, or `fill` for the status of an earlier launch, which
-    the launch must zero."""
-    buf, view = _guarded(SLOT * (1 + B * -(-L // C)))
+def _status(L, fill=0, chunk=C, rows=B):
+    """A look-back status buffer for `rows` rows of length L in chunks of
+    `chunk` columns, inside canary margins: zeros, or `fill` for the
+    status of an earlier launch, which the launch must zero."""
+    buf, view = _guarded(SLOT * (1 + rows * -(-L // chunk)))
     view.fill_(fill)
     return buf, view
 
 
-def _check_status(status, L, field, counts, total):
-    """After a launch every tile took one ticket and published its
-    inclusive prefix, and every chunk but the first its aggregate, each as
-    two 64-bit words with bit 0 set (field 0 of x >> 1 is a count, x >> 32
-    field 1); `field` of the aggregates equals the per-chunk `counts`
-    [B, chunks], the inclusive prefixes are their running sums, and the
-    last is the row's `total`."""
-    chunks = -(-L // C)
+def _check_status(status, L, field, counts, total, chunk=C, live=None):
+    """After a launch every tile took one ticket; the first live[b] chunks
+    of row b (all of them by default) each published its inclusive
+    prefix, and each of those but the first its aggregate, as two 64-bit
+    words with bit 0 set (field 0 of x >> 1 is a count, x >> 32 field 1),
+    and the other tiles published nothing; `field` of the aggregates
+    equals the per-chunk `counts` [rows, chunks], the inclusive prefixes
+    are their running sums, and the last live one is the row's `total`
+    (0 where no chunk is live)."""
+    rows, chunks = counts.shape
     st = status.view(torch.int64).view(-1, SLOT // 2)
-    assert st[0, 0] == B * chunks and not st[0, 1:].any()
-    tiles = st[1:].view(B, chunks, SLOT // 2)
-    assert ((tiles[..., 2] & tiles[..., 3] & 1) == 1).all()
-    assert ((tiles[:, 1:, 0] & tiles[:, 1:, 1] & 1) == 1).all()
-    assert not tiles[:, 0, :2].any()
+    assert st[0, 0] == rows * chunks and not st[0, 1:].any()
+    tiles = st[1:1 + rows * chunks].view(rows, chunks, SLOT // 2)
+    if live is None:
+        live = torch.full((rows,), chunks, device="cuda")
+    on = torch.arange(chunks, device="cuda")[None, :] < live[:, None]
+    assert torch.equal((tiles[..., 2] & tiles[..., 3] & 1) == 1, on)
+    assert torch.equal((tiles[:, 1:, 0] & tiles[:, 1:, 1] & 1) == 1,
+                       on[:, 1:])
+    assert not tiles[:, 0, :2].any() and not tiles[~on].any()
 
     def value(x):
         return ((x >> 32) if field else (x >> 1) & 0x7FFFFFFF).to(torch.int32)
 
-    assert torch.equal(value(tiles[:, 1:, 0]), counts[:, 1:])
-    assert torch.equal(value(tiles[..., 2]),
-                       counts.cumsum(1, dtype=torch.int32))
-    assert torch.equal(value(tiles[:, -1, 2]), total)
+    assert torch.equal(value(tiles[:, 1:, 0])[on[:, 1:]],
+                       counts[:, 1:][on[:, 1:]])
+    inclusive = value(tiles[..., 2])
+    assert torch.equal(inclusive[on], counts.cumsum(1, dtype=torch.int32)[on])
+    last = inclusive.gather(1, (live[:, None] - 1).clamp(min=0).long())[:, 0]
+    assert torch.equal(torch.where(live > 0, last, 0), total)
 
 
-def _chunk_counts(dest, L):
+def _chunk_counts(dest, L, chunk=C):
     """Kept entries (dest >= 0) per chunk of each row."""
-    chunks = -(-L // C)
-    kept = torch.zeros((B, chunks * C), dtype=torch.int32, device="cuda")
+    rows, chunks = dest.shape[0], -(-L // chunk)
+    kept = torch.zeros((rows, chunks * chunk), dtype=torch.int32,
+                       device="cuda")
     kept[:, :L] = (dest >= 0).int()
-    return kept.view(B, chunks, C).sum(2, dtype=torch.int32)
+    return kept.view(rows, chunks, chunk).sum(2, dtype=torch.int32)
+
+
+def _past_counts_untouched(plane, count):
+    """A compacted plane's columns at or past each row's count still hold
+    the canary: the kernel wrote only the columns below it."""
+    col = torch.arange(plane.shape[1], device="cuda")[None, :]
+    assert (plane[col >= count[:, None]] == CANARY).all()
 
 
 def _launch(name, bufs, *args):
@@ -106,10 +125,62 @@ def _codes(rng, L):
     return (torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda())
 
 
+def _prefixes_equal(got, want, count):
+    valid = torch.arange(got.shape[1], device="cuda")[None, :] < count[:, None]
+    assert torch.equal(got[valid], want[valid])
+
+
+def _move_plane(dest, planes):
+    """One guarded move_plane launch of one or two planes, checked against
+    its plain version up to the kept counts, with the columns past them
+    untouched; returns the plain version's planes."""
+    B_, L = dest.shape
+    bufs, outs = _outputs(*[(B_, L)] * len(planes))
+    ptrs = list(planes) + [0] * (2 - len(planes))
+    outp = list(outs) + [0] * (2 - len(outs))
+    _launch("pg_move_plane", bufs, dest, ptrs[0], ptrs[1], outp[0], outp[1],
+            B_, L)
+    want = kn.move_plane_plain(dest, *planes)
+    kept = (dest >= 0).sum(1, dtype=torch.int32)
+    for got, ref in zip(outs, want):
+        _prefixes_equal(got, ref, kept)
+        _past_counts_untouched(got, kept)
+    return want
+
+
+def _reduce_step(H, P, n, r, statuses=None):
+    """One guarded reduce_step launch, on a zeroed status and a junk
+    earlier status, or on `statuses` ((buffer, view) of each), checked
+    against its plain version (prefixes up to the count, the count, the
+    columns past it untouched) and its status, and the earlier status
+    checked zeroed; returns the outputs."""
+    rows, L = H.shape
+    bufs, (oH, oP, count) = _outputs((rows, L), (rows, L), (rows,))
+    (sbuf, status), (xbuf, stale) = statuses or (
+        _status(L, chunk=RC, rows=rows), _status(L, -1, chunk=RC, rows=rows))
+    _launch("pg_reduce_step", bufs + [sbuf, xbuf], H, P, n, status, stale,
+            stale.numel(), oH, oP, count, rows, L, r)
+    wH, wP, wc = kn.reduce_step_plain(H, P, n, r)
+    assert torch.equal(count, wc)
+    for got, ref in ((oH, wH), (oP, wP)):
+        _prefixes_equal(got, ref, wc)
+        _past_counts_untouched(got, wc)
+    if L > RC:
+        dest = kn.reduce_columns_plain(H, P, n, r)[2]
+        live = -(-n.clamp(0, L) // RC)
+        _check_status(status, L, 0, _chunk_counts(dest, L, RC), count, RC,
+                      live)
+    else:  # rows of one chunk take no ticket and publish nothing
+        assert not status.any()
+    assert not stale.any()
+    return oH, oP, count
+
+
 @pytest.mark.parametrize("L", [1000, 8192])
 def test_kernels_match_plain_and_stay_in_their_outputs(L):
     """All four kernels, at a row length that is and one that is not a
-    multiple of the block's tile, with rows of length 0 and L."""
+    multiple of the block's tile, with rows of length 0 and L; move_plane
+    with two planes and with one."""
     codes, lens = _codes(np.random.default_rng(L), L)
 
     bufs, (H, P, dest, n) = _outputs((B, L), (B, L), (B, L), (B,))
@@ -121,12 +192,8 @@ def test_kernels_match_plain_and_stay_in_their_outputs(L):
         assert torch.equal(got, ref)
     assert not stale.any()
 
-    bufs, (sH,) = _outputs((B, L))
-    _launch("pg_move_plane", bufs, dest, H, sH, B, L)
-    ref = kn.move_plane_plain(dest, H)
-    valid = torch.arange(L, device="cuda")[None, :] < n[:, None]
-    assert torch.equal(sH[valid], ref[valid])
-    sH, sP = ref, kn.move_plane_plain(dest, P)
+    sH, sP = _move_plane(dest, (H, P))
+    _move_plane(dest, (H,))
 
     bufs, (edest, count) = _outputs((B, L), (B,))
     (sbuf, status), (xbuf, stale) = _status(L), _status(L, -1)
@@ -136,11 +203,58 @@ def test_kernels_match_plain_and_stay_in_their_outputs(L):
         assert torch.equal(got, ref)
     assert not stale.any()
 
-    bufs, outs = _outputs((B, L), (B, L), (B, L), (B,))
-    outs[3].zero_()
-    _launch("pg_reduce_step", bufs, sH, sP, n, *outs, B, L, R)
-    for got, ref in zip(outs, kn.reduce_step_plain(sH, sP, n, R)):
-        assert torch.equal(got, ref)
+    _reduce_step(sH, sP, n, R)
+
+
+@pytest.mark.parametrize("L", [1001, 4096])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_move_plane_scalar_and_vector_paths(L, offset):
+    """Rows of a length that is not a multiple of 4, and planes that start
+    4 bytes past a 16-byte boundary, take the scalar path; the others the
+    16-byte loads: both equal the plain version, at keep densities from
+    nothing to everything."""
+    rng = np.random.default_rng(L + offset)
+    keep = rng.random((B, L)) < rng.random((B, 1))
+    keep[0], keep[1] = False, True
+    dest = torch.from_numpy(np.where(keep, np.cumsum(keep, 1) - 1, -1)
+                            .astype(np.int32))
+
+    def placed(a):
+        t = torch.empty(a.size + offset, dtype=torch.int32, device="cuda")
+        t[offset:] = torch.from_numpy(a.ravel()).cuda()
+        return t[offset:].view(B, L)
+
+    planes = [placed(rng.integers(-2**31, 2**31, (B, L), dtype=np.int64)
+                     .astype(np.int32)) for _ in range(2)]
+    _move_plane(placed(dest.numpy()), planes)
+
+
+@pytest.mark.parametrize("L", REDUCE_L)
+@pytest.mark.parametrize("r", [2, R, 255])
+@pytest.mark.parametrize("ties", [False, True])
+def test_reduce_step_across_chunks(L, r, ties):
+    """n = 0, L, r - 2, r, on a REDUCE_CHUNK boundary and one either side;
+    the least hash on the column before each boundary; all-tie hashes;
+    all-equal P; random values past n, which must not be used."""
+    H, P, n = kernel_cases.reduce_rows(np.random.default_rng(L + r), B, L,
+                                       r, RC, ties)
+    _reduce_step(torch.from_numpy(H.view(np.int32)).cuda(),
+                 torch.from_numpy(P.view(np.int32)).cuda(),
+                 torch.from_numpy(n).cuda(), r)
+
+
+@pytest.mark.parametrize("n", [131072, 131069, 1000])
+def test_reduce_step_one_long_row(n):
+    """One row of 131,072 columns (43 chunks carried by the look-back),
+    as stage 4's contig index gives at k <= 16, in full and cut short."""
+    L = 131072
+    rng = np.random.default_rng(n)
+    H = rng.integers(0, 1 << 20, (1, L), dtype=np.int64).astype(np.uint32)
+    P = (rng.integers(0, 1 << 30, (1, L), dtype=np.int64).astype(np.uint32)
+         << np.uint32(2))
+    _reduce_step(torch.from_numpy(H.view(np.int32)).cuda(),
+                 torch.from_numpy(P.view(np.int32)).cuda(),
+                 torch.tensor([n], dtype=torch.int32, device="cuda"), R)
 
 
 def _build_stream(codes, lens, L, k, statuses=None):
@@ -206,10 +320,11 @@ def test_emit_mask_across_chunks(L, w, ties):
 
 def test_repeated_launches_are_identical():
     """Twenty launches of each chunked kernel on the same inputs at
-    L = 40960 (ten chunks a row) give the same outputs, on two status
-    buffers in turn as the wrappers use them (each launch zeroes the one
-    the launch before it used): a race in the look-back, or a status not
-    zeroed for the launch after, would show as a difference."""
+    L = 40960 (ten chunks a row) give the same
+    outputs, on two status buffers in turn as the wrappers use them (each
+    launch zeroes the one the launch before it used): a race in the
+    look-back, or a status not zeroed for the launch after, would show as
+    a difference."""
     L = 40960
     codes, lens = kernel_cases.stream_codes(np.random.default_rng(7), B, L,
                                             K, C)
@@ -226,6 +341,16 @@ def test_repeated_launches_are_identical():
     for i in range(1, 20):
         for got, ref in zip(_emit_mask(*stream, L, W, K, turns[i % 2]),
                             first):
+            assert torch.equal(got, ref)
+    H, P, n = kernel_cases.reduce_rows(np.random.default_rng(7), B, L, R, RC,
+                                       True)
+    H, P, n = (torch.from_numpy(x).cuda()
+               for x in (H.view(np.int32), P.view(np.int32), n))
+    a, b = _status(L, chunk=RC), _status(L, -1, chunk=RC)
+    turns = [(a, b), (b, a)]
+    first = _reduce_step(H, P, n, R, turns[0])
+    for i in range(1, 20):
+        for got, ref in zip(_reduce_step(H, P, n, R, turns[i % 2]), first):
             assert torch.equal(got, ref)
 
 

@@ -85,10 +85,11 @@ def test_build_stream_matches_pallas(rng, L, k):
         np.testing.assert_array_equal(tn.numpy(), np.asarray(n))
         assert tn[2] == L and (tn[1] == 0) == (lengths[1] == 0)
         _assert_dest_matches_r(dest, tn, r1, n)
-        # compacted stream planes agree up to the counts
+        # compacted stream planes agree up to the counts (one plane a call)
         for jp, tp in ((H, tH), (P, tP)):
             want = np.asarray(pl.move_plane(r1, jp, interpret=True))
-            got = _u32(kn.move_plane(dest, tp))
+            (moved,) = kn.move_plane(dest, tp)
+            got = _u32(moved)
             for b in range(B):
                 np.testing.assert_array_equal(got[b, :tn[b]],
                                               want[b, :tn[b]])
@@ -97,18 +98,22 @@ def test_build_stream_matches_pallas(rng, L, k):
 @pytest.mark.parametrize("L", [512, 640])
 @pytest.mark.parametrize("p", [0.97, 0.03, 1.0, 0.0])
 def test_move_plane_matches_pallas(rng, L, p):
+    """Two planes moved in one call, each against the Pallas move_plane."""
     keep = rng.random((B, L)) < p
-    vals = rng.integers(0, 2**32, (B, L)).astype(np.uint32)
+    planes = [rng.integers(0, 2**32, (B, L)).astype(np.uint32)
+              for _ in range(2)]
     cvk = np.cumsum(keep, axis=1)
     col = np.arange(L)[None, :]
     r = np.where(keep, col - cvk + 1, 0).astype(np.int32)
     dest = np.where(keep, cvk - 1, -1).astype(np.int32)
-    want = np.asarray(pl.move_plane(jnp.asarray(r), jnp.asarray(vals),
-                                    interpret=True))
-    got = _u32(kn.move_plane(_t(dest), _t(vals.view(np.int32))))
-    for b in range(B):
-        n = int(cvk[b, -1])
-        np.testing.assert_array_equal(got[b, :n], want[b, :n])
+    got = kn.move_plane(_t(dest), *(_t(v.view(np.int32)) for v in planes))
+    assert len(got) == 2
+    for vals, moved in zip(planes, got):
+        want = np.asarray(pl.move_plane(jnp.asarray(r), jnp.asarray(vals),
+                                        interpret=True))
+        for b in range(B):
+            n = int(cvk[b, -1])
+            np.testing.assert_array_equal(_u32(moved)[b, :n], want[b, :n])
 
 
 def _stream(rng, L, ties):
@@ -148,27 +153,51 @@ def test_emit_mask_matches_pallas(rng, L, w, k, ties):
         _assert_dest_matches_r(dest, count, r2, cnt)
 
 
-@pytest.mark.parametrize("C,r", [(512, 4), (640, 6)])
-@pytest.mark.parametrize("ties", [True, False])
-def test_reduce_step_matches_pallas(rng, C, r, ties):
+def _level(rng, C, ties):
     count = rng.integers(0, C, B).astype(np.int32)
     count[0] = 0
     count[1] = C
     H = rng.integers(0, 50 if ties else 2**32, (B, C)).astype(np.uint32)
     P = ((rng.integers(0, 2**15, (B, C)).astype(np.uint32) << np.uint32(2))
          | (rng.integers(0, 2, (B, C)).astype(np.uint32) << np.uint32(1)))
-    H2, P2, rs, cnt = pl.reduce_step(jnp.asarray(H), jnp.asarray(P),
-                                     jnp.asarray(count), r=r, interpret=True)
-    tH2, tP2, dest, tcnt = kn.reduce_step(_t(H.view(np.int32)),
-                                          _t(P.view(np.int32)), _t(count), r=r)
-    np.testing.assert_array_equal(_u32(tH2), np.asarray(H2))
-    np.testing.assert_array_equal(_u32(tP2), np.asarray(P2))
-    _assert_dest_matches_r(dest, tcnt, rs, cnt)
-    for jp, tp in ((H2, tH2), (P2, tP2)):
-        want = np.asarray(pl.move_plane(rs, jp, interpret=True))
-        got = _u32(kn.move_plane(dest, tp))
-        for b in range(B):
-            np.testing.assert_array_equal(got[b, :tcnt[b]], want[b, :tcnt[b]])
+    return H, P, count
+
+
+@pytest.mark.parametrize("C,r", [(512, 4), (640, 6), (3200, 6)])
+@pytest.mark.parametrize("ties", [True, False])
+def test_reduce_step_matches_pallas(rng, C, r, ties):
+    """The fused level (reduce_step) against the Pallas reduce_step
+    followed by the Pallas move_plane on its two planes: the prefixes up
+    to the count and the counts, exactly; and the per-column level it
+    compacts against the Pallas reduce_step's planes and shifts.  A random
+    level, then kernel_cases' rows: n = 0, L, r - 2, r - 1, on and beside
+    a chunk boundary (REDUCE_CHUNK at C = 3200), a winner across a
+    boundary, all-tie hashes, all-equal P."""
+    chunk = kn.REDUCE_CHUNK if C > kn.REDUCE_CHUNK else CHUNK
+    for H, P, count in (_level(rng, C, ties),
+                        kernel_cases.reduce_rows(rng, 2 * B, C, r, chunk,
+                                                 ties)):
+        rows = H.shape[0]
+        H2, P2, rs, cnt = pl.reduce_step(jnp.asarray(H), jnp.asarray(P),
+                                         jnp.asarray(count), r=r,
+                                         interpret=True)
+        tH, tP, tcnt = kn.reduce_step(_t(H.view(np.int32)),
+                                      _t(P.view(np.int32)), _t(count), r=r)
+        np.testing.assert_array_equal(tcnt.numpy(), np.asarray(cnt))
+        for jp, tp in ((H2, tH), (P2, tP)):
+            want = np.asarray(pl.move_plane(rs, jp, interpret=True))
+            got = _u32(tp)
+            for b in range(rows):
+                np.testing.assert_array_equal(got[b, :tcnt[b]],
+                                              want[b, :tcnt[b]])
+        cH, cP, dest, ccnt = kn.reduce_columns_plain(
+            _t(H.view(np.int32)), _t(P.view(np.int32)), _t(count), r)
+        np.testing.assert_array_equal(_u32(cH), np.asarray(H2))
+        np.testing.assert_array_equal(_u32(cP), np.asarray(P2))
+        _assert_dest_matches_r(dest, ccnt, rs, cnt)
+        if rows > B:  # the crafted rows' counts
+            assert tcnt[0] == 0 and tcnt[2] == 0 and tcnt[3] == 1
+            assert tcnt[9] == 1
 
 
 def test_hash64_matches_jax(rng):
@@ -225,6 +254,10 @@ def test_other_devices_and_bad_inputs_raise():
     with pytest.raises(ValueError):
         kn.move_plane(torch.zeros((8, 128), dtype=torch.int64),
                       torch.zeros((8, 128), dtype=torch.int32))
+    plane = torch.zeros((8, 128), dtype=torch.int32)
+    for planes in ((), (plane,) * 3):
+        with pytest.raises(ValueError):
+            kn.move_plane(plane, *planes)
 
 
 def test_bindings_match_c_prototypes():
@@ -251,15 +284,21 @@ def test_bindings_match_c_prototypes():
         "dest", "n_out"]
     assert names["pg_emit_mask"][:8] == [
         "sH", "sP", "n_in", "status", "stale", "stale_words", "dest", "count"]
+    assert names["pg_reduce_step"][:9] == [
+        "H", "P", "n_in", "status", "stale", "stale_words", "oH", "oP",
+        "count"]
+    assert names["pg_move_plane"] == [
+        "dest", "in0", "in1", "out0", "out1", "B", "L", "stream"]
 
 
 def test_chunk_layout_matches_the_source():
-    """The wrappers size the look-back status from CHUNK and STATUS_SLOT,
-    which the kernels know as kChunk and kSlot."""
+    """The wrappers size the look-back status from CHUNK, REDUCE_CHUNK and
+    STATUS_SLOT, which the kernels know as kChunk, kRChunk and kSlot."""
     with open(kn._CU) as f:
         src = f.read()
     const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(const["kChunk"]) == kn.CHUNK
+    assert int(const["kRChunk"]) == kn.REDUCE_CHUNK
     assert int(const["kSlot"]) == kn.STATUS_SLOT
 
 
@@ -294,5 +333,77 @@ def test_chunked_launches_alternate_two_status_buffers(monkeypatch):
 def test_call_rejects_a_wrong_argument_count():
     fn = types.SimpleNamespace(__name__="pg_move_plane",
                                argtypes=kn.SIGNATURES["pg_move_plane"])
-    with pytest.raises(TypeError, match="takes 6 arguments"):
+    with pytest.raises(TypeError, match="takes 8 arguments"):
         kn._call(fn, 0, 0, 0, 8, 128, 0)
+
+
+class _Launches:
+    """The kernel library stubbed out on the CPU: each wrapper takes its
+    CUDA branch (the route says "cuda") and every C entry it calls is
+    recorded with its arguments instead of launched."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(kn, "_route", lambda *t: "cuda")
+        monkeypatch.setattr(kn, "_status_pairs", {})
+        monkeypatch.setattr(kn, "library", lambda: types.SimpleNamespace(**{
+            name: name for name in kn.SIGNATURES}))
+        monkeypatch.setattr(kn, "_call", lambda fn, *args:
+                            self.calls.append((fn, args)))
+
+
+def test_one_launch_per_level_and_per_move(monkeypatch):
+    """reduce_step is one pg_reduce_step launch with its look-back status
+    sized by REDUCE_CHUNK, and nothing else; move_plane moves two planes
+    in one pg_move_plane launch, and one plane with null pointers for the
+    second."""
+    launches = _Launches(monkeypatch)
+    Bq, L = 3, kn.REDUCE_CHUNK + 1
+    H = torch.zeros((Bq, L), dtype=torch.int32)
+    n = torch.full((Bq,), L, dtype=torch.int32)
+    before = kn.reduce_step.launches
+    oH, oP, count = kn.reduce_step(H, H.clone(), n, r=6)
+    assert kn.reduce_step.launches == before + 1
+    [(fn, args)] = launches.calls
+    assert fn == "pg_reduce_step" and args[0] is H and args[2] is n
+    assert args[3].numel() == kn.STATUS_SLOT * (1 + Bq * 2)
+    assert args[6:] == (oH, oP, count, Bq, L, 6)
+
+    launches.calls.clear()
+    before = kn.move_plane.launches
+    a, b = kn.move_plane(H, H, n[:, None].expand(Bq, L).contiguous())
+    (c,) = kn.move_plane(H, H)
+    assert kn.move_plane.launches == before + 2
+    (f2, two), (f1, one) = launches.calls
+    assert f2 == f1 == "pg_move_plane"
+    assert two[3] is a and two[4] is b and two[5:] == (Bq, L)
+    assert one[2] == 0 and one[3] is c and one[4] == 0
+
+
+@pytest.mark.parametrize("Bq,L", [(0, 64), (3, 0)])
+def test_empty_shapes_count_zero_without_a_launch(monkeypatch, Bq, L):
+    """B = 0 or L = 0: no kernel launches, and every count, which the
+    kernels write themselves and the wrappers allocate unset, is zero, on
+    the CUDA branch and in the plain versions."""
+    codes = torch.zeros((Bq, L), dtype=torch.uint8)
+    lens = torch.zeros(Bq, dtype=torch.int32)
+    plane = torch.zeros((Bq, L), dtype=torch.int32)
+    keep = torch.zeros((Bq, L), dtype=torch.bool)
+    wide = torch.zeros((Bq, L), dtype=torch.int64)
+
+    def counts():
+        return [kn.build_stream(codes, lens, k=16)[3],
+                kn.emit_mask(plane, plane, lens, w=5, k=16)[1],
+                kn.reduce_step(plane, plane, lens, r=6)[2],
+                kn.compact_planes(keep, (wide, plane), (-1, 0))[1]]
+
+    for count in counts():
+        assert count.shape == (Bq,) and not count.any()
+    launches = _Launches(monkeypatch)
+    empty = torch.empty  # unset memory made visible: -7 in every word
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, **kw: empty(*a, **kw).fill_(-7))
+    for count in counts():
+        assert count.shape == (Bq,) and not count.any()
+    assert kn.move_plane(plane, plane, plane)[0].shape == (Bq, L)
+    assert launches.calls == []

@@ -1,13 +1,15 @@
 """Seeded edge-case inputs for the packed SHIMMER kernels (numpy only).
 
-build_stream and emit_mask split each row into chunks of `chunk` columns
-(ops.kernels.CHUNK on the card) and carry row prefixes from chunk to
-chunk, so their inputs here put the features that the prefixes and the
-window halos carry right at chunk boundaries.  The card tests, phase 3
+build_stream, emit_mask and reduce_step split each row into chunks of
+`chunk` columns (ops.kernels.CHUNK, and REDUCE_CHUNK for reduce_step, on
+the card) and carry row prefixes from chunk to chunk, so their inputs
+here put the features that the prefixes and the window halos carry right
+at chunk boundaries.  The card tests, phase 3
 of chip_smoke.py (which loads this file by its path) and the CPU tests
 against the Pallas kernels (with a small `chunk`, where the boundaries
 only place the features) use them.
-Rows 0-7 are the crafted ones; any further rows are random.
+Rows 0-7 (0-9 for reduce_step) are the crafted ones; any further rows are
+random.
 """
 
 from __future__ import annotations
@@ -91,3 +93,40 @@ def emit_stream(rng: np.random.Generator, B: int, L: int, w: int, k: int,
           | (rng.integers(0, 2, (B, L)).astype(np.uint32) << np.uint32(1))
           | amb.astype(np.uint32))
     return sH, sP, n
+
+
+def reduce_rows(rng: np.random.Generator, B: int, L: int, r: int,
+                chunk: int, ties: bool):
+    """(H, P, n) for reduce_step: [B, L] uint32 hashes (below 50 when
+    `ties`), [B, L] uint32 P = pos << 2 | strand << 1, [B] int32 counts;
+    columns at or past n hold random values that nothing may use.  n = 0
+    (row 0) and L (row 1); n = r - 2, short of the first whole window
+    (columns 0..r-1), and n = r, which holds exactly that one (rows 2, 3);
+    n on a boundary and one either side (rows
+    4-6); the least hash, 0, on the column before each boundary, so that
+    the first columns of the next chunk keep its winner and must not emit
+    it again (row 7); every hash equal, so that the least ring slot
+    decides (row 8); every P equal, so that only column r - 1 is emitted
+    (row 9)."""
+    hi = 50 if ties else 1 << 32
+    H = rng.integers(0, hi, (B, L), dtype=np.int64).astype(np.uint32)
+    P = ((rng.integers(0, 1 << 29, (B, L)).astype(np.uint32) << np.uint32(2))
+         | (rng.integers(0, 2, (B, L)).astype(np.uint32) << np.uint32(1)))
+    n = rng.integers(0, L + 1, B).astype(np.int32)
+    rows = dict(zip(range(10), (0, L, min(L, max(0, r - 2)), min(L, r),
+                                min(L, chunk), min(L, chunk + 1),
+                                min(L, chunk - 1), L, L, L)))
+    for b, v in rows.items():
+        if b < B:
+            n[b] = v
+    if B > 7:
+        for c in _boundaries(L, chunk):
+            lo, hi_c = max(0, c - r), min(L, c + r)
+            H[7, lo:hi_c] = rng.integers(1, hi, hi_c - lo,
+                                         dtype=np.int64).astype(np.uint32)
+            H[7, c - 1] = 0
+    if B > 8:
+        H[8] = H[8, 0]
+    if B > 9:
+        P[9] = P[9, 0]
+    return H, P, n
