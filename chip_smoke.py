@@ -14,18 +14,23 @@ Phases, in order; any failure raises and exits non-zero:
      24576/32768/40960, 16384 being the draft's main bucket; move_plane
      moving both stream planes in one launch; reduce_step on the draft's
      two levels at L=2048, the sketch cap, and on one row of 131,072
-     columns; compact_planes on two int64 planes and one int32 plane at
-     keep densities 0.98 and 2/(w+1)), and the chunked kernels on the
+     columns; compact_planes, whole rows with fills and counts, at the
+     shapes and keep densities of each of its call sites on the k=28
+     path, B=64 L=16384 keep 0.98 with planes of 8+8+4 bytes being the
+     main one, and on one row of 131,072 columns, each shape with its
+     bytes, bound and share of it), and the chunked kernels on the
      chunk-boundary and tie-heavy rows of tests/torch_kernel_cases.py
      (build_stream and emit_mask at L = CHUNK - 1, CHUNK + 1, 16384 and
      w = 1, 5, 80, 255; reduce_step at L = REDUCE_CHUNK - 1,
-     REDUCE_CHUNK + 1, 2048 and r = 2, 6, 255), after which the
-     look-back status that the next launch will take must be zeroed;
-     kernel times are device times (many launches back to back between
-     two CUDA events, divided by their number), plain times the same
-     over a few calls; each kernel's byte bound at its main-path shape
-     from this run's inputs (what they need: the columns below the
-     counts, the kept and emitted entries);
+     REDUCE_CHUNK + 1, 2048 and r = 2, 6, 255; compact_planes at
+     L = COMPACT_CHUNK - 1, COMPACT_CHUNK, COMPACT_CHUNK + 1, 16384 with
+     planes of 8+8+4, 8+8 and 4+8+4 bytes), after which the look-back
+     status that the next launch will take must be zeroed; kernel times
+     are device times (many launches back to back between two CUDA
+     events, divided by their number), plain times the same over a few
+     calls; each kernel's byte bound at its main-path shape from this
+     run's inputs (what they need: the columns below the counts, the
+     kept and emitted entries);
   4. build_index of 512 simulated reads (k=16), of 256 at k=28 with and
      without the level-0 index (uncapped and capped), and of 64 at k=28,
      w=8 (cap overflow, exact retry); sketch_long_np of a 200 kb genome
@@ -57,7 +62,8 @@ kernels and with their plain versions on the card (one warm-up each, then
 six of each in ABBA order; median, min and max), then one kernel-route
 build under torch.profiler, whose trace gives the device's busy time (the
 union of its kernel, copy and memset intervals), the device time of
-each kernel, in all and by launch grid (which tells its shapes apart),
+each kernel, in all and by template instance and launch grid (which tell
+its shapes apart),
 and the number of device intervals (fill kernels counted apart).
 """
 
@@ -68,6 +74,7 @@ import contextlib
 import json
 import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -201,6 +208,13 @@ def phase_kernels(results: dict) -> None:
     def on_card(*arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
 
+    def card_planes(rows, L, widths):
+        """Random int64 (width 8) and int32 (width 4) planes on the card."""
+        return tuple(on_card(*(
+            rng.integers(-2**63, 2**63 - 1, (rows, L), dtype=np.int64)
+            if wd == 8 else rng.integers(-2**31, 2**31, (rows, L))
+            .astype(np.int32) for wd in widths)))
+
     reduce_input = None
     for L in (8192, MAIN_L, 24576, 32768, 40960):
         codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
@@ -255,25 +269,74 @@ def phase_kernels(results: dict) -> None:
         f"rows at L {kn.CHUNK - 1}/{kn.CHUNK + 1}/{MAIN_L}, emit_mask at w "
         f"1/5/{W}/255 with and without ties")
 
-    for L in (8192, MAIN_L, 32768, 40960):
-        for density in (0.98, 2 / (W + 1)):
-            keep = torch.from_numpy(rng.random((B, L)) < density).to(dev)
-            planes = tuple(on_card(*(rng.integers(
-                -2**63, 2**63 - 1, (B, L), dtype=np.int64) for _ in range(2))))
-            planes += tuple(on_card(rng.integers(0, 2**31, (B, L))
-                                    .astype(np.int32)))
-            fills = (-1, -1, 0)
+    # compact_planes at its call sites' shapes on the k=28 path: the wide
+    # sketch's stream (x, y, run) and output (x, y) compactions and
+    # reduce_impl's two levels, uncapped as --with-L0-index runs them, on
+    # the reads' buckets; a level capped at 2,048 columns, as stage 1 runs
+    # it without the level-0 index; stage 4's contig sketch (L=40,960) and
+    # a reduction level of one contig row; then further shapes
+    compact_shapes = []
+    for site, rows, L, density, widths in (
+            ("stream", B, MAIN_L, 0.98, (8, 8, 4)),  # the main shape
+            ("stream", B, MAIN_L, 0.92, (8, 8, 4)),
+            ("stream", B, 24576, 0.92, (8, 8, 4)),
+            ("output", B, MAIN_L, 0.023, (8, 8)),
+            ("reduce level 1", B, MAIN_L, 0.007, (8, 8)),
+            ("reduce level 2", B, MAIN_L, 0.002, (8, 8)),
+            ("reduce level 1, capped", B, CAP, 0.05, (8, 8)),
+            ("contig stream", B, 40960, 0.98, (8, 8, 4)),
+            ("contig output", B, 40960, 2 / (W + 1), (8, 8)),
+            ("contig level", 1, 131072, 2 / (R + 1), (8, 8)),
+            ("other", B, 8192, 0.98, (8, 8, 4)),
+            ("other", B, 8192, 2 / (W + 1), (8, 8, 4)),
+            ("other", B, MAIN_L, 2 / (W + 1), (8, 8, 4)),
+            ("other", B, 32768, 0.98, (8, 8, 4)),
+            ("other", B, 32768, 2 / (W + 1), (8, 8, 4))):
+        keep = torch.from_numpy(rng.random((rows, L)) < density).to(dev)
+        planes = card_planes(rows, L, widths)
+        fills = (-1, -1, 0)[:len(widths)]
+        got = kn.compact_planes(keep, planes, fills)
+        want = kn.compact_planes_plain(keep, planes, fills)
+        note("compact_planes", list(zip(got[0], want[0]))
+             + [(got[1], want[1])])
+        ms = kernel_ms(lambda: kn.compact_planes(keep, planes, fills))
+        pms = plain_ms(lambda: kn.compact_planes_plain(keep, planes, fills))
+        kept = int(keep.sum())
+        nbytes = rows * L + 4 * rows + sum(wd * (kept + rows * L)
+                                           for wd in widths)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        compact_shapes.append({
+            "site": site, "B": rows, "L": L, "keep_density": density,
+            "plane_bytes": list(widths), "bytes": nbytes, "ms": ms,
+            "plain_ms": pms, "bound_ms": bound_ms,
+            "share_of_bound": bound_ms / ms})
+        if len(compact_shapes) == 1:  # the main shape
+            stats["compact_planes"]["times"][(MAIN_L, density)] = (ms, pms)
+            moved["compact_planes"] = nbytes
+    # rows that put kept columns, counts and dropped chunks on the chunk
+    # boundaries, for each plane layout (the generic one too)
+    CC = kn.COMPACT_CHUNK
+    for L in (CC - 1, CC, CC + 1, MAIN_L):
+        for widths in ((8, 8, 4), (8, 8), (4, 8, 4)):
+            keep, = on_card(kernel_cases.compact_rows(rng, B, L, CC))
+            planes = card_planes(B, L, widths)
+            fills = (-1, 7, 0xFFFFFFFF)[:len(widths)]
             got = kn.compact_planes(keep, planes, fills)
             want = kn.compact_planes_plain(keep, planes, fills)
             note("compact_planes", list(zip(got[0], want[0]))
                  + [(got[1], want[1])])
-            times("compact_planes", (L, round(density, 4)),
-                  lambda: kn.compact_planes(keep, planes, fills),
-                  lambda: kn.compact_planes_plain(keep, planes, fills))
-            if (L, density) == (MAIN_L, 0.98):
-                kept = int(keep.sum())
-                moved["compact_planes"] = B * L + 4 * B + sum(
-                    p.element_size() * (kept + B * L) for p in planes)
+    check(not any(bool(pair[0].any()) for pair in kn._status_pairs.values()),
+          "the next chunked launch's look-back status is not zeroed")
+    for sh in compact_shapes:
+        say(f"kernel compact_planes {sh['site']} B={sh['B']} L={sh['L']} "
+            f"keep density {sh['keep_density']:.4f} planes "
+            f"{'+'.join(map(str, sh['plane_bytes']))} B: {sh['bytes']} bytes,"
+            f" bound {sh['bound_ms'] * 1e3:.3f} us, kernel "
+            f"{sh['ms'] * 1e3:.3f} us, {sh['share_of_bound']:.4f} of the "
+            f"bound, plain {sh['plain_ms']:.4f} ms")
+    say(f"kernel checks: compact_planes at its call sites' shapes and on the"
+        f" chunk-boundary rows at L {CC - 1}/{CC}/{CC + 1}/{MAIN_L} with "
+        "planes 8+8+4, 8+8 and 4+8+4 B: whole rows, fills and counts")
 
     # reduce_step: the draft's two levels on the main bucket's capped
     # sketch (level 2 reads level 1's kernel output, stale tails and all),
@@ -338,6 +401,8 @@ def phase_kernels(results: dict) -> None:
                          "bound_ms": bound_ms, "bound_by": "bytes",
                          "library_ms": None, "bound_us": bound_ms * 1e3,
                          "share_of_bound": bound_ms / ms}
+        if name == "compact_planes":
+            results[name]["shapes"] = compact_shapes
         say(f"kernel {name} at its main-path shape ({main}): {moved[name]} "
             f"bytes, bound {bound_ms * 1e3:.3f} us, kernel {ms * 1e3:.3f} us,"
             f" {bound_ms / ms:.4f} of the bound")
@@ -516,13 +581,17 @@ def phase_index_profile(reads, k: int) -> None:
         "kernels")
     for key, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
         say(f"    {ms:9.3f} ms {count[key]:6d}x  {key[:100]}")
-    # each kernel's launches by grid, which tells its shapes apart
+    # each kernel's launches by template instance and grid, which tell its
+    # shapes apart (compact_planes: <8, 8, 4> the sketch's stream, <8, 8, 0>
+    # its output and the reduction levels)
     by_grid: dict = {}
     for e in dev:
         name = next((n for n in REPLACES if f"{n}_kernel" in e["name"]), None)
         if e["cat"] == "kernel" and name:
+            inst = re.search(r"_kernel(<[^>]*>)", e["name"])
             cell = by_grid.setdefault(name, {}).setdefault(
-                str(e.get("args", {}).get("grid")), [0, 0.0])
+                (inst.group(1) + " " if inst else "")
+                + str(e.get("args", {}).get("grid")), [0, 0.0])
             cell[0] += 1
             cell[1] += e["dur"]
     for name, grids in by_grid.items():

@@ -17,17 +17,15 @@
 // or two planes by it in one launch; reduce_step writes its winners to
 // their ranks itself.
 //
-// Two layouts.  build_stream, emit_mask and reduce_step split each row
-// into chunks, one block per chunk, so that B x the chunks of a row fill
-// the SMs; a block stages its chunk and a halo in shared memory by
-// cp.async and carries the row-wide prefixes it needs (counts, the last
-// ambiguous base) from the chunks before it by a decoupled look-back over
-// a zeroed status buffer (no fence: each published value is two
-// self-marking 64-bit words).  Each launch also zeroes the status of the
-// launch before it, so the wrappers alternate two buffers and never
-// launch a memset.  compact_planes still runs one block per row and walks
-// the row in tiles of blockDim columns, carrying each running prefix from
-// tile to tile (64 rows give 64 blocks on 132 SMs); move_plane is one
+// Two layouts.  build_stream, emit_mask, reduce_step and compact_planes
+// split each row into chunks, one block per chunk, so that B x the chunks
+// of a row fill the SMs; a block stages its chunk (and a halo where it
+// needs one) in shared memory by cp.async and carries the row-wide
+// prefixes it needs (counts, the last ambiguous base) from the chunks
+// before it by a decoupled look-back over a zeroed status buffer (no
+// fence: each published value is two self-marking 64-bit words).  Each
+// launch also zeroes the status of the launch before it, so the wrappers
+// alternate two buffers and never launch a memset.  move_plane is one
 // thread per four columns.
 //
 // What bounds them: each kernel reads and writes a few bytes per column
@@ -42,8 +40,6 @@
 
 namespace {
 
-constexpr int kThreads = 1024;           // threads per row block
-constexpr int kWarps = kThreads / 32;
 constexpr uint32_t kInf = 0xFFFFFFFFu;   // undefined / hole hash
 
 // The chunked kernels: kChunk columns of one row per block of
@@ -89,10 +85,20 @@ constexpr int kRSegs = kRPer * kRWarps;   // 32-column segments of a chunk
 constexpr int kMaxR = 255;                // reduce_step's window, 2..255
 constexpr int kRExt = (kRChunk + kMaxR + 3 + 3) / 4 * 4;
 constexpr int kREarly = 512;  // columns staged before n is known
+// compact_planes: kCChunk columns of one row per block of kCThreads
+// threads, column x of the chunk in thread x % kCThreads, register
+// x / kCThreads.  COMPACT_CHUNK in ops/kernels.py must equal kCChunk.
+constexpr int kCChunk = 4096;
+constexpr int kCThreads = kChunkThreads;  // as stage_async strides
+constexpr int kCWarps = kCThreads / 32;
+constexpr int kCPer = kCChunk / kCThreads;
+constexpr int kCSegs = kCPer * kCWarps;   // 32-column segments of a chunk
+constexpr int kCBlocksPerSM = 2;          // at most 64 registers a thread
 // move_plane: four consecutive columns per thread.
 constexpr int kMoveThreads = 256;
 
 static_assert(kRChunk % kRThreads == 0 && kRSegs <= 32 * 32, "segments");
+static_assert(kCChunk % kCThreads == 0 && kCSegs <= 32 * 32, "segments");
 static_assert(kMaxR < kRChunk, "a window reaches into one chunk before");
 static_assert(kREarly <= kRChunk, "early columns lie in the chunk");
 static_assert(kChunk % kChunkThreads == 0, "whole columns per thread");
@@ -1010,48 +1016,155 @@ struct Planes {
   int bytes[kMaxPlanes];
 };
 
-__device__ __forceinline__ void put(const Planes& pl, int p, size_t dst,
-                                    size_t src, bool from_in) {
-  if (pl.bytes[p] == 8) {
-    static_cast<uint64_t*>(pl.out[p])[dst] =
-        from_in ? static_cast<const uint64_t*>(pl.in[p])[src]
-                : (uint64_t)pl.fill[p];
-  } else if (pl.bytes[p] == 4) {
-    static_cast<uint32_t*>(pl.out[p])[dst] =
-        from_in ? static_cast<const uint32_t*>(pl.in[p])[src]
-                : (uint32_t)pl.fill[p];
-  }
+// A plane's element width as a template argument: 4 or 8 bytes, 0 for an
+// absent plane, or kAnyWidth for the width the launch gives (bytes[p]),
+// so that the instances the port launches carry no branch per element.
+constexpr int kAnyWidth = -1;
+template <int kW>
+struct Elem {
+  using T = unsigned long long;
+};
+template <>
+struct Elem<4> {
+  using T = uint32_t;
+};
+template <>
+struct Elem<0> {
+  using T = uint32_t;
+};
+
+template <int kW>
+__device__ __forceinline__ bool plane_present(const Planes& pl, int p) {
+  return kW > 0 || (kW == kAnyWidth && pl.bytes[p] != 0);
+}
+template <int kW>
+__device__ __forceinline__ bool plane_wide(const Planes& pl, int p) {
+  return kW == 8 || (kW == kAnyWidth && pl.bytes[p] == 8);
 }
 
-// Stable compaction of every plane of a row by one keep mask: the kept
-// entries go to the row front in their order, every column at or past the
-// row's count takes the plane's fill (the wide sketch reads past the count:
-// its sliding minimum runs over whole rows), and the count is exact.  All
+// Column i of plane p where the column is kept, else the plane's fill.
+template <int kW>
+__device__ __forceinline__ typename Elem<kW>::T plane_value(const Planes& pl,
+                                                            int p, size_t i,
+                                                            bool kept) {
+  using T = typename Elem<kW>::T;
+  if (!plane_present<kW>(pl, p)) return 0;
+  if (!kept) return (T)pl.fill[p];
+  if (plane_wide<kW>(pl, p))
+    return (T) static_cast<const unsigned long long*>(pl.in[p])[i];
+  return static_cast<const uint32_t*>(pl.in[p])[i];
+}
+
+template <int kW>
+__device__ __forceinline__ void plane_store(const Planes& pl, int p,
+                                            size_t i,
+                                            typename Elem<kW>::T v) {
+  if (!plane_present<kW>(pl, p)) return;
+  if (plane_wide<kW>(pl, p))
+    static_cast<unsigned long long*>(pl.out[p])[i] = v;
+  else
+    static_cast<uint32_t*>(pl.out[p])[i] = (uint32_t)v;
+}
+
+// Stable compaction of up to three planes of a row by one keep mask
+// (replaces compact_planes, compact_pallas.py:365): the kept entries go
+// to the row front in their order, every column at or past the row's
+// count takes the plane's fill (the wide sketch reads past the count: its
+// sliding minimum runs over whole rows), and the count is exact.  All
 // planes move in one launch; the TPU kernel ran one call per u32 half of
 // each plane because its VMEM held one [8, L] working set at a time.
-__global__ void __launch_bounds__(kThreads)
+//
+// Bound: 1 byte of keep per column, the kept entries of each plane read
+// once, and every column of each plane written once (the fills are part
+// of the result): 41 B per column for the stream compaction (x, y, run;
+// keep 0.98), 12.7 us at B=64, L=16,384 on 3.35 TB/s, and about 17 B per
+// column for the sparse output and reduction compactions (x, y), where
+// the fills are nearly all of it.  Design: one block per chunk of kCChunk
+// columns (B x ceil(L / kCChunk) blocks), rows carried across chunks by
+// the decoupled look-back (a row of one chunk takes no ticket and
+// publishes nothing); the chunk's keep bytes are staged in shared memory
+// by cp.async (16 bytes a copy); column x of the chunk lives in thread
+// x % kCThreads, register x / kCThreads, so a warp's 32 columns of a
+// register are consecutive, their kept ranks come from a ballot and a
+// popcount, and one warp's prefix over the 32-column segments gives the
+// chunk's; the kept entries are loaded (predicated, coalesced across the
+// warp) before the look-back, so their latency overlaps it; a dropped
+// column t with d = t - (kept columns before t) dropped columns before it
+// writes the fill at column L - 1 - d, which puts the L - count fills on
+// [count, L) exactly once without waiting for the count, so every store
+// leaves right after the block's own look-back and there is no second
+// pass; the chunk of column L - 1 writes the count.  The plane widths are
+// template arguments: (8, 8, 4) for the stream, (8, 8) for the output and
+// the reduction levels, and kAnyWidth for any other mix.
+template <int kW0, int kW1, int kW2>
+__global__ void __launch_bounds__(kCThreads, kCBlocksPerSM)
 compact_planes_kernel(const uint8_t* __restrict__ keep, Planes pl,
-                      int32_t* __restrict__ count, int L) {
-  __shared__ int scratch[kWarps];
-  const size_t base = (size_t)blockIdx.x * L;
-  int carry = 0;
-  for (int t0 = 0; t0 < L; t0 += kThreads) {
-    const int t = t0 + threadIdx.x;
-    const bool kept = t < L && keep[base + t] != 0;
-    int tot;
-    const int s = block_scan<kWarps>(kept ? 1 : 0, 0, Sum(), scratch, &tot);
-    if (kept) {
+                      int* __restrict__ status, int* __restrict__ stale,
+                      int stale_words, int32_t* __restrict__ count, int L,
+                      int chunks) {
+  __shared__ __align__(16) uint8_t ks[kCChunk + 32];
+  __shared__ int seg[kCSegs];
+  __shared__ uint32_t ems[kCSegs];  // each segment's ballot of kept columns
+  __shared__ int shared_int;
+
+  // rows of one chunk need no look-back, and so no ticket
+  const int tile =
+      chunks == 1 ? (int)blockIdx.x : take_ticket(status, &shared_int);
+  clear_stale(stale, stale_words);
+  const int row = tile / chunks, j = tile - row * chunks;
+  const int c0 = j * kCChunk, ncols = min(kCChunk, L - c0);
+  const size_t base = (size_t)row * L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int off = stage_async(ks, keep + base + c0, ncols);
+  const uint8_t* kp = ks + off;  // kp[x]: column c0 + x
+  cp_async_wait_all();
+  __syncthreads();
+
+  // kept columns by ballots in segments q * kCWarps + warp, which run in
+  // column order; each kept entry is loaded now, the fill elsewhere
+  typename Elem<kW0>::T v0[kCPer];
+  typename Elem<kW1>::T v1[kCPer];
+  typename Elem<kW2>::T v2[kCPer];
 #pragma unroll
-      for (int p = 0; p < kMaxPlanes; ++p)
-        put(pl, p, base + carry + s, base + t, true);
+  for (int q = 0; q < kCPer; ++q) {
+    const int x = threadIdx.x + q * kCThreads;
+    const bool kept = x < ncols && kp[x] != 0;
+    const uint32_t em = __ballot_sync(0xFFFFFFFFu, kept);
+    if (lane == 0) {
+      seg[q * kCWarps + warp] = __popc(em);
+      ems[q * kCWarps + warp] = em;
     }
-    carry += tot;
+    const size_t at = base + c0 + x;
+    v0[q] = plane_value<kW0>(pl, 0, at, kept);
+    v1[q] = plane_value<kW1>(pl, 1, at, kept);
+    v2[q] = plane_value<kW2>(pl, 2, at, kept);
   }
-  for (int t = carry + threadIdx.x; t < L; t += kThreads) {
+  __syncthreads();
+  if (warp == 0) {
+    const int agg = segment_scan<kCSegs>(seg, 0, Sum());
+    const int c = chunks == 1 ? 0 : look_back(status, tile, j, agg, 0, Sum());
+    if (lane == 0) {
+      shared_int = c;
+      if (j == chunks - 1) count[row] = c + agg;  // the chunk of column L-1
+    }
+  }
+  __syncthreads();
+  const int pre = shared_int;
 #pragma unroll
-    for (int p = 0; p < kMaxPlanes; ++p) put(pl, p, base + t, 0, false);
+  for (int q = 0; q < kCPer; ++q) {
+    const int x = threadIdx.x + q * kCThreads;
+    if (x < ncols) {
+      const int e = q * kCWarps + warp;
+      const uint32_t em = ems[e];
+      // kept columns of the row before this one
+      const int before = pre + seg[e] + __popc(em & ((1u << lane) - 1u));
+      const size_t at =
+          base + (em >> lane & 1u ? before : L - 1 - (c0 + x - before));
+      plane_store<kW0>(pl, 0, at, v0[q]);
+      plane_store<kW1>(pl, 1, at, v1[q]);
+      plane_store<kW2>(pl, 2, at, v2[q]);
+    }
   }
-  if (threadIdx.x == 0) count[blockIdx.x] = carry;
 }
 
 }  // namespace
@@ -1114,14 +1227,29 @@ int pg_reduce_step(const void* H, const void* P, const void* n_in,
 }
 
 int pg_compact_planes(const void* keep, const void* in0, const void* in1,
-                      const void* in2, void* out0, void* out1, void* out2,
+                      const void* in2, void* status, void* stale,
+                      int stale_words, void* out0, void* out1, void* out2,
                       void* count, long long fill0, long long fill1,
                       long long fill2, int bytes0, int bytes1, int bytes2,
                       int B, int L, void* stream) {
   const Planes pl = {{in0, in1, in2}, {out0, out1, out2},
                      {fill0, fill1, fill2}, {bytes0, bytes1, bytes2}};
-  compact_planes_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)keep, pl, (int32_t*)count, L);
+  if (stale_words % kSlot || bytes0 == 0) return (int)cudaErrorInvalidValue;
+  for (int p = 0; p < kMaxPlanes; ++p) {
+    const int b = pl.bytes[p];
+    if ((b != 0 && b != 4 && b != 8) || (b == 0) != (pl.in[p] == nullptr) ||
+        (b == 0) != (pl.out[p] == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
+  const int chunks = (L + kCChunk - 1) / kCChunk;
+  auto kernel = compact_planes_kernel<kAnyWidth, kAnyWidth, kAnyWidth>;
+  if (bytes0 == 8 && bytes1 == 8 && bytes2 == 4)
+    kernel = compact_planes_kernel<8, 8, 4>;
+  else if (bytes0 == 8 && bytes1 == 8 && bytes2 == 0)
+    kernel = compact_planes_kernel<8, 8, 0>;
+  kernel<<<B * chunks, kCThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)keep, pl, (int*)status, (int*)stale, stale_words,
+      (int32_t*)count, L, chunks);
   return (int)cudaGetLastError();
 }
 

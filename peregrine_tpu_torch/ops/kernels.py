@@ -18,12 +18,13 @@ through a plain C interface with ctypes) and counts the launch in its
 CPU tests hold against the Pallas kernels.  Any other device raises.
 
 What bounds the kernels on an H100: device-memory bytes (each reads and
-writes a few bytes per column once).  build_stream, emit_mask and
-reduce_step split rows into chunks (CHUNK columns, REDUCE_CHUNK for
-reduce_step), one block each, and carry row prefixes across chunks by a
-decoupled look-back over a zeroed status buffer; each launch zeroes the
-one the launch before it used, so the wrappers alternate two
-(`_call_chunked`).  See the source note in the .cu file.
+writes a few bytes per column once).  build_stream, emit_mask,
+reduce_step and compact_planes split rows into chunks (CHUNK columns,
+REDUCE_CHUNK for reduce_step, COMPACT_CHUNK for compact_planes), one
+block each, and carry row prefixes across chunks by a decoupled
+look-back over a zeroed status buffer; each launch zeroes the one the
+launch before it used, so the wrappers alternate two (`_call_chunked`).
+See the source note in the .cu file.
 
 Conventions: torch has no usable uint32 (no shifts, compares or minimum),
 so the u32 planes ride in int32 tensors holding the same bits; the plain
@@ -62,14 +63,17 @@ SIGNATURES = {
     "pg_move_plane": [_VP] * 5 + [_INT] * 2 + [_VP],
     "pg_emit_mask": [_VP] * 5 + [_INT] + [_VP] * 2 + [_INT] * 4 + [_VP],
     "pg_reduce_step": [_VP] * 5 + [_INT] + [_VP] * 3 + [_INT] * 3 + [_VP],
-    "pg_compact_planes": [_VP] * 8 + [_I64] * 3 + [_INT] * 5 + [_VP],
+    "pg_compact_planes": [_VP] * 6 + [_INT] + [_VP] * 4 + [_I64] * 3
+    + [_INT] * 5 + [_VP],
 }
-# The chunked kernels' layout (kChunk, kRChunk and kSlot in the .cu file;
-# tests check they agree): columns per block of build_stream and
-# emit_mask, of reduce_step, and int32 words per look-back status slot
-# (slot 0 holds the ticket counter, then one per chunk).
+# The chunked kernels' layout (kChunk, kRChunk, kCChunk and kSlot in the
+# .cu file; tests check they agree): columns per block of build_stream and
+# emit_mask, of reduce_step, of compact_planes, and int32 words per
+# look-back status slot (slot 0 holds the ticket counter, then one per
+# chunk).
 CHUNK = 4096
 REDUCE_CHUNK = 3072
+COMPACT_CHUNK = 4096
 STATUS_SLOT = 8
 _lib = None
 # (device, stream) -> [status of the next launch, status of the last, the
@@ -465,12 +469,13 @@ def compact_planes(keep: torch.Tensor, planes, fills):
         return compact_planes_plain(keep, planes, fills)
     outs = tuple(torch.empty_like(p) for p in planes)
     count = torch.empty(B, dtype=torch.int32, device=keep.device)
-    if B and L:  # each row's block writes its count
-        pad = _MAX_PLANES - len(planes)
-        _call(library().pg_compact_planes, keep, *planes, *[0] * pad,
-              *outs, *[0] * pad, count,
-              *[_signed(f, 64) for f in fills], *[0] * pad,
-              *[p.element_size() for p in planes], *[0] * pad, B, L)
+    if B and L:  # the chunk of each row's column L - 1 writes its count
+        pad = [0] * (_MAX_PLANES - len(planes))
+        _call_chunked(library().pg_compact_planes, B, L, keep.device,
+                      (keep, *planes, *pad), (*outs, *pad, count),
+                      *[_signed(f, 64) for f in fills], *pad,
+                      *[p.element_size() for p in planes], *pad, B, L,
+                      chunk=COMPACT_CHUNK)
         compact_planes.launches += 1
     else:
         count.zero_()

@@ -51,9 +51,8 @@ def reduce_impl(x: torch.Tensor, y: torch.Tensor, count: torch.Tensor, *,
     valid = (col >= r - 1) & (col < count.to(torch.int64)[:, None])
     emit = valid & ((best_y != _shift_right(best_y, 1, INF))
                     | ~_shift_right(valid, 1, False))
-    (ox, oy), ocount = compact_planes(
-        emit, (torch.where(emit, best_x, INF), torch.where(emit, best_y, INF)),
-        (INF, INF))
+    # compact_planes reads only the kept columns and fills the rest
+    (ox, oy), ocount = compact_planes(emit, (best_x, best_y), (INF, INF))
     return ox, oy, ocount
 
 

@@ -164,9 +164,8 @@ def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor,
         dim=1, keepdim=True).values
     emit |= (col == t_f) & (fmin != INF) & (t_f >= 0)
 
-    (ox, oy), count = compact_planes(
-        emit, (torch.where(emit, sx, INF), torch.where(emit, sy, INF)),
-        (INF, INF))
+    # compact_planes reads only the kept columns and fills the rest
+    (ox, oy), count = compact_planes(emit, (sx, sy), (INF, INF))
     return ox, oy, count
 
 

@@ -9,15 +9,17 @@ there on its own:
 
 Every output of a launch is a view into a larger buffer whose margins
 hold a canary; a write past either end of an output changes a margin.
-build_stream and emit_mask split rows into chunks of CHUNK columns, and
-reduce_step into chunks of REDUCE_CHUNK, and carry row prefixes by a
-decoupled look-back over a zeroed status buffer, and each launch zeroes
-the status of the launch before it: their cases put lengths, counts,
-placeholders, final windows and window winners on chunk boundaries
-(torch_kernel_cases), check what each launch published to its status and
-that it zeroed the earlier one, and repeat launches on two status buffers
-in turn to catch races.  move_plane and reduce_step write only the
-columns below their counts, so the columns past them keep the canary.
+build_stream and emit_mask split rows into chunks of CHUNK columns,
+reduce_step into chunks of REDUCE_CHUNK and compact_planes into chunks of
+COMPACT_CHUNK, and carry row prefixes by a decoupled look-back over a
+zeroed status buffer, and each launch zeroes the status of the launch
+before it: their cases put lengths, counts, placeholders, final windows,
+window winners and kept columns on chunk boundaries (torch_kernel_cases),
+check what each launch published to its status and that it zeroed the
+earlier one, and repeat launches on two status buffers in turn to catch
+races.  move_plane and reduce_step write only the columns below their
+counts, so the columns past them keep the canary; compact_planes writes
+every column, the fills past the count included.
 """
 
 import numpy as np
@@ -36,8 +38,10 @@ B, K, W, R = 64, 16, 80, 6
 CANARY = 0x5A5A5A5A
 GUARD = 4096
 C, RC, SLOT = kn.CHUNK, kn.REDUCE_CHUNK, kn.STATUS_SLOT
+CC = kn.COMPACT_CHUNK
 CHUNKED_L = [C - 1, C, C + 1, 16384, 24576, 40960]
 REDUCE_L = [RC - 1, RC, RC + 1, 2048, 5000, 40960]
+COMPACT_L = [CC - 1, CC, CC + 1, 16384, 24576, 40960]
 
 
 def _guarded(*shape, dtype=torch.int32):
@@ -106,6 +110,15 @@ def _past_counts_untouched(plane, count):
     the canary: the kernel wrote only the columns below it."""
     col = torch.arange(plane.shape[1], device="cuda")[None, :]
     assert (plane[col >= count[:, None]] == CANARY).all()
+
+
+def _placed(a, offset=0):
+    """numpy array a on the card, starting `offset` elements past the
+    allocation's (16-byte aligned) start."""
+    t = torch.empty(a.size + offset, dtype=torch.from_numpy(a[:0]).dtype,
+                    device="cuda")
+    t[offset:] = torch.from_numpy(np.ascontiguousarray(a).ravel()).cuda()
+    return t[offset:].view(a.shape)
 
 
 def _launch(name, bufs, *args):
@@ -216,17 +229,10 @@ def test_move_plane_scalar_and_vector_paths(L, offset):
     rng = np.random.default_rng(L + offset)
     keep = rng.random((B, L)) < rng.random((B, 1))
     keep[0], keep[1] = False, True
-    dest = torch.from_numpy(np.where(keep, np.cumsum(keep, 1) - 1, -1)
-                            .astype(np.int32))
-
-    def placed(a):
-        t = torch.empty(a.size + offset, dtype=torch.int32, device="cuda")
-        t[offset:] = torch.from_numpy(a.ravel()).cuda()
-        return t[offset:].view(B, L)
-
-    planes = [placed(rng.integers(-2**31, 2**31, (B, L), dtype=np.int64)
-                     .astype(np.int32)) for _ in range(2)]
-    _move_plane(placed(dest.numpy()), planes)
+    dest = np.where(keep, np.cumsum(keep, 1) - 1, -1).astype(np.int32)
+    planes = [_placed(rng.integers(-2**31, 2**31, (B, L), dtype=np.int64)
+                      .astype(np.int32), offset) for _ in range(2)]
+    _move_plane(_placed(dest, offset), planes)
 
 
 @pytest.mark.parametrize("L", REDUCE_L)
@@ -354,6 +360,55 @@ def test_repeated_launches_are_identical():
             assert torch.equal(got, ref)
 
 
+def _compact_planes(keep, planes, fills, statuses=None):
+    """One guarded compact_planes launch, on a zeroed status and a junk
+    earlier status, or on `statuses` ((buffer, view) of each), checked
+    against its plain version on whole rows (kept entries, fills and
+    count) and its status, and the earlier status checked zeroed; returns
+    the outputs."""
+    rows, L = keep.shape
+    guarded = [_guarded(rows, L, dtype=p.dtype) for p in planes]
+    guarded.append(_guarded(rows))
+    bufs, outs = [g[0] for g in guarded], [g[1] for g in guarded]
+    (sbuf, status), (xbuf, stale) = statuses or (
+        _status(L, chunk=CC, rows=rows), _status(L, -1, chunk=CC, rows=rows))
+    pad = [0] * (3 - len(planes))
+    _launch("pg_compact_planes", bufs + [sbuf, xbuf], keep, *planes, *pad,
+            status, stale, stale.numel(), *outs[:-1], *pad, outs[-1],
+            *[kn._signed(f, 64) for f in fills], *pad,
+            *[p.element_size() for p in planes], *pad, rows, L)
+    want, wc = kn.compact_planes_plain(keep, planes, fills)
+    assert torch.equal(outs[-1], wc)
+    for got, ref in zip(outs, want):
+        assert torch.equal(got, ref)
+    if L > CC:
+        _check_status(status, L, 0, _chunk_counts(keep.int() - 1, L, CC),
+                      wc, CC)
+    else:  # rows of one chunk take no ticket and publish nothing
+        assert not status.any()
+    assert not stale.any()
+    return outs
+
+
+# plane widths: the two instances the port launches and the generic one
+LAYOUTS = [(8, 8, 4), (8, 8), (4, 8, 4), (8,), (4, 4)]
+
+
+def _compact_inputs(rng, keep, widths, offset=0):
+    """keep and one random plane per width (int64 or int32), each placed
+    `offset` elements past an aligned start, with fills of both signs."""
+    planes, fills = [], []
+    for i, wd in enumerate(widths):
+        if wd == 8:
+            a = rng.integers(-2**63, 2**63 - 1, keep.shape, dtype=np.int64)
+            fills.append(-1 if i % 2 == 0 else 7)
+        else:
+            a = rng.integers(-2**31, 2**31, keep.shape).astype(np.int32)
+            fills.append(0 if i % 2 == 0 else 0xFFFFFFFF)
+        planes.append(_placed(a, offset))
+    return _placed(keep, offset), planes, fills
+
+
 @pytest.mark.parametrize("L", [1000, 8192])
 @pytest.mark.parametrize("density", [0.98, 2 / (W + 1)])
 def test_compact_planes_matches_plain_and_stays_in_its_outputs(L, density):
@@ -367,14 +422,50 @@ def test_compact_planes_matches_plain_and_stays_in_its_outputs(L, density):
                                           dtype=np.int64)).cuda()
             for _ in range(2))
     li = torch.from_numpy(rng.integers(0, 2**31, (B, L)).astype(np.int32)).cuda()
-    bufs64, (ox, oy) = _outputs((B, L), (B, L), dtype=torch.int64)
-    bufs32, (oli, count) = _outputs((B, L), (B,))
-    _launch("pg_compact_planes", bufs64 + bufs32, keep, x, y, li, ox, oy, oli,
-            count, -1, -1, 0, 8, 8, 4, B, L)
-    (wx, wy, wli), wc = kn.compact_planes_plain(keep, (x, y, li), (-1, -1, 0))
-    for got, ref in ((ox, wx), (oy, wy), (oli, wli), (count, wc)):
-        assert torch.equal(got, ref)
+    _, _, _, count = _compact_planes(keep, (x, y, li), (-1, -1, 0))
     assert count[0] == 0 and count[1] == L
+
+
+@pytest.mark.parametrize("L", COMPACT_L)
+@pytest.mark.parametrize("widths", LAYOUTS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_compact_planes_across_chunks(L, widths, offset):
+    """kernel_cases.compact_rows: nothing or everything kept, the row's
+    only kept column beside a boundary, one beside every boundary, counts
+    on a boundary, whole chunks dropped, L = COMPACT_CHUNK - 1, COMPACT_CHUNK,
+    COMPACT_CHUNK + 1 and rows of 4 to 10 chunks; every plane layout, with
+    rows and planes 16-byte aligned or not (offset 1: keep rows start one
+    byte, planes one element past a boundary)."""
+    rng = np.random.default_rng(L + 7 * offset + len(widths))
+    keep = kernel_cases.compact_rows(rng, B, L, CC)
+    _compact_planes(*_compact_inputs(rng, keep, widths, offset))
+
+
+@pytest.mark.parametrize("density", [0.0, 2 / (R + 1), 0.98, 1.0])
+def test_compact_planes_one_long_row(density):
+    """One row of 131,072 columns (32 chunks carried by the look-back), as
+    stage 4's contig index gives its reduction levels at k > 16."""
+    L = 131072
+    rng = np.random.default_rng(int(density * 100))
+    keep = rng.random((1, L)) < density
+    _compact_planes(*_compact_inputs(rng, keep, (8, 8)))
+
+
+def test_compact_planes_repeated_launches_are_identical():
+    """Twenty compact_planes launches on the same inputs at L = 40960 (ten
+    chunks a row), on two status buffers in turn as the wrappers use them:
+    a race in the look-back or in the fill placement, or a status not
+    zeroed for the launch after, would show as a difference."""
+    L = 40960
+    rng = np.random.default_rng(11)
+    inputs = _compact_inputs(rng, kernel_cases.compact_rows(rng, B, L, CC),
+                             (8, 8, 4))
+    a, b = _status(L, chunk=CC), _status(L, -1, chunk=CC)
+    turns = [(a, b), (b, a)]
+    first = _compact_planes(*inputs, turns[0])
+    for i in range(1, 20):
+        for got, ref in zip(_compact_planes(*inputs, turns[i % 2]), first):
+            assert torch.equal(got, ref)
 
 
 def test_int64_cummin_cummax_match_the_cpu():

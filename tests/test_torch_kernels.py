@@ -289,16 +289,21 @@ def test_bindings_match_c_prototypes():
         "count"]
     assert names["pg_move_plane"] == [
         "dest", "in0", "in1", "out0", "out1", "B", "L", "stream"]
+    assert names["pg_compact_planes"][:11] == [
+        "keep", "in0", "in1", "in2", "status", "stale", "stale_words",
+        "out0", "out1", "out2", "count"]
 
 
 def test_chunk_layout_matches_the_source():
-    """The wrappers size the look-back status from CHUNK, REDUCE_CHUNK and
-    STATUS_SLOT, which the kernels know as kChunk, kRChunk and kSlot."""
+    """The wrappers size the look-back status from CHUNK, REDUCE_CHUNK,
+    COMPACT_CHUNK and STATUS_SLOT, which the kernels know as kChunk,
+    kRChunk, kCChunk and kSlot."""
     with open(kn._CU) as f:
         src = f.read()
     const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(const["kChunk"]) == kn.CHUNK
     assert int(const["kRChunk"]) == kn.REDUCE_CHUNK
+    assert int(const["kCChunk"]) == kn.COMPACT_CHUNK
     assert int(const["kSlot"]) == kn.STATUS_SLOT
 
 
@@ -378,6 +383,30 @@ def test_one_launch_per_level_and_per_move(monkeypatch):
     assert f2 == f1 == "pg_move_plane"
     assert two[3] is a and two[4] is b and two[5:] == (Bq, L)
     assert one[2] == 0 and one[3] is c and one[4] == 0
+
+
+def test_compact_planes_is_one_chunked_launch(monkeypatch):
+    """compact_planes is one pg_compact_planes launch with its look-back
+    status sized by COMPACT_CHUNK; absent planes pass null pointers, fill
+    0 and width 0, and fills go over as the signed value of their bits."""
+    launches = _Launches(monkeypatch)
+    Bq, L = 3, kn.COMPACT_CHUNK + 1
+    keep = torch.zeros((Bq, L), dtype=torch.bool)
+    wide = torch.zeros((Bq, L), dtype=torch.int64)
+    narrow = torch.zeros((Bq, L), dtype=torch.int32)
+    before = kn.compact_planes.launches
+    (ow, on), count = kn.compact_planes(keep, (wide, narrow),
+                                        (-1, 0xFFFFFFFF))
+    assert kn.compact_planes.launches == before + 1
+    [(fn, args)] = launches.calls
+    assert fn == "pg_compact_planes"
+    assert args[0] is keep and args[1] is wide and args[2] is narrow
+    assert args[3] == 0
+    assert args[4].numel() == kn.STATUS_SLOT * (1 + Bq * 2)
+    assert args[6] == 0  # the first launch: no earlier status to zero
+    assert args[7] is ow and args[8] is on and args[9] == 0
+    assert args[10] is count
+    assert args[11:] == (-1, 2**32 - 1, 0, 8, 4, 0, Bq, L)
 
 
 @pytest.mark.parametrize("Bq,L", [(0, 64), (3, 0)])

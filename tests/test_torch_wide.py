@@ -29,6 +29,7 @@ from peregrine_tpu_torch.ops import index, kernels as kn, reduce, sketch
 from tests import oracles
 from tests.conftest import random_seq
 from tests.simdata import random_genome, simulate_reads
+import torch_kernel_cases as kernel_cases
 
 torch.set_num_threads(2)
 
@@ -88,6 +89,44 @@ def test_compact_planes_plain_matches_shift_compact(rng, p):
     np.testing.assert_array_equal(_u64(tx), np.asarray(jx))
     np.testing.assert_array_equal(_u64(ty), np.asarray(jy))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+
+
+@pytest.mark.parametrize("L,chunk", [(255, 256), (256, 256), (257, 256),
+                                     (640, 256),
+                                     (kn.COMPACT_CHUNK + 1, kn.COMPACT_CHUNK)])
+def test_compact_planes_plain_on_chunk_boundary_rows(rng, L, chunk):
+    """kernel_cases.compact_rows (nothing or everything kept, a single kept
+    column beside a boundary, counts on a boundary, whole chunks dropped;
+    L = chunk - 1, chunk, chunk + 1), whole rows: the wide sketch's planes
+    against the JAX package's XLA compaction at any L, and u32 planes
+    against the Pallas kernel in interpret mode where its tiling allows
+    (B % 8 == 0, L % 128 == 0)."""
+    Bc = 16
+    keep = kernel_cases.compact_rows(rng, Bc, L, chunk)
+    x = rng.integers(0, 2**64, (Bc, L), dtype=np.uint64)
+    y = rng.integers(0, 2**64, (Bc, L), dtype=np.uint64)
+    li = rng.integers(-2**31, 2**31, (Bc, L)).astype(np.int32)
+    (jx, jy, jl), jc = jsketch._shift_compact(
+        jnp.asarray(keep), [jnp.asarray(x), jnp.asarray(y), jnp.asarray(li)],
+        fills=[jsketch.INF, jsketch.INF, jnp.int32(0)])
+    (tx, ty, tl), tc = kn.compact_planes(
+        _t(keep), (_t(x.view(np.int64)), _t(y.view(np.int64)), _t(li)),
+        (sketch.INF, sketch.INF, 0))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(tc.numpy(), keep.sum(1))
+    np.testing.assert_array_equal(_u64(tx), np.asarray(jx))
+    np.testing.assert_array_equal(_u64(ty), np.asarray(jy))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    if Bc % 8 == 0 and L % 128 == 0:
+        a = x.astype(np.uint32)
+        (ja,), jc = pl.compact_planes(jnp.asarray(keep.astype(np.int32)),
+                                      (jnp.asarray(a),), (0xFFFFFFFF,),
+                                      interpret=True)
+        (ta,), tc = kn.compact_planes(_t(keep), (_t(a.view(np.int32)),),
+                                      (0xFFFFFFFF,))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(ta.numpy().view(np.uint32),
+                                      np.asarray(ja))
 
 
 def test_compact_planes_rejects_bad_planes():

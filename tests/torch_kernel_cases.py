@@ -1,15 +1,16 @@
-"""Seeded edge-case inputs for the packed SHIMMER kernels (numpy only).
+"""Seeded edge-case inputs for the chunked SHIMMER kernels (numpy only).
 
-build_stream, emit_mask and reduce_step split each row into chunks of
-`chunk` columns (ops.kernels.CHUNK, and REDUCE_CHUNK for reduce_step, on
-the card) and carry row prefixes from chunk to chunk, so their inputs
-here put the features that the prefixes and the window halos carry right
-at chunk boundaries.  The card tests, phase 3
+build_stream, emit_mask, reduce_step and compact_planes split each row
+into chunks of `chunk` columns (ops.kernels.CHUNK, REDUCE_CHUNK for
+reduce_step and COMPACT_CHUNK for compact_planes, on the card) and carry
+row prefixes from chunk to chunk, so their inputs here put the features
+that the prefixes and the window halos carry right at chunk boundaries.
+The card tests, phase 3
 of chip_smoke.py (which loads this file by its path) and the CPU tests
 against the Pallas kernels (with a small `chunk`, where the boundaries
 only place the features) use them.
-Rows 0-7 (0-9 for reduce_step) are the crafted ones; any further rows are
-random.
+Rows 0-7 (0-9 for reduce_step, 0-13 for compact_planes) are the crafted
+ones; any further rows are random.
 """
 
 from __future__ import annotations
@@ -130,3 +131,37 @@ def reduce_rows(rng: np.random.Generator, B: int, L: int, r: int,
     if B > 9:
         P[9] = P[9, 0]
     return H, P, n
+
+
+def compact_rows(rng: np.random.Generator, B: int, L: int, chunk: int):
+    """[B, L] bool keep masks for compact_planes, whose fills land on
+    [count, L) by each dropped column's rank, so a fill placed one column
+    off overwrites a kept entry or leaves a column unset.  Keeps nothing
+    (row 0) and everything (row 1); only column c - 1, c or c + 1 of the
+    first boundary c, the row's single kept column (rows 2-4); one kept
+    column at c - 1, c or c + 1 of every boundary (rows 5-7); the first
+    `chunk` columns, so the count lies on the boundary (row 8); `chunk`
+    columns at random, the same count elsewhere (row 9); every other
+    chunk dropped whole (row 10); only the first and the last chunk with
+    kept columns (row 11); only the last column (row 12) and only the
+    first (row 13).  Further rows are random at a density of their own."""
+    keep = rng.random((B, L)) < rng.random((B, 1))
+    crafted = np.zeros((14, L), bool)
+    crafted[1] = True
+    bounds = list(_boundaries(L, chunk))
+    for i, d in enumerate((-1, 0, 1)):
+        for b, cols in ((2 + i, bounds[:1]), (5 + i, bounds)):
+            for c in cols:
+                if 0 <= c + d < L:
+                    crafted[b, c + d] = True
+    crafted[8, :chunk] = True
+    crafted[9, rng.permutation(L)[:chunk]] = True
+    col = np.arange(L)
+    crafted[10] = ((col // chunk) % 2 == 0) & (rng.random(L) < 0.5)
+    last = (L - 1) // chunk
+    crafted[11] = ((col // chunk == 0) | (col // chunk == last)) & (
+        rng.random(L) < 0.5)
+    crafted[12, L - 1] = True
+    crafted[13, 0] = True
+    keep[:min(B, 14)] = crafted[:B]
+    return keep
