@@ -5,10 +5,13 @@
     python3 chip_smoke.py --kernels-only  # phases 1-3: build + kernel checks
     python3 chip_smoke.py --index-profile # phases 1-2, then stage 1 profiled
     python3 chip_smoke.py --index-profile --profile-k 28   # the same at k=28
+    python3 chip_smoke.py --aligner-sass  # phases 1-2, then the aligner's
+                                          # SASS loops
 
 Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the SHIMMER kernels (nvcc, sm_90a) and the native host library;
+  2. build the SHIMMER kernels and the banded Myers aligner (nvcc, sm_90a)
+     and the native host library, the three at once;
   3. each of the five kernels against its plain PyTorch version on the
      card, exactly, at the main paths' shapes (B=64, L in 8192/16384/
      24576/32768/40960, 16384 being the draft's main bucket; move_plane
@@ -25,7 +28,9 @@ Phases, in order; any failure raises and exits non-zero:
      REDUCE_CHUNK + 1, 2048 and r = 2, 6, 255; compact_planes at
      L = COMPACT_CHUNK - 1, COMPACT_CHUNK, COMPACT_CHUNK + 1, 16384 with
      planes of 8+8+4, 8+8 and 4+8+4 bytes), after which the look-back
-     status that the next launch will take must be zeroed; kernel times
+     status that the next launch will take must be zeroed; and
+     pg_myers_align on 1,024 E. coli-class read pairs and on the crafted
+     lanes of tests/torch_kernel_cases.py, with its operation bound; kernel times
      are device times (many launches back to back between two CUDA
      events, divided by their number), plain times the same over a few
      calls; each kernel's byte bound at its main-path shape from this
@@ -35,7 +40,10 @@ Phases, in order; any failure raises and exits non-zero:
      without the level-0 index (uncapped and capped), and of 64 at k=28,
      w=8 (cap overflow, exact retry); sketch_long_np of a 200 kb genome
      slice at k=16 and k=28 and two reduce_flat_np levels of it (one long
-     row each, as stage 4's contig index runs them): cuda equals cpu;
+     row each, as stage 4's contig index runs them): cuda equals cpu; on
+     the phase-5 reads, build_index_segmented on the card in at least 9
+     segments equals one build, and build_pairs_device on the card equals
+     the host build_pairs and bucket_stream;
   5. the draft path: `pg-tpu-torch asm` (cli.main, k=16) on a simulated
      E. coli-class set (4.6 Mb circular genome, 30x of 15 kb reads, 1%
      error, 40 kb wrap, seed 42), with stage walls, kernel launch counts
@@ -50,7 +58,17 @@ Phases, in order; any failure raises and exits non-zero:
      walls of stages 0-4, launch counts (compact_planes must be > 0),
      peak device memory, and a check of the polished contigs: the longest
      covers >= 0.9 of the genome, and >= 0.95 of its 21-mers, and more
-     than of the phase-5 draft's, occur in the genome.
+     than of the phase-5 draft's, occur in the genome;
+  7. stage 2 on the card: `pg-tpu-torch asm --device-aligner
+     --device-pairs` on the same set, with its stage walls and aligner
+     launches (> 0), each launch replayed under torch.profiler, and
+     checks: the outputs of its largest launch equal the plain version's
+     exactly on a seeded sample of 1,024 of its lanes, exactly one contig
+     of 0.99-1.02 of the genome, a 21-mer share within 0.01 of phase 5's,
+     and a Jaccard index above 0.9 between its preads.ovl read pairs and
+     phase 5's;
+  8. the same for `asm --hybrid-overlap` (the sample from its largest
+     slice), whose device thread must have launched the aligner.
 Each path's launch counts are zeroed just before it runs and read just
 after.  It then prints the kernels' JSON line and, last, the device JSON
 line.
@@ -92,10 +110,28 @@ REPLACES = {
     "reduce_step": "peregrine_tpu/ops/compact_pallas.py:464",
     "compact_planes": "peregrine_tpu/ops/compact_pallas.py:391",
 }
+# the kernel the port adds where the JAX package used XLA: the banded
+# Myers aligner's fused loop (_myers_core, as myers_batch_db_packed calls it)
+ALIGN_SOURCE = "peregrine_tpu_torch/csrc/myers_align.cu"
+ALIGN_REPLACES = "peregrine_tpu/ops/device_align.py:66"
 K, W, R = 16, 80, 6
 K_WIDE = 28
 MAIN_L, CAP = 16384, 2048  # the draft's main read bucket and sketch cap
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# H100 SXM 32-bit integer rate: 64 INT32 lanes an SM, half the 128 FP32
+# lanes behind the data sheet's 67 TFLOP/s, which counts an FMA as two
+INT32_OPS_PER_S = 67e12 / 4
+# The 32-bit operations the banded Myers function needs per lane and
+# target column, counting a three-input logic operation, a three-input
+# add and a shift with carry (funnel shift) as one each, as sm_90 issues
+# them.  A block update is 13: one match-word lookup, e | hm_in, & p, the
+# add, xh, ph, mh, hm_out, xv, the two shifts with carry, pv and mv.  The
+# column is 11: its target base read 4 to a byte (shift, mask, ambiguity
+# bit), the score (two carries out and the add), its offset, the test
+# against the best, the best's two updates and the loop.  The kernel's
+# own column loop executes more (`--aligner-sass` counts it).
+MYERS_OPS_PER_COLUMN = 13 * 8 + 11
+ALN_MAX_LEN = 1 << 15  # AsmConfig.aln_max_len: the longest lane aligned
 PROFILE_PAIRS = 6  # kernel/plain stage-1 builds compared by --index-profile
 GENOME, READ_LEN, COVERAGE, WRAP = 4_600_000, 15_000, 30.0, 40_000
 
@@ -408,6 +444,62 @@ def phase_kernels(results: dict) -> None:
             f" {bound_ms / ms:.4f} of the bound")
 
 
+def phase_align(results: dict) -> None:
+    """pg_myers_align against its plain version on the card, exactly, at
+    the main shape (1,024 E. coli-class read pairs: reads of 15 kb +-
+    1.5 kb, both strands, 1% error) and on the crafted lanes of
+    tests/torch_kernel_cases.py (at the 15 kb read length, one lane at
+    aln_max_len), each with its operation bound and the plain time."""
+    import torch
+
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops import device_align as da
+    from peregrine_tpu_torch.ops.dbgather import upload_seqdb
+
+    kernel_cases = load_kernel_cases()
+    rng = np.random.default_rng(7)
+    shapes = []
+    for label, (seqs, cols) in (
+            ("main", kernel_cases.myers_requests(rng, 1024, READ_LEN, 1500,
+                                                 0.01)),
+            ("crafted", kernel_cases.myers_lanes(rng, READ_LEN,
+                                                 ALN_MAX_LEN))):
+        db = SeqDB.from_reads([(str(i), q) for i, q in enumerate(seqs)])
+        pdb = upload_seqdb(db.data, "cuda")
+        c = torch.from_numpy(cols).cuda()
+        got = da.myers_batch_db(pdb, c)
+        a, b = _events()
+        a.record()
+        want = da.myers_batch_db_plain(pdb, c)
+        b.record()
+        b.synchronize()
+        pms = a.elapsed_time(b)
+        err = max_err(zip(got, want))
+        ms = kernel_ms(lambda: da.myers_batch_db(pdb, c), n=20)
+        columns = int(np.clip(cols[:, 5], 0, None).sum())
+        bound_ms = myers_bound_ms(cols)
+        shapes.append({"site": label, "lanes": len(cols),
+                       "lane_columns": columns, "max_abs_err": err,
+                       "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
+                       "share_of_bound": bound_ms / ms})
+        say(f"kernel myers_align {label} lanes B={len(cols)}, {columns} "
+            f"lane-columns: max_abs_err {err} (tolerance 0) on dist, q_end "
+            f"and t_end; bound {bound_ms * 1e3:.3f} us "
+            f"({MYERS_OPS_PER_COLUMN} int32 operations a lane-column at "
+            f"{INT32_OPS_PER_S / 1e12:.2f} Tops/s), kernel "
+            f"{ms * 1e3:.3f} us a launch, {bound_ms / ms:.4f} of the bound, "
+            f"plain {pms:.1f} ms")
+        check(err == 0, f"myers_align disagrees with its plain version on "
+              f"the {label} lanes (max_abs_err {err})")
+    main = shapes[0]
+    results["myers_align"] = {
+        "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "operations",
+        "library_ms": None, "bound_us": main["bound_ms"] * 1e3,
+        "share_of_bound": main["share_of_bound"], "shapes": shapes}
+
+
 def phase_index(reads, genome) -> None:
     import torch
 
@@ -455,6 +547,54 @@ def phase_index(reads, genome) -> None:
         say(f"index check: sketch_long_np k={k} of a 200 kb slice, {n0} "
             f"minimizers, and two reduce_flat_np levels, {len(xg)} "
             "SHIMMERs, cuda == cpu")
+
+
+def phase_stage2_inputs(reads) -> None:
+    """Phase 4, stage 2's device inputs on the E. coli-class reads: the
+    segmented index build on the card, with a budget that forces at least
+    9 segments, equals the one-shot build; the device pair map on the
+    card equals the host pair map and bucket stream."""
+    import torch
+
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops.device_pairs import build_pairs_device
+    from peregrine_tpu_torch.ops.index import (build_index,
+                                               build_index_segmented)
+    from peregrine_tpu_torch.ops.overlap import bucket_stream, build_pairs
+
+    db = SeqDB.from_reads(reads)
+    cfg = AsmConfig()
+    t0 = time.time()
+    one = build_index(db, cfg, "cuda")
+    t1 = time.time()
+    # every segment holds at most budget bytes, so there are at least 9
+    budget = db.data.nbytes // 9
+    seg = build_index_segmented(db, cfg, "cuda", budget)
+    t2 = time.time()
+    for f in ("x", "y", "mc_hash", "mc_count"):
+        check(np.array_equal(getattr(seg, f), getattr(one, f)),
+              f"segmented build_index != one build on .{f}")
+    say(f"index check: build_index_segmented of {len(db)} reads on the card "
+        f"in segments of <= {budget} bytes (of {db.data.nbytes}), "
+        f"{len(seg.x)} SHIMMERs, equals one build ({t2 - t1:.2f} s against "
+        f"{t1 - t0:.2f} s)")
+    gates = (cfg.mc_lower, cfg.mc_upper, cfg.min_anchor_dist)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pairs, stream = build_pairs_device(one, db.lengths, "cuda", *gates,
+                                       cfg.ovlp_upper)
+    t1 = time.time()
+    hp = build_pairs(one, db.lengths, 1, 1, *gates)
+    hs = bucket_stream(hp[0], hp[1], hp[2], hp[4], cfg.ovlp_upper)
+    t2 = time.time()
+    for i, (a, b) in enumerate(zip(pairs + stream, hp + hs)):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"build_pairs_device on cuda != the host build, array {i}")
+    say(f"pairs check: build_pairs_device on the card equals build_pairs + "
+        f"bucket_stream: {len(pairs[0])} pair records, {len(stream[0])} "
+        f"stream entries ({t1 - t0:.2f} s on the card, host "
+        f"{t2 - t1:.2f} s)")
 
 
 def smi(fields: str) -> str:
@@ -634,13 +774,33 @@ def agreement(seq: bytes, genome: bytes) -> float:
     return float(np.isin(km, ref).mean()) if len(km) else 0.0
 
 
+def launch_counts() -> dict:
+    """Each kernel wrapper's launch count, by kernel name."""
+    from peregrine_tpu_torch.ops import device_align as da, kernels as kn
+    counts = {fn.__name__: fn.launches for fn in kn.KERNELS}
+    counts["myers_align"] = da.myers_batch_db.launches
+    return counts
+
+
+def reset_launches() -> None:
+    from peregrine_tpu_torch.ops import device_align as da, kernels as kn
+    kn.reset_launches()
+    da.myers_batch_db.launches = 0
+
+
+def ovl_pairs(path: str) -> set:
+    """The read-id pairs of a preads.ovl file."""
+    with open(path) as f:
+        return {tuple(sorted(map(int, ln.split()[:2]))) for ln in f
+                if not ln.startswith("-")}
+
+
 def run_asm(lst: str, out: str, flags: list, label: str, stages: tuple):
     """`pg-tpu-torch asm` through cli.main with every launch count zeroed
     just before and read just after; returns (walls, launches, total)."""
     import torch
 
     from peregrine_tpu_torch import cli
-    from peregrine_tpu_torch.ops import kernels as kn
 
     walls = {}
 
@@ -654,12 +814,12 @@ def run_asm(lst: str, out: str, flags: list, label: str, stages: tuple):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kn.reset_launches()
+        reset_launches()
         t0 = time.time()
         rc = cli.main(["asm", lst, "--output", out] + flags)
         torch.cuda.synchronize()
         total = time.time() - t0
-        launches = {fn.__name__: fn.launches for fn in kn.KERNELS}
+        launches = launch_counts()
     finally:
         logging.getLogger("peregrine_tpu_torch").removeHandler(handler)
     check(rc == 0, f"{label}: asm returned {rc}")
@@ -671,8 +831,9 @@ def run_asm(lst: str, out: str, flags: list, label: str, stages: tuple):
     return walls, launches, total
 
 
-def phase_draft(lst: str, genome, wd: str, results: dict) -> float:
-    """Phase 5, the k=16 draft; returns its longest contig's agreement."""
+def phase_draft(lst: str, genome, wd: str, results: dict):
+    """Phase 5, the k=16 draft; returns its longest contig's agreement
+    and the read pairs of its preads.ovl."""
     from peregrine_tpu_torch.io import formats
     from peregrine_tpu_torch.io.seqdb import read_fastx
 
@@ -702,7 +863,166 @@ def phase_draft(lst: str, genome, wd: str, results: dict) -> float:
         f"genome; {frac:.6f} of its 21-mers are in the genome")
     check(cover >= 0.9, f"longest contig covers {cover:.4f} < 0.9 of the genome")
     check(frac >= 0.7, f"21-mer agreement {frac:.4f} < 0.7")
-    return frac
+    return frac, ovl_pairs(os.path.join(out, "2-ovlp", "preads.ovl"))
+
+
+@contextlib.contextmanager
+def aligner_rounds(rounds: list, calls: list):
+    """Record each device alignment call of stage 2 for as long as the
+    block runs: its lanes, their target columns, and its time on the card
+    (CUDA events around the launch with its request upload and result
+    copies) and on the host clock in `rounds`; its seqdb, requests and
+    outputs in `calls`."""
+    from peregrine_tpu_torch.ops import overlap as ov
+    align = ov._align_lanes
+
+    def timed(seqdb_dev, cols):
+        a, b = _events()
+        t = time.perf_counter()
+        a.record()
+        out = align(seqdb_dev, cols)
+        b.record()
+        b.synchronize()
+        rounds.append({"lanes": len(cols), "lane_columns": int(
+            np.clip(cols[:, 5], 0, None).sum()) if len(cols) else 0,
+            "device_ms": a.elapsed_time(b),
+            "host_ms": (time.perf_counter() - t) * 1e3})
+        calls.append((seqdb_dev, cols.copy(), out))
+        return out
+
+    ov._align_lanes = timed
+    try:
+        yield
+    finally:
+        ov._align_lanes = align
+
+
+def myers_bound_ms(cols) -> float:
+    """pg_myers_align's operation bound for request columns: each lane
+    runs its own t_len columns."""
+    columns = int(np.clip(cols[:, 5], 0, None).sum())
+    return columns * MYERS_OPS_PER_COLUMN / INT32_OPS_PER_S * 1e3
+
+
+def trace_myers(calls) -> list:
+    """Replay stage 2's device alignment calls, after the run, one launch
+    each under torch.profiler: the kernel's device milliseconds from the
+    trace, beside its operation bound, at the main path's shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from peregrine_tpu_torch.ops import device_align as da
+
+    out = []
+    for pdb, cols, _ in calls:
+        c = torch.from_numpy(cols).cuda()
+        da.myers_batch_db(pdb, c)   # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            da.myers_batch_db(pdb, c)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        ms = sum(e["dur"] for e in events if e.get("ph") == "X"
+                 and e.get("cat") == "kernel"
+                 and "myers_align_kernel" in e["name"]) / 1000
+        check(ms > 0, "the profiler trace holds no myers_align kernel")
+        bound = myers_bound_ms(cols)
+        out.append({"lanes": len(cols), "lane_columns": int(
+            np.clip(cols[:, 5], 0, None).sum()), "trace_ms": ms,
+            "bound_ms": bound, "share_of_bound": bound / ms})
+    return out
+
+
+def check_launch_sample(calls, label: str, n: int = 1024) -> dict:
+    """Hold the path's largest device alignment call to the plain version:
+    a seeded sample of n of its lanes, whose outputs from the run's own
+    launch must equal myers_batch_db_plain on the card on the same request
+    rows, exactly; then a kernel launch and the plain version timed on the
+    sample alone."""
+    import torch
+
+    from peregrine_tpu_torch.ops import device_align as da
+
+    pdb, cols, got = max(calls, key=lambda call: len(call[1]))
+    rng = np.random.default_rng(len(cols))
+    rows = np.sort(rng.choice(len(cols), min(n, len(cols)), replace=False))
+    c = torch.from_numpy(cols[rows]).cuda()
+    a, b = _events()
+    a.record()
+    want = da.myers_batch_db_plain(pdb, c)
+    b.record()
+    b.synchronize()
+    pms = a.elapsed_time(b)
+    err = max_err(zip((torch.from_numpy(g[rows]).cuda() for g in got), want))
+    ms = kernel_ms(lambda: da.myers_batch_db(pdb, c), n=20)
+    bound = myers_bound_ms(cols[rows])
+    say(f"{label}: {len(rows)} of the {len(cols)} lanes of its largest "
+        f"launch: max_abs_err {err} (tolerance 0) on dist, q_end and t_end "
+        f"against the plain version; on the sample alone kernel "
+        f"{ms * 1e3:.3f} us a launch, bound {bound * 1e3:.3f} us, "
+        f"{bound / ms:.4f} of the bound, plain {pms:.1f} ms")
+    check(err == 0, f"{label}: myers_align's launch disagrees with its "
+          f"plain version (max_abs_err {err})")
+    return {"site": f"{label}, {len(rows)} of the {len(cols)} lanes of its "
+            "largest launch", "lanes": len(rows), "launch_lanes": len(cols),
+            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound,
+            "share_of_bound": bound / ms}
+
+
+def phase_device_overlap(lst: str, genome, wd: str, draft, label: str,
+                         flags: list, trace: bool = False):
+    """Phases 7 and 8: the draft with stage 2 on the card.  The largest
+    launch's lanes equal the plain version's on a sample; one contig of
+    0.99-1.02 of the genome whose 21-mer share is within 0.01 of the
+    phase-5 draft's, and preads.ovl read pairs with a Jaccard index above
+    0.9 against phase 5's (the device aligner's optimal distances differ
+    from the host aligner's greedy ones, so the files are not identical);
+    returns the aligner's launches, each device call's record, the
+    sample's check and, with `trace`, each launch's profiled time."""
+    from peregrine_tpu_torch.io.seqdb import read_fastx
+
+    draft_frac, draft_pairs = draft
+    out = os.path.join(wd, label.replace(" ", "-"))
+    rounds: list = []
+    calls: list = []
+    with aligner_rounds(rounds, calls):
+        walls, launches, _ = run_asm(lst, out, flags, label,
+                                     ("seqdb", "index", "overlap", "layout"))
+    check(launches["myers_align"] > 0,
+          f"kernel myers_align was not launched by the {label}")
+    sample = check_launch_sample(calls, label)
+    dev_ms = sum(r["device_ms"] for r in rounds)
+    say(f"{label}: {len(rounds)} device alignment calls, lanes "
+        f"{[r['lanes'] for r in rounds]}, device ms (launch, upload and "
+        f"copies) {[round(r['device_ms'], 3) for r in rounds]}, host ms "
+        f"{[round(r['host_ms'], 3) for r in rounds]}; {dev_ms:.1f} ms on "
+        f"the card of the {walls['overlap'] * 1e3:.0f} ms overlap stage")
+    traced = trace_myers(calls) if trace else []
+    for t in traced:
+        say(f"{label}: myers_align traced at B={t['lanes']} lanes, "
+            f"{t['lane_columns']} lane-columns: {t['trace_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.3f} ms, {t['share_of_bound']:.4f} of the bound")
+    pairs = ovl_pairs(os.path.join(out, "2-ovlp", "preads.ovl"))
+    jac = len(pairs & draft_pairs) / max(len(pairs | draft_pairs), 1)
+    ctgs = [s for _, s in read_fastx(os.path.join(out, "3-asm", "p_ctg.fa"))]
+    say(f"{label}: {len(pairs)} overlap read pairs, Jaccard {jac:.4f} "
+        f"against the draft path's {len(draft_pairs)}; {len(ctgs)} contigs")
+    check(len(ctgs) == 1, f"{label}: {len(ctgs)} contigs, not one")
+    cover = len(ctgs[0]) / len(genome)
+    frac = agreement(ctgs[0], genome)
+    say(f"{label}: contig {len(ctgs[0])} b = {cover:.4f} of the genome; "
+        f"{frac:.6f} of its 21-mers are in the genome (draft path "
+        f"{draft_frac:.6f})")
+    check(0.99 <= cover <= 1.02, f"{label}: the contig covers {cover:.4f} "
+          "of the genome, outside 0.99-1.02")
+    check(abs(frac - draft_frac) <= 0.01, f"{label}: 21-mer agreement "
+          f"{frac:.6f} is more than 0.01 from the draft's {draft_frac:.6f}")
+    check(jac > 0.9, f"{label}: overlap pair Jaccard {jac:.4f} <= 0.9")
+    return launches["myers_align"], rounds, sample, traced
 
 
 def phase_consensus(lst: str, genome, wd: str, results: dict,
@@ -744,6 +1064,44 @@ def phase_consensus(lst: str, genome, wd: str, results: dict,
           f"above the draft's {draft_frac:.4f}")
 
 
+def aligner_sass(lib_path: str) -> None:
+    """Each loop of pg_myers_align's SASS (cuobjdump of the built
+    library), with its instructions by opcode.  The column loop is the
+    innermost loop with two byte loads (the target base's fw and amb
+    bytes): its length is what the kernel executes per lane and target
+    column, beside MYERS_OPS_PER_COLUMN, what the function needs."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    ins = [(int(a, 16), op.strip()) for a, op in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
+    loops = []
+    for a, op in ins:
+        m = re.search(r"\bBRA(?:\.\w+)*\s+0x([0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < a:
+            loops.append((int(m.group(1), 16), a))
+    say(f"pg_myers_align SASS: {len(ins)} instructions, {len(loops)} loops")
+    column = None
+    for lo, hi in loops:
+        body = [op for a, op in ins if lo <= a <= hi]
+        inner = not any(lo <= x and y <= hi and (x, y) != (lo, hi)
+                        for x, y in loops)
+        ops = {}
+        for op in body:
+            name = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0]
+            ops[name] = ops.get(name, 0) + 1
+        byte_loads = sum("LDG.E.U8" in op for op in body)
+        say(f"  loop {lo:#x}-{hi:#x}{' (innermost)' if inner else ''}: "
+            f"{len(body)} instructions, {byte_loads} byte loads; "
+            + ", ".join(f"{k} {v}" for k, v in sorted(
+                ops.items(), key=lambda kv: -kv[1])))
+        if inner and byte_loads == 2:
+            column = len(body)
+    say(f"column loop: {column} instructions a lane and target column; the "
+        f"function needs {MYERS_OPS_PER_COLUMN} (MYERS_OPS_PER_COLUMN)"
+        if column else "column loop: not identified")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -753,6 +1111,9 @@ def main(argv=None) -> int:
     ap.add_argument("--index-profile", action="store_true",
                     help="phases 1-2, then stage 1 alone: kernel and plain "
                     "walls and a profiler trace (no other phase)")
+    ap.add_argument("--aligner-sass", action="store_true",
+                    help="phases 1-2, then the instructions of each loop "
+                    "of pg_myers_align's SASS (no other phase)")
     args = ap.parse_args(argv)
 
     import torch
@@ -768,19 +1129,36 @@ def main(argv=None) -> int:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    # phase 2: build
-    t0 = time.time()
-    from peregrine_tpu_torch.ops import kernels as kn
-    kn.library()
-    t1 = time.time()
-    import peregrine_tpu_torch.native  # noqa: F401  (builds on import)
-    say(f"build: SHIMMER kernels {t1 - t0:.1f} s (nvcc sm_90a), native host "
-        f"library {time.time() - t1:.1f} s")
+    # phase 2: build the two kernel libraries and the native host library
+    # at once (one compiler each)
+    import concurrent.futures as cf
+    import importlib
+
+    from peregrine_tpu_torch.ops import device_align as da, kernels as kn
+
+    def timed(build):
+        t = time.time()
+        build()
+        return time.time() - t
+
+    with cf.ThreadPoolExecutor(3) as ex:
+        builds = [ex.submit(timed, fn) for fn in (
+            kn.library, da.library,
+            lambda: importlib.import_module("peregrine_tpu_torch.native"))]
+        t_shimmer, t_align, t_native = (f.result() for f in builds)
+    say(f"build, in parallel: SHIMMER kernels {t_shimmer:.1f} s and the "
+        f"aligner {t_align:.1f} s (nvcc sm_90a), native host library "
+        f"{t_native:.1f} s")
+
+    if args.aligner_sass:
+        aligner_sass(da.library()._name)
+        return 0
 
     # phase 3: kernels against their plain versions
     results: dict = {}
     if not args.index_profile:
         phase_kernels(results)
+        phase_align(results)
         if args.kernels_only:
             return 0
 
@@ -798,8 +1176,10 @@ def main(argv=None) -> int:
         phase_index_profile(reads, args.profile_k)
         return 0
 
-    # phase 4: the index on the card equals the index on the host
+    # phase 4: the index on the card equals the index on the host; stage
+    # 2's device inputs equal the host's
     phase_index(reads, genome)
+    phase_stage2_inputs(reads)
 
     # phases 5 and 6: the draft path and the wide consensus path
     from peregrine_tpu_torch.simdata import write_reads
@@ -809,14 +1189,37 @@ def main(argv=None) -> int:
         os.makedirs(wd)
         lst = os.path.join(wd, "reads.lst")
         write_reads(reads, os.path.join(wd, "reads.fa"), lst)
-        draft_frac = phase_draft(lst, genome, wd, results)
-        phase_consensus(lst, genome, wd, results, draft_frac)
+        draft = phase_draft(lst, genome, wd, results)
+        phase_consensus(lst, genome, wd, results, draft[0])
+        # phases 7 and 8: stage 2 on the card
+        entry = results["myers_align"]
+        entry["launches"], entry["rounds"], sample, entry["trace"] = \
+            phase_device_overlap(lst, genome, wd, draft,
+                                 "device aligner path",
+                                 ["--device-aligner", "--device-pairs"],
+                                 trace=True)
+        entry["launches_hybrid"], entry["rounds_hybrid"], sample_hybrid, _ = \
+            phase_device_overlap(lst, genome, wd, draft,
+                                 "hybrid overlap path", ["--hybrid-overlap"])
     finally:
         shutil.rmtree(wd, ignore_errors=True)
+    # the entry's headline is the main path's largest launch, traced, and
+    # the plain version on its sample; phase 3's shapes stay in `shapes`
+    entry["shapes"] += [sample, sample_hybrid]
+    head = max(entry["trace"], key=lambda t: t["lanes"])
+    entry.update(
+        max_abs_err=max(sh["max_abs_err"] for sh in entry["shapes"]),
+        ms=head["trace_ms"], lanes=head["lanes"], bound_ms=head["bound_ms"],
+        bound_us=head["bound_ms"] * 1e3,
+        share_of_bound=head["share_of_bound"], plain_ms=sample["plain_ms"],
+        plain_lanes=sample["lanes"])
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], **results[name]}
                for name in REPLACES]
+    kernels.append({"name": "myers_align", "route": "cuda",
+                    "source": ALIGN_SOURCE, "replaces": ALIGN_REPLACES,
+                    **results["myers_align"]})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,11 @@ half-written file.
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
 import hashlib
 import os
+import shutil
 import subprocess
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -41,3 +43,27 @@ def build_shared(name: str, sources: list[str], cmd: list[str],
                                    f"(rc={r.returncode}):\n{r.stderr[-4000:]}")
             os.replace(tmp, out)
     return out
+
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit on the machine with the card")
+
+
+def load_cuda(name: str, source: str, signatures: dict) -> ctypes.CDLL:
+    """Build `source` with nvcc for sm_90a (once per source hash) and load
+    it, each C entry of `signatures` with its argtypes and an int result
+    (a CUDA error code)."""
+    lib = ctypes.CDLL(build_shared(name, [source], [_nvcc()] + _NVCC_FLAGS))
+    for entry, argtypes in signatures.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

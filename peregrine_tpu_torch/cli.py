@@ -2,10 +2,13 @@
 
     pg-tpu-torch asm reads.lst --output ./wd --with-consensus
     pg-tpu-torch asm reads.lst --shimmer-k 28 --with-L0-index --with-consensus
+    pg-tpu-torch asm reads.lst --device-aligner --device-pairs
 
 The flags and defaults are those of `pg-tpu asm`, plus --device (default
-cuda; there is no quiet switch to the CPU: pass --device cpu to build the
-SHIMMER indexes of stages 1 and 4 on the host).  Flags whose paths are
+cuda; there is no quiet switch to the CPU: pass --device cpu to run the
+device work, the SHIMMER indexes of stages 1 and 4 and, with
+--device-aligner, --hybrid-overlap or --device-pairs, the stage-2 work,
+on the host).  Flags whose paths are
 not yet ported exit non-zero with a message naming the ROADMAP item; the
 other verbs of pg-tpu come later.
 """
@@ -19,10 +22,7 @@ import sys
 
 # flag dest -> (flag, ROADMAP item); each exits non-zero when given
 _NOT_PORTED = {
-    "device_aligner": ("--device-aligner", "queue 1, flag paths"),
-    "hybrid_overlap": ("--hybrid-overlap", "queue 1, flag paths"),
     "shard_overlap": ("--shard-overlap", "queue 1, flag paths"),
-    "device_pairs": ("--device-pairs", "queue 1, flag paths"),
     "mesh": ("--mesh", "queue 1, flag paths"),
     "multihost": ("--multihost", "queue 1, flag paths"),
     "profile_dir": ("--profile-dir", "queue 1, flag paths"),
@@ -41,7 +41,7 @@ def main(argv=None) -> int:
     asm.add_argument("reads_lst", help="file listing FASTA/FASTQ(.gz) read files")
     asm.add_argument("--output", default="./wd", help="output directory")
     asm.add_argument("--device", default="cuda",
-                     help="torch device for the SHIMMER indexes (cuda or cpu)")
+                     help="torch device for the device stages (cuda or cpu)")
     asm.add_argument("--with-consensus", action="store_true",
                      help="polish draft contigs with read consensus")
     # defaults come from AsmConfig, the single source of truth
@@ -68,8 +68,22 @@ def main(argv=None) -> int:
                      help="overlap hash chunks (default: auto)")
     asm.add_argument("--n_workers", type=int, default=None,
                      help="overlap/consensus worker threads (default: auto)")
-    for flag in ("--device-aligner", "--hybrid-overlap", "--shard-overlap",
-                 "--device-pairs", "--mesh", "--multihost"):
+    asm.add_argument("--device-aligner", action="store_true",
+                     help="run overlap confirmation on the device (batched "
+                          "banded Myers) instead of host cores.  NOTE: the "
+                          "device kernel reports optimal edit distances where "
+                          "the host aligner is greedy, so accept decisions "
+                          "differ slightly (~97.5%% pair agreement with the "
+                          "host backend; contig-level output is equivalent "
+                          "but not byte-identical)")
+    asm.add_argument("--hybrid-overlap", action="store_true",
+                     help="align overlaps on the device and host cores "
+                          "concurrently (work-stealing queue).  Same "
+                          "output caveat as --device-aligner")
+    asm.add_argument("--device-pairs", action="store_true",
+                     help="build the overlap pair map on the device (byte-"
+                          "identical output)")
+    for flag in ("--shard-overlap", "--mesh", "--multihost"):
         asm.add_argument(flag, action="store_true", help="not yet ported")
     asm.add_argument("--spill-dir", default=None,
                      help="back the overlap pair map / bucket stream with "
@@ -109,6 +123,8 @@ def main(argv=None) -> int:
         ovlp_upper=args.ovlp_upper, min_len=args.min_len,
         min_idt=args.min_idt, lfc=args.lfc,
         disable_chimer_bridge_removal=args.disable_chimer_bridge_removal,
+        use_device_aligner=args.device_aligner,
+        hybrid_overlap=args.hybrid_overlap, device_pairs=args.device_pairs,
         spill_dir=args.spill_dir)
     if args.mem_budget is not None:
         os.environ["PG_MEM_BUDGET"] = str(int(float(args.mem_budget)))

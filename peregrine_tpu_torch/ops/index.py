@@ -11,8 +11,11 @@ Sequences longer than sketch_pad_len take the segmented long route
 (sketch_long_np + reduce_flat_np).  keep_l0 (--with-L0-index) also
 returns the level-0 index.
 
+build_index_segmented indexes a seqdb past the device budget in
+contiguous read groups, each uploading only its byte window.
+
 Not ported: index_step_db_meta/_scan (one-dispatch batching for a
-remote device link), build_index_segmented and its worker process.
+remote device link) and the segmented build's worker processes.
 """
 
 from __future__ import annotations
@@ -159,16 +162,56 @@ def _index_of(xs: dict, ys: dict) -> ShimmerIndex:
     return ShimmerIndex(x, y, mh, mc)
 
 
+def build_index_segmented(db: SeqDB, cfg: AsmConfig, device,
+                          budget_bytes: int,
+                          keep_l0: bool = False) -> ShimmerIndex:
+    """build_index in contiguous read groups whose seqdb bytes fit
+    `budget_bytes`: each group uploads only its byte window, indexes, and
+    frees it before the next.  Per-read records do not depend on the
+    batching, so the result equals one build's.  A single read larger
+    than the budget is a group of its own."""
+    assert not keep_l0, "segmented build supports the production path only"
+    n = len(db)
+    groups: list[np.ndarray] = []
+    start = 0
+    while start < n:
+        end = start
+        base = int(db.offsets[start])
+        while end < n and int(db.offsets[end] + db.lengths[end]) - base \
+                <= budget_bytes:
+            end += 1
+        if end == start:
+            end = start + 1  # single read larger than the budget
+        groups.append(np.arange(start, end))
+        start = end
+    xs, ys = [], []
+    for g in groups:
+        lo = int(db.offsets[g[0]])
+        hi = int(db.offsets[g[-1]] + db.lengths[g[-1]])
+        part = build_index(db, cfg, device, rid_filter=g, db_window=(lo, hi))
+        xs.append(part.x)
+        ys.append(part.y)
+    x = np.concatenate(xs) if xs else np.zeros(0, np.uint64)
+    y = np.concatenate(ys) if ys else np.zeros(0, np.uint64)
+    mh, mc = _merge_counts(x >> np.uint64(8), np.ones(len(x), np.uint32))
+    return ShimmerIndex(x, y, mh, mc)
+
+
 def build_index(db: SeqDB, cfg: AsmConfig, device,
-                packed: PackedSeqDB | None = None, keep_l0: bool = False):
+                packed: PackedSeqDB | None = None, keep_l0: bool = False,
+                rid_filter: np.ndarray | None = None,
+                db_window: tuple[int, int] | None = None):
     """Build the final-level SHIMMER index of a SeqDB on `device` (sketch
     -> r-reduce x levels, counts of the final level;
     src/shmr_index.c:155-233).  `packed` is the seqdb already uploaded to
-    `device`; without it the seqdb is uploaded here.  With keep_l0 returns
-    (index, level-0 index), as the JAX package does."""
+    `device`; without it the seqdb is uploaded here, or only the bytes
+    [lo, hi) of db_window=(lo, hi), which must hold every read of
+    rid_filter (the reads to index; all of them by default).  With keep_l0
+    returns (index, level-0 index), as the JAX package does."""
     device = torch.device(device)
-    rids_all = np.arange(len(db))
-    lengths = db.lengths.astype(np.int64)
+    rids_all = (np.arange(len(db)) if rid_filter is None
+                else np.asarray(rid_filter))
+    lengths = db.lengths[rids_all].astype(np.int64)
     xs: dict[int, np.ndarray] = {}
     ys: dict[int, np.ndarray] = {}
     l0xs: dict[int, np.ndarray] = {}
@@ -199,7 +242,14 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
     rids_all = rids_all[~long_sel]
     lengths = lengths[~long_sel]
 
-    if len(rids_all) and packed is None:
+    win_lo = 0
+    if db_window is not None:
+        # gather offsets become window-relative
+        win_lo = int(db_window[0])
+        if len(rids_all) and packed is None:
+            packed = upload_seqdb(np.asarray(db.data[win_lo:int(db_window[1])]),
+                                  device)
+    elif len(rids_all) and packed is None:
         packed = upload_seqdb(db.data, device)
 
     # bucket unit finer than the max pad: 15 kb reads at a 32k unit would
@@ -213,7 +263,8 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
         cap = 0 if keep_l0 else max(256, pad // 8)
         for i in range(0, len(batch_rids), bsz):
             part = batch_rids[i:i + bsz]
-            offs = torch.from_numpy(db.offsets[part].astype(np.int64))
+            offs = torch.from_numpy(db.offsets[part].astype(np.int64)
+                                    - win_lo)
             lens = torch.from_numpy(db.lengths[part].astype(np.int32))
             codes = gather_codes(packed, offs, lens, torch.zeros_like(lens),
                                  pad, fill=4)

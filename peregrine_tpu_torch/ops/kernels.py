@@ -42,16 +42,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 
 import torch
 
-from .._build import build_shared
+from .._build import load_cuda
 
 _CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "csrc", "shimmer_kernels.cu")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _U32 = 0xFFFFFFFF
 _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of each C entry, in the order of its prototype in the .cu file
@@ -81,25 +78,11 @@ _lib = None
 _status_pairs: dict = {}
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the SHIMMER kernels are built with "
-                       "the CUDA toolkit on the machine with the card")
-
-
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_shared("shimmer_kernels", [_CU],
-                                       [_nvcc()] + _NVCC_FLAGS))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = _INT
-        _lib = lib
+        _lib = load_cuda("shimmer_kernels", _CU, SIGNATURES)
     return _lib
 
 

@@ -12,9 +12,13 @@ resumes the other's output directory:
     4-cns/     ctg.seqdb, read_map.txt, p_ctg_cns.fa (4-cns-alt/ with_alt)
 
 Stage 1 and stage 4's contig index run on the given device (the SHIMMER
-kernels); stages 0, 2 and 3 and stage 4's mapping and consensus are host
-numpy and native C++.  Not yet ported (each raises): the mesh/multihost
-runs, and the device pair map and aligner.
+kernels; a seqdb past the device budget is indexed in read segments);
+stages 0, 2 and 3 and stage 4's mapping and consensus are host numpy and
+native C++, except where a flag moves stage 2 to the device:
+device_pairs builds the pair map there, use_device_aligner aligns the
+overlap requests there (the banded Myers kernel), and hybrid_overlap
+splits them between a device thread and the host cores.  Not yet ported
+(each raises): the mesh/multihost runs and shard_overlap.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from ..graph.layout import assemble_graph
 from ..graph.string_graph import generate_string_graph
 from ..graph.tiling import tiling_paths
 from ..io.seqdb import SeqDB, read_fastx
-from ..ops.index import ShimmerIndex, build_index
+from ..ops.index import ShimmerIndex, build_index, build_index_segmented
 from ..ops.overlap import overlap_all
 
 log = logging.getLogger("peregrine_tpu_torch")
@@ -66,19 +70,23 @@ def _stage_done(path: str) -> bool:
     return os.path.exists(path)
 
 
-def _device_db_budget(device: torch.device) -> int:
+def _device_db_budget(device: torch.device, cfg: AsmConfig) -> int:
     """Max seqdb bytes whose packed planes (~0.375x the seqdb bytes) may
     be resident on the device at once; PG_HBM_DB_BUDGET (seqdb bytes)
     overrides.  On a card: the seqdb size whose planes take a quarter of
     the free device memory, leaving the rest to the index batches.  The
-    CPU device has no such limit."""
+    CPU device has no such limit.  With cfg.device_pairs the device also
+    holds the pair map's sort workspace, so the budget is 60% of that, as
+    in the JAX package."""
     env = os.environ.get("PG_HBM_DB_BUDGET")
     if env:
-        return int(env)
-    if device.type != "cuda":
+        b = int(env)
+    elif device.type != "cuda":
         return 1 << 62
-    free, _ = torch.cuda.mem_get_info(device)
-    return int(free / 4 / 0.375)
+    else:
+        free, _ = torch.cuda.mem_get_info(device)
+        b = int(free / 4 / 0.375)
+    return int(b * 0.6) if cfg.device_pairs else b
 
 
 def _device_mem_line(device: torch.device) -> str:
@@ -184,10 +192,10 @@ class Assembly:
             raise RuntimeError("device 'cuda' requested but torch sees no "
                                "CUDA device (pass --device cpu explicitly to "
                                "run stage 1 on the host)")
-        if cfg.mesh or cfg.device_pairs:
-            raise not_ported("--mesh / --device-pairs", "queue 1, flag paths")
-        if cfg.use_device_aligner or cfg.hybrid_overlap or cfg.shard_overlap:
-            raise not_ported("the device aligner", "queue 1, flag paths")
+        if cfg.mesh:
+            raise not_ported("--mesh", "queue 1, flag paths")
+        if cfg.shard_overlap:
+            raise not_ported("--shard-overlap", "queue 1, flag paths")
         self.outdir = outdir
         self.cfg = cfg
         self.with_alt = with_alt
@@ -261,7 +269,10 @@ class Assembly:
     # --- stage 1: SHIMMER index ----------------------------------------
     def build_shimmer_index(self, keep_l0: bool = False) -> ShimmerIndex:
         """Stage 1; keep_l0 (--with-L0-index) also writes the level-0
-        index, shmr-L0-*.dat, and resumes only when both levels exist."""
+        index, shmr-L0-*.dat, and resumes only when both levels exist.
+        A seqdb past the device budget is indexed in read segments, each
+        uploading only its bytes; with keep_l0 it is one build, as in the
+        JAX package."""
         prefix = os.path.join(self.outdir, "1-index", "shmr")
         level = self.cfg.levels
         mm = f"{prefix}-L{level}-01-of-01.dat"
@@ -271,15 +282,17 @@ class Assembly:
             self.idx = ShimmerIndex.load_chunks([mm], [mc])
         else:
             t0 = time.time()
-            budget = _device_db_budget(self.device)
-            if self.db.data.nbytes > budget:
-                raise not_ported(
-                    f"indexing a {self.db.data.nbytes / (1 << 30):.1f} GB "
-                    f"seqdb past the {budget / (1 << 30):.1f} GB device "
-                    "budget", "queue 1, the in-process segmented build")
-            built = build_index(self.db, self.cfg, self.device,
-                                keep_l0=keep_l0)
-            self.idx, l0 = built if keep_l0 else (built, None)
+            budget = _device_db_budget(self.device, self.cfg)
+            if not keep_l0 and self.db.data.nbytes > budget:
+                log.info("stage 1: the %.1f GB seqdb exceeds the %.1f GB "
+                         "device budget: indexing in segments",
+                         self.db.data.nbytes / (1 << 30), budget / (1 << 30))
+                self.idx, l0 = build_index_segmented(
+                    self.db, self.cfg, self.device, budget), None
+            else:
+                built = build_index(self.db, self.cfg, self.device,
+                                    keep_l0=keep_l0)
+                self.idx, l0 = built if keep_l0 else (built, None)
             self.idx.save(prefix, level=level)
             if keep_l0:
                 l0.save(prefix, level=0)
@@ -294,14 +307,23 @@ class Assembly:
         return self.idx
 
     def _pair_map(self):
-        """The unchunked oriented read pair map (host build)."""
+        """The unchunked oriented read pair map, shared by stages 2 and 4:
+        built on the device with cfg.device_pairs (byte-identical), else
+        by the host build."""
         if self._pairs is None:
             self._maybe_auto_spill()
-            from ..ops.overlap import build_pairs
-            self._pairs = build_pairs(
-                self.idx, self.db.lengths, 1, 1, self.cfg.mc_lower,
-                self.cfg.mc_upper, self.cfg.min_anchor_dist,
-                spill_dir=self.cfg.spill_dir)
+            if self.cfg.device_pairs:
+                from ..ops.device_pairs import build_pairs_device
+                self._pairs, _ = build_pairs_device(
+                    self.idx, self.db.lengths, self.device,
+                    self.cfg.mc_lower, self.cfg.mc_upper,
+                    self.cfg.min_anchor_dist, self.cfg.ovlp_upper)
+            else:
+                from ..ops.overlap import build_pairs
+                self._pairs = build_pairs(
+                    self.idx, self.db.lengths, 1, 1, self.cfg.mc_lower,
+                    self.cfg.mc_upper, self.cfg.min_anchor_dist,
+                    spill_dir=self.cfg.spill_dir)
         return self._pairs
 
     def _maybe_auto_spill(self) -> None:
@@ -339,7 +361,44 @@ class Assembly:
                 _preflight_spill(self.cfg.spill_dir,
                                  int(0.22 * self.db.data.nbytes),
                                  "overlap stage spill")
-            if self.cfg.dedup_overlap and self.cfg.spill_dir is not None:
+            dedup = self.cfg.dedup_overlap
+            if self.cfg.use_device_aligner or self.cfg.hybrid_overlap:
+                log.warning(
+                    "non-host overlap backend: the device Myers kernel "
+                    "reports optimal distances where the host aligner is "
+                    "greedy, so accept decisions differ slightly (~97.5% "
+                    "pair agreement); output is not byte-identical to the "
+                    "host backend")
+            if self.cfg.hybrid_overlap and dedup:
+                # chunk-free hybrid: host threads + a device thread pull
+                # slices of ONE globally-deduplicated request array
+                from ..ops.overlap import overlap_all_spec
+                ovlps = overlap_all_spec(
+                    self.db, self.idx, self.cfg,
+                    n_workers=n_workers or (os.cpu_count() or 1),
+                    backend="hybrid", pairs=self._pair_map(),
+                    device=self.device)
+            elif self.cfg.hybrid_overlap:
+                from ..ops.overlap import overlap_all_hybrid
+                if self.device.type == "cpu":
+                    log.warning("hybrid overlap on the cpu device: its "
+                                "device thread runs the plain aligner")
+                n_workers = n_workers or (os.cpu_count() or 1)
+                # one chunk per worker thread (host threads + the device
+                # thread): every EXTRA chunk duplicates a share of a
+                # chunk's alignments (per-chunk rid-pair dedup)
+                ovlps = overlap_all_hybrid(
+                    self.db, self.idx, self.cfg, self.device,
+                    n_chunks=n_chunks or (n_workers + 1),
+                    n_host_workers=n_workers)
+            elif self.cfg.use_device_aligner and dedup:
+                from ..ops.overlap import overlap_all_spec
+                ovlps = overlap_all_spec(self.db, self.idx, self.cfg,
+                                         n_workers=n_workers,
+                                         backend="device",
+                                         pairs=self._pair_map(),
+                                         device=self.device)
+            elif dedup and self.cfg.spill_dir is not None:
                 # low-memory mode: overlap_all_spec builds and frees its
                 # own pair map, and stage 4 rebuilds it (the JAX package
                 # shares it when the spill filesystem has room)
@@ -348,6 +407,13 @@ class Assembly:
                     self.db, self.idx, self.cfg,
                     n_workers=n_workers or (os.cpu_count() or 1),
                     backend="host")
+            elif self.cfg.use_device_aligner:
+                from ..ops.overlap import overlap_chunk_device
+                if n_chunks or n_workers:
+                    log.warning("device aligner runs in-process; "
+                                "n_chunks/n_workers ignored")
+                ovlps = overlap_chunk_device(self.db, self.idx, self.cfg,
+                                             self.device)
             else:
                 if n_workers is None:
                     n_workers = 1 if len(self.db) < 2000 else (os.cpu_count() or 1)

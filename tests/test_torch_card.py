@@ -487,3 +487,79 @@ def test_int64_cummin_cummax_match_the_cpu():
                      (sketch._sliding_max_leading, 0)):
         assert torch.equal(fn(flat.cuda(), 80, fill).cpu(),
                            fn(flat, 80, fill))
+
+
+# --- the banded Myers aligner and the device pair map -------------------
+
+def _myers_inputs(kind):
+    """A packed seqdb on the card and [B, 7] request columns: the crafted
+    lanes or random overlap requests of torch_kernel_cases."""
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops.dbgather import upload_seqdb
+
+    rng = np.random.default_rng(13)
+    seqs, cols = (kernel_cases.myers_lanes(rng, 1500, 4096) if kind == "crafted"
+                  else kernel_cases.myers_requests(rng, 300, 3000, 300, 0.01))
+    db = SeqDB.from_reads([(str(i), s) for i, s in enumerate(seqs)])
+    return upload_seqdb(db.data, "cuda"), torch.from_numpy(cols).cuda()
+
+
+@pytest.mark.parametrize("kind", ["crafted", "random"])
+def test_myers_align_matches_plain_and_stays_in_its_outputs(kind):
+    """pg_myers_align equals its plain version on every lane and writes
+    its three outputs only: each lies in canary margins."""
+    from peregrine_tpu_torch.ops import device_align as da
+
+    pdb, cols = _myers_inputs(kind)
+    B = cols.shape[0]
+    want = da.myers_batch_db_plain(pdb, cols)
+    bufs, views = _outputs((B,), (B,), (B,))
+    rc = da.library().pg_myers_align(
+        pdb.fw.data_ptr(), pdb.amb.data_ptr(), pdb.fw.numel(),
+        pdb.amb.numel(), cols.data_ptr(), B, da.NB,
+        *(v.data_ptr() for v in views),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    for got, ref in zip(views, want):
+        assert torch.equal(got, ref)
+    for buf in bufs:
+        assert (buf[:GUARD] == CANARY).all() and (buf[-GUARD:] == CANARY).all()
+    before = da.myers_batch_db.launches
+    for got, ref in zip(da.myers_batch_db(pdb, cols), want):
+        assert torch.equal(got, ref)
+    assert da.myers_batch_db.launches == before + 1
+
+
+def test_myers_align_repeated_launches_are_identical():
+    from peregrine_tpu_torch.ops import device_align as da
+
+    pdb, cols = _myers_inputs("random")
+    first = da.myers_batch_db(pdb, cols)
+    for _ in range(10):
+        for got, ref in zip(da.myers_batch_db(pdb, cols), first):
+            assert torch.equal(got, ref)
+
+
+def test_device_pairs_on_the_card_match_the_cpu():
+    """build_pairs_device on cuda equals the CPU run (itself held to the
+    host build and the JAX package by the CPU tests), at k=12 and k=28."""
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops.device_pairs import build_pairs_device
+    from peregrine_tpu_torch.ops.index import build_index
+    from peregrine_tpu_torch.simdata import random_genome, simulate_reads
+
+    rng = np.random.default_rng(42)
+    genome = random_genome(rng, 30000)
+    reads, _ = simulate_reads(rng, genome, read_len=3000, coverage=12.0)
+    db = SeqDB.from_reads(reads)
+    for k in (12, 28):
+        idx = build_index(db, AsmConfig(k=k, w=24, r=4, sketch_pad_len=8192,
+                                        sketch_batch=16), "cpu")
+        for gates in ((2, 240, 100), (3, 6, 50)):
+            on_card = build_pairs_device(idx, db.lengths, "cuda", *gates)
+            on_cpu = build_pairs_device(idx, db.lengths, "cpu", *gates)
+            for a, b in zip(on_card[0] + on_card[1], on_cpu[0] + on_cpu[1]):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)

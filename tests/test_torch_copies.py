@@ -1,0 +1,117 @@
+"""The port's copies of the JAX package's host modules stay true to their
+sources.
+
+The machine with the card has no jax, and importing anything of
+peregrine_tpu imports jax, so the port holds copies of the framework-free
+host modules.  Each must equal its source line for line, apart from the
+lines listed here (imports, the logger's name, docstrings, where the
+native library is built): a change to a source then fails this test
+until the copy follows it.
+"""
+
+import difflib
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+# module -> the lines the copy removes ("-") and adds ("+"), in diff order
+ALLOWED = {
+    "config.py": [],
+    "io/__init__.py": [],
+    "io/formats.py": [],
+    "io/seqdb.py": [],
+    "graph/__init__.py": [],
+    "graph/contig.py": [],
+    "graph/digraph.py": [],
+    "graph/layout.py": [],
+    "graph/string_graph.py": [],
+    "graph/tiling.py": [],
+    "ops/mapping.py": [
+        "+",
+        "+A copy of peregrine_tpu/ops/mapping.py (host numpy; the logger's name",
+        "+is the one change to the code).",
+        "-    py/scripts/pg_run.py:491-496).  The TPU-native equivalent skips the",
+        "+    py/scripts/pg_run.py:491-496).  This equivalent skips the",
+        '-        logging.getLogger("peregrine_tpu").info(',
+        '+        logging.getLogger("peregrine_tpu_torch").info(',
+    ],
+    "ops/consensus.py": [
+        "+",
+        "+A copy of peregrine_tpu/ops/consensus.py (host numpy and the native",
+        "+window core; unchanged).",
+    ],
+    "ops/chain.py": [
+        "+",
+        "+A copy of peregrine_tpu/ops/chain.py (host code; unchanged).",
+    ],
+    "native/__init__.py": [
+        "-The shared object is compiled on demand from the committed C++ sources",
+        "-(g++ -O3) into this package directory; rebuilds happen automatically when",
+        "-sources are newer than the binary.",
+        "+A copy of peregrine_tpu/native/__init__.py with one change: the C++",
+        "+sources are read by path from the JAX package (they are compiled, never",
+        "+imported), and the shared object is built on first use into",
+        "+peregrine_tpu_torch/build/ (see _build.build_shared), so this package",
+        "+neither imports the JAX package nor writes into it.",
+        "-import subprocess",
+        "-_DIR = os.path.dirname(os.path.abspath(__file__))",
+        "+from .._build import build_shared",
+        "+",
+        "+_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(",
+        '+    os.path.abspath(__file__)))), "peregrine_tpu", "native")',
+        '-_SO = os.path.join(_DIR, "_pgnative.so")',
+        "-",
+        "-",
+        "-def _build() -> None:",
+        '-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",',
+        '-           "-o", _SO] + _SRC + ["-lz"]',
+        "-    subprocess.run(cmd, check=True, capture_output=True)",
+        "-    need = (not os.path.exists(_SO)",
+        "-            or any(os.path.getmtime(s) > os.path.getmtime(_SO) for s in _SRC))",
+        "-    if need:",
+        "-        _build()",
+        "-    return ctypes.CDLL(_SO)",
+        '+    so = build_shared("pgnative", _SRC,',
+        '+                      ["g++", "-O3", "-march=native", "-shared", "-fPIC"],',
+        '+                      libs=["-lz"])',
+        "+    return ctypes.CDLL(so)",
+    ],
+}
+
+
+def _changed_lines(source: str, copy: str) -> list[str]:
+    diff = difflib.unified_diff(source.splitlines(), copy.splitlines(),
+                                lineterm="", n=0)
+    return [ln for ln in diff
+            if ln[:1] in "+-" and not ln.startswith(("+++", "---"))]
+
+
+@pytest.mark.parametrize("module", sorted(ALLOWED))
+def test_copy_matches_its_source(module):
+    source = (ROOT / "peregrine_tpu" / module).read_text()
+    copy = (ROOT / "peregrine_tpu_torch" / module).read_text()
+    assert _changed_lines(source, copy) == ALLOWED[module], (
+        f"peregrine_tpu_torch/{module} drifted from peregrine_tpu/{module}: "
+        "carry the source's change over, or list the line here")
+
+
+def test_every_copied_module_is_checked():
+    """Every port module whose source sits at the same path in the JAX
+    package is a copy listed above, or one of the ported modules."""
+    ported = {"__init__.py", "cli.py", "ops/__init__.py",
+              "ops/dbgather.py", "ops/device_align.py", "ops/device_pairs.py",
+              "ops/index.py", "ops/overlap.py", "ops/reduce.py",
+              "ops/sketch.py", "pipeline/__init__.py", "pipeline/run.py"}
+    port = ROOT / "peregrine_tpu_torch"
+    twins = {str(p.relative_to(port)) for p in port.rglob("*.py")
+             if (ROOT / "peregrine_tpu" / p.relative_to(port)).exists()}
+    assert twins == set(ALLOWED) | ported
+
+
+def test_a_changed_source_fails():
+    src = (ROOT / "peregrine_tpu" / "ops" / "chain.py").read_text()
+    copy = (ROOT / "peregrine_tpu_torch" / "ops" / "chain.py").read_text()
+    drifted = src.replace("def ", "def  ", 1)
+    assert _changed_lines(drifted, copy) != ALLOWED["ops/chain.py"]

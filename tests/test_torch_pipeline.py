@@ -4,7 +4,8 @@ The JAX package's CLI and the port's CLI (--device cpu) run on the same
 simulated reads; the index files, preads.ovl and p_ctg.fa must be
 byte-identical.  Also: resume in the port, a JAX-written output directory
 resumed by the port, and the port's refusals (unported flags, a missing
-CUDA device, a changed config).  Stage 4 (--with-consensus) and the
+CUDA device, a changed config).  The device stage-2 flags are in
+tests/test_torch_overlap_device.py.  Stage 4 (--with-consensus) and the
 level-0 index are in tests/test_torch_consensus.py.
 """
 
@@ -135,9 +136,7 @@ def test_config_change_detection(tmp_path):
     Assembly(wd, cfg.replace(k=14, sketch_batch=32), device="cpu")
 
 
-@pytest.mark.parametrize("flag", ["--device-aligner", "--hybrid-overlap",
-                                  "--shard-overlap", "--device-pairs",
-                                  "--mesh", "--multihost",
+@pytest.mark.parametrize("flag", ["--shard-overlap", "--mesh", "--multihost",
                                   "--profile-dir=prof"])
 def test_unported_flags_exit_nonzero(tmp_path, capsys, flag):
     with pytest.raises(SystemExit) as exc:

@@ -1,4 +1,5 @@
-"""Seeded edge-case inputs for the chunked SHIMMER kernels (numpy only).
+"""Seeded edge-case inputs for the port's CUDA kernels (numpy, and the
+port's numpy read simulator for the aligner's requests).
 
 build_stream, emit_mask, reduce_step and compact_planes split each row
 into chunks of `chunk` columns (ops.kernels.CHUNK, REDUCE_CHUNK for
@@ -10,12 +11,16 @@ of chip_smoke.py (which loads this file by its path) and the CPU tests
 against the Pallas kernels (with a small `chunk`, where the boundaries
 only place the features) use them.
 Rows 0-7 (0-9 for reduce_step, 0-13 for compact_planes) are the crafted
-ones; any further rows are random.
+ones; any further rows are random.  The banded Myers aligner's requests
+(myers_lanes, myers_requests) come with the sequences they read.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from peregrine_tpu_torch.io.seqdb import revcomp
+from peregrine_tpu_torch.simdata import mutate, random_genome
 
 _U32 = np.uint32(0xFFFFFFFF)
 
@@ -165,3 +170,97 @@ def compact_rows(rng: np.random.Generator, B: int, L: int, chunk: int):
     crafted[13, 0] = True
     keep[:min(B, 14)] = crafted[:B]
     return keep
+
+
+# --- the banded Myers aligner (pg_myers_align) ----------------------------
+
+class _Requests:
+    """A growing list of stored sequences and the request columns
+    (q_off, q_rstart, q_len, q_strand, t_off, t_len, t_strand) that make
+    the aligner see a given query and target on given strands: a strand-1
+    request reads the complement of its sequence backwards, so the stored
+    read is the reverse complement of the view."""
+
+    def __init__(self):
+        self.seqs: list[bytes] = []
+        self.cols: list[list[int]] = []
+        self.off = 0
+
+    def _store(self, seq: bytes) -> int:
+        off = self.off
+        self.seqs.append(seq)
+        self.off += len(seq)
+        return off
+
+    def add(self, q: bytes, t: bytes, qs: int, ts: int, prefix: bytes = b""):
+        """Query view q (behind `prefix` in its read on strand 0, so that
+        q_off lies inside the read) against target view t."""
+        if qs == 0:
+            rs = self._store(prefix + q)
+            q_off = rs + len(prefix)
+        else:
+            rs = self._store(revcomp(q) + prefix)
+            q_off = rs
+        t_off = self._store(t if ts == 0 else revcomp(t))
+        self.cols.append([q_off, rs, len(q), qs, t_off, len(t), ts])
+
+    def result(self):
+        return self.seqs, np.array(self.cols, np.int64).reshape(-1, 7)
+
+
+def myers_lanes(rng: np.random.Generator, read_len: int, cap: int):
+    """Crafted alignment requests and their seqdb sequences (ASCII, in
+    storage order): identical sequences; a query shorter than its target
+    and the reverse; q_len < 32; a t_len that is not a multiple of 32;
+    10% error; tandem repeats at both ends (ties in the readouts);
+    ambiguous bases; a lane whose max(q_len, t_len) is `cap` (the
+    aln_max_len that still goes to the device); 1% error with the query
+    window inside its read; a target of one base and a query of none.
+    Each kind on all four strand pairs.  Returns (seqs, cols [B, 7])."""
+    a = random_genome(rng, read_len)
+    n2 = read_len // 2
+    rep = b"AC" * 60
+    amb = bytearray(a)
+    for i in rng.integers(0, read_len, max(1, read_len // 50)):
+        amb[i] = ord("N")
+    long_a = random_genome(rng, cap)
+    kinds = [
+        (a, a, b""),
+        (a[:n2], a, b""),
+        (a, a[:n2], b""),
+        (a[:21], a[:300], b""),
+        (a[:1000], mutate(rng, a[:1037], 0.01), b""),
+        (a, mutate(rng, a, 0.10), b""),
+        (rep + a[:n2] + rep, rep + mutate(rng, a[:n2], 0.01) + rep + rep, b""),
+        (bytes(amb), mutate(rng, a, 0.01)[:read_len - 7] + b"NNNNNNN", b""),
+        (long_a[:cap - 100], mutate(rng, long_a, 0.01)[:cap], b""),
+        (a[300:], mutate(rng, a[300:], 0.01) + random_genome(rng, 200),
+         a[:300]),
+        (b"", a[:1], b""),
+    ]
+    req = _Requests()
+    for q, t, prefix in kinds:
+        for qs, ts in ((0, 0), (1, 1), (0, 1), (1, 0)):
+            req.add(q, t, qs, ts, prefix)
+    return req.result()
+
+
+def myers_requests(rng: np.random.Generator, B: int, read_len: int,
+                   len_sd: int, error: float):
+    """B overlap requests as the overlap stage makes them: two reads of
+    length ~N(read_len, len_sd) from one random genome, the second
+    starting `shift` bases into the first; the query is the first read
+    from its shift on, the target the whole second read; both with
+    `error`, each on a random strand.  Returns (seqs, cols [B, 7])."""
+    req = _Requests()
+    for _ in range(B):
+        la, lb = (max(read_len // 3, int(read_len + rng.normal(0, len_sd)))
+                  for _ in range(2))
+        shift = int(rng.integers(0, la // 2))
+        g = random_genome(rng, shift + max(la - shift, lb))
+        q = mutate(rng, g[shift:la], error)
+        t = mutate(rng, g[shift:shift + lb], error)
+        prefix = mutate(rng, g[:shift], error)
+        req.add(q, t, int(rng.integers(0, 2)), int(rng.integers(0, 2)),
+                prefix)
+    return req.result()
