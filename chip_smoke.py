@@ -7,6 +7,7 @@
     python3 chip_smoke.py --index-profile --profile-k 28   # the same at k=28
     python3 chip_smoke.py --aligner-sass  # phases 1-2, then the aligner's
                                           # SASS loops
+    python3 chip_smoke.py --cli-only      # phases 1-2, 5, 6 and 9
 
 Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -68,10 +69,24 @@ Phases, in order; any failure raises and exits non-zero:
      and a Jaccard index above 0.9 between its preads.ovl read pairs and
      phase 5's;
   8. the same for `asm --hybrid-overlap` (the sample from its largest
-     slice), whose device thread must have launched the aligner.
+     slice), whose device thread must have launched the aligner;
+  9. the rest of the CLI and the API: `pg-tpu-torch seqdb` of the genome
+     cut into 115 pieces of 40 kb; their index through the batched long
+     route on the card (one sketch_batch call per 64 pieces) equal to the
+     cpu's, with its wall and launches; `map` of the phase-5 reads against
+     the pieces on the card (each of the four packed kernels launched;
+     >= 0.95 of the mapped reads with a row on a piece overlapping their
+     simulated origin); `dump-index`, `stats` and `gather-mc` on phase
+     5's workdir; the API's get_shimmers_from_seq and get_cns_from_reads
+     on the card equal to the cpu; Assembly(profile_dir=).run(
+     with_consensus=False), whose p_ctg.fa equals phase 5's and whose
+     trace names the four kernels; verify_fasta of phase 6's polished
+     contig against the genome, with its wall (phase 5's draft, at ~1%
+     error, stalls the verifier's exact re-alignment: it is built for
+     polished contigs).
 Each path's launch counts are zeroed just before it runs and read just
-after.  It then prints the kernels' JSON line and, last, the device JSON
-line.
+after.  It then prints phase 9's JSON line, the kernels' JSON line and,
+last, the device JSON line.
 There is no CPU path: without a CUDA device it exits non-zero at once.
 
 --index-profile measures stage 1 alone (at --profile-k, default 16) on
@@ -134,6 +149,7 @@ MYERS_OPS_PER_COLUMN = 13 * 8 + 11
 ALN_MAX_LEN = 1 << 15  # AsmConfig.aln_max_len: the longest lane aligned
 PROFILE_PAIRS = 6  # kernel/plain stage-1 builds compared by --index-profile
 GENOME, READ_LEN, COVERAGE, WRAP = 4_600_000, 15_000, 30.0, 40_000
+PIECE = 40_000  # phase 9's reference: the genome cut into 115 pieces
 
 
 def say(*a) -> None:
@@ -1064,6 +1080,243 @@ def phase_consensus(lst: str, genome, wd: str, results: dict,
           f"above the draft's {draft_frac:.4f}")
 
 
+@contextlib.contextmanager
+def counted(module, name: str, calls: dict):
+    """Count calls of module.name in calls[name] for as long as the block
+    runs."""
+    fn = getattr(module, name)
+    calls[name] = 0
+
+    def wrapper(*a, **kw):
+        calls[name] += 1
+        return fn(*a, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def cli_out(argv: list) -> list:
+    """`pg-tpu-torch` through cli.main; its stdout lines."""
+    import io
+
+    from peregrine_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"`{' '.join(argv[:1])}` returned {rc}")
+    return buf.getvalue().splitlines()
+
+
+def pieces_of(start: int, end: int, n_pieces: int) -> set:
+    """The reference pieces that a read from [start, end) of the wrapped
+    genome overlaps, its positions taken modulo the genome length."""
+    a, b = start % GENOME // PIECE, (end - 1) % GENOME // PIECE
+    return set(range(a, b + 1)) if a <= b else (
+        set(range(a, n_pieces)) | set(range(b + 1)))
+
+
+def phase_rest(lst: str, genome, truth, wd: str) -> dict:
+    """Phase 9, the rest of the CLI and the API on the card: the genome
+    cut into PIECE-long pieces as a seqdb (`seqdb`), its index through the
+    batched long route on cuda and cpu, `map` of the phase-5 reads
+    against it, `dump-index` and `stats` on phase 5's workdir, `gather-mc`
+    on split MC files, the API's sketch and cluster consensus on cuda and
+    cpu, Assembly.run under profile_dir, and verify_fasta of phase 6's
+    polished contig.  Returns the phase's walls and counts."""
+    import torch
+
+    from peregrine_tpu_torch import api, verify
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.io import formats
+    from peregrine_tpu_torch.io.seqdb import SeqDB, revcomp
+    from peregrine_tpu_torch.ops import sketch
+    from peregrine_tpu_torch.ops.index import build_index
+    from peregrine_tpu_torch.pipeline.run import Assembly
+    from peregrine_tpu_torch.simdata import mutate, write_reads
+
+    out = {}
+    asm = os.path.join(wd, "asm")  # phase 5's workdir
+    label = "rest of the CLI"
+    pieces = [(f"piece{i:03d}", genome[s:s + PIECE])
+              for i, s in enumerate(range(0, len(genome), PIECE))]
+    ref_lst, ref = os.path.join(wd, "ref.lst"), os.path.join(wd, "ref")
+    write_reads(pieces, os.path.join(wd, "ref.fa"), ref_lst)
+    t0 = time.time()
+    cli_out(["seqdb", ref_lst, ref])
+    ref_db = SeqDB.open(ref)
+    check(len(ref_db) == len(pieces), f"seqdb holds {len(ref_db)} pieces")
+    say(f"{label}: `seqdb` of {len(pieces)} pieces of {PIECE} b in "
+        f"{time.time() - t0:.2f} s")
+
+    # the reference index: every piece takes the long route
+    calls: dict = {}
+    cfg = AsmConfig()
+    with counted(sketch, "sketch_batch", calls):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        on_card = build_index(ref_db, cfg, "cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = launch_counts()
+        on_card_calls = calls["sketch_batch"]
+        t0 = time.time()
+        on_host = build_index(ref_db, cfg, "cpu")
+        host_wall = time.time() - t0
+    for f in ("x", "y", "mc_hash", "mc_count"):
+        check(np.array_equal(getattr(on_card, f), getattr(on_host, f)),
+              f"the reference index on cuda != cpu on .{f}")
+    want_calls = -(-len(pieces) // sketch.LONG_BATCH)
+    say(f"{label}: reference index of {len(pieces)} pieces, "
+        f"{len(on_card.x)} SHIMMERs, cuda == cpu: {wall:.4f} s on the card "
+        f"({host_wall:.2f} s cpu), {on_card_calls} sketch_batch calls "
+        f"(ceil({len(pieces)} / {sketch.LONG_BATCH}) = {want_calls}); "
+        f"launches {json.dumps(launches)}")
+    check(on_card_calls == want_calls, "the long route made "
+          f"{on_card_calls} sketch_batch calls, not {want_calls}")
+    out["ref_index"] = {"pieces": len(pieces), "wall_s": wall,
+                        "cpu_wall_s": host_wall,
+                        "sketch_batch_calls": on_card_calls,
+                        "launches": launches}
+
+    # map the phase-5 reads against the pieces
+    rows_path = os.path.join(wd, "map.txt")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    cli_out(["map", ref, os.path.join(asm, "0-seqdb", "seq_dataset"),
+             "--device", "cuda", "--output", rows_path])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    for name in ("build_stream", "move_plane", "emit_mask", "reduce_step"):
+        check(launches[name] > 0, f"kernel {name} was not launched by map")
+    rows = np.loadtxt(rows_path, dtype=np.int64, ndmin=2)
+    on_piece: dict = {}
+    for ref_id, read_id in rows[:, [0, 3]]:
+        on_piece.setdefault(int(read_id), set()).add(int(ref_id))
+    right = sum(bool(ids & pieces_of(truth[r][0], truth[r][1], len(pieces)))
+                for r, ids in on_piece.items())
+    share = right / max(len(on_piece), 1)
+    say(f"{label}: `map` of {len(truth)} reads against the pieces: "
+        f"{len(rows)} rows, {len(on_piece)} reads mapped, {share:.4f} of "
+        f"them with a row on a piece overlapping their origin; {wall:.2f} s;"
+        f" launches {json.dumps(launches)}")
+    check(share >= 0.95, f"map: {share:.4f} < 0.95 of mapped reads land on "
+          "their origin's pieces")
+    out["map"] = {"rows": len(rows), "mapped_reads": len(on_piece),
+                  "on_origin_share": share, "wall_s": wall,
+                  "launches": launches}
+
+    # the host verbs on phase 5's workdir
+    dat = os.path.join(asm, "1-index", "shmr-L2-01-of-01.dat")
+    dump = cli_out(["dump-index", dat, "--limit", "5"])
+    x, y = formats.read_mmlist(dat)
+    check(dump[0].split() == [str(int(x[0]) >> 8), str(int(x[0]) & 0xFF),
+                              str(int(y[0]) >> 32),
+                              str((int(y[0]) & 0xFFFFFFFF) >> 1),
+                              str(int(y[0]) & 1)] and len(dump) == 5,
+          f"dump-index printed {dump[:1]}")
+    stats = cli_out(["stats", asm])
+    check(len(stats) == 3 and stats[0].startswith(f"seqdb: {len(truth)} "),
+          f"stats printed {stats}")
+    mc = os.path.join(asm, "1-index", "shmr-L2-MC-01-of-01.dat")
+    h, c = formats.read_mm_count(mc)
+    parts = []
+    for i in range(2):
+        parts.append(os.path.join(wd, f"split-MC-{i + 1:02d}-of-02.dat"))
+        formats.write_mm_count(parts[-1], h[i::2], c[i::2])
+    merged = os.path.join(wd, "merged-MC-all.dat")
+    gather = cli_out(["gather-mc", *parts, "--output", merged])
+    with open(mc, "rb") as a, open(merged, "rb") as b:
+        check(a.read() == b.read(), "gather-mc of the split MC files is not "
+              "the MC file")
+    say(f"{label}: `dump-index --limit 5` {dump[0]!r}; `stats`: "
+        + " | ".join(stats) + f"; `gather-mc`: {gather[0]}, equal to the MC "
+        "file it was split from")
+
+    # the API on the card against the cpu
+    reset_launches()
+    seq = genome[:20_000]
+    for levels in (0, 1, 2):
+        a = api.get_shimmers_from_seq(seq, rid=3, levels=levels,
+                                      device="cuda")
+        b = api.get_shimmers_from_seq(seq, rid=3, levels=levels, device="cpu")
+        check(all(np.array_equal(u, v) for u, v in zip(a, b)) and len(a[0]),
+              f"get_shimmers_from_seq levels={levels}: cuda != cpu")
+    rng = np.random.default_rng(3)
+    template = genome[100_000:103_000]
+    cluster = [template] + [mutate(rng, template, 0.02) for _ in range(8)]
+    cluster = [s if i % 2 == 0 else revcomp(s) for i, s in enumerate(cluster)]
+    t0 = time.time()
+    cns = api.get_cns_from_reads(cluster, device="cuda")
+    wall = time.time() - t0
+    launches = launch_counts()
+    check(cns == api.get_cns_from_reads(cluster, device="cpu"),
+          "get_cns_from_reads: cuda != cpu")
+    for name in ("build_stream", "move_plane", "emit_mask", "reduce_step"):
+        check(launches[name] > 0, f"kernel {name} was not launched by api")
+    say(f"{label}: api get_shimmers_from_seq (levels 0-2 of 20 kb) and "
+        f"get_cns_from_reads (9 reads of 3 kb, {len(cns)} b, {wall:.2f} s)"
+        f" on cuda == cpu; launches {json.dumps(launches)}")
+
+    # Assembly.run under the profiler: the trace names the kernels
+    run_wd, prof = os.path.join(wd, "asm-profiled"), os.path.join(wd, "prof")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    fa = Assembly(run_wd, cfg, device="cuda", profile_dir=prof).run(
+        reads_list=lst, with_consensus=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    with open(fa, "rb") as a, open(os.path.join(asm, "3-asm", "p_ctg.fa"),
+                                   "rb") as b:
+        check(a.read() == b.read(), "the profiled run's p_ctg.fa differs "
+              "from phase 5's")
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)
+              if f.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"{len(traces)} traces in the profile directory")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {name: sum(f"{name}_kernel" in k for k in kernels) for name in
+             ("build_stream", "move_plane", "emit_mask", "reduce_step")}
+    say(f"{label}: Assembly(profile_dir=).run(with_consensus=False) "
+        f"{wall:.2f} s, the same p_ctg.fa as phase 5; trace "
+        f"{os.path.getsize(traces[0])} bytes, {len(events)} events, "
+        f"{len(kernels)} device kernels, of them {json.dumps(named)}; "
+        f"launches {json.dumps(launches)}")
+    for name, n in named.items():
+        check(n > 0, f"the trace names no {name} kernel")
+    out["profiled_run"] = {"wall_s": wall, "trace_bytes": os.path.getsize(
+        traces[0]), "events": len(events), "kernels": len(kernels),
+        "named": named}
+
+    # verify_fasta of phase 6's polished contig: the verifier re-aligns
+    # every mismatch region exactly, which a draft at ~1% error stalls
+    t0 = time.time()
+    res = verify.verify_fasta(os.path.join(wd, "asm-k28-cns", "4-cns",
+                                           "p_ctg_cns.fa"), genome)
+    wall = time.time() - t0
+    check(len(res) > 0 and all(r["anchored"] for r in res),
+          "verify_fasta anchored no contig")
+    best = max(res, key=lambda r: r["length"])
+    say(f"{label}: verify_fasta of phase 6's {len(res)} polished "
+        f"contig(s): the "
+        f"longest {best['length']} b, exact edit distance "
+        f"{best['distance']}, identity {best['identity']:.6f}, "
+        f"{best['breaks']} breaks; {wall:.2f} s")
+    check(best["identity"] >= 0.99, f"verify_fasta identity "
+          f"{best['identity']:.4f} < 0.99")
+    out["verify"] = {"length": best["length"], "distance": best["distance"],
+                     "identity": best["identity"], "wall_s": wall}
+    return out
+
+
 def aligner_sass(lib_path: str) -> None:
     """Each loop of pg_myers_align's SASS (cuobjdump of the built
     library), with its instructions by opcode.  The column loop is the
@@ -1111,6 +1364,10 @@ def main(argv=None) -> int:
     ap.add_argument("--index-profile", action="store_true",
                     help="phases 1-2, then stage 1 alone: kernel and plain "
                     "walls and a profiler trace (no other phase)")
+    ap.add_argument("--cli-only", action="store_true",
+                    help="phases 1-2, the draft and the consensus path "
+                    "(phases 5-6) and the rest of the CLI and the API "
+                    "(phase 9)")
     ap.add_argument("--aligner-sass", action="store_true",
                     help="phases 1-2, then the instructions of each loop "
                     "of pg_myers_align's SASS (no other phase)")
@@ -1155,8 +1412,8 @@ def main(argv=None) -> int:
         return 0
 
     # phase 3: kernels against their plain versions
-    results: dict = {}
-    if not args.index_profile:
+    results: dict = {name: {} for name in REPLACES}
+    if not (args.index_profile or args.cli_only):
         phase_kernels(results)
         phase_align(results)
         if args.kernels_only:
@@ -1167,7 +1424,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     rng = np.random.default_rng(42)
     genome = random_genome(rng, GENOME)
-    reads, _ = simulate_reads(rng, genome, read_len=READ_LEN,
+    reads, truth = simulate_reads(rng, genome, read_len=READ_LEN,
                               coverage=COVERAGE, len_sd=1500, error=0.01,
                               circular_wrap=WRAP)
     say(f"simulated {len(reads)} reads, "
@@ -1178,8 +1435,9 @@ def main(argv=None) -> int:
 
     # phase 4: the index on the card equals the index on the host; stage
     # 2's device inputs equal the host's
-    phase_index(reads, genome)
-    phase_stage2_inputs(reads)
+    if not args.cli_only:
+        phase_index(reads, genome)
+        phase_stage2_inputs(reads)
 
     # phases 5 and 6: the draft path and the wide consensus path
     from peregrine_tpu_torch.simdata import write_reads
@@ -1191,6 +1449,9 @@ def main(argv=None) -> int:
         write_reads(reads, os.path.join(wd, "reads.fa"), lst)
         draft = phase_draft(lst, genome, wd, results)
         phase_consensus(lst, genome, wd, results, draft[0])
+        if args.cli_only:
+            say(json.dumps({"phase9": phase_rest(lst, genome, truth, wd)}))
+            return 0
         # phases 7 and 8: stage 2 on the card
         entry = results["myers_align"]
         entry["launches"], entry["rounds"], sample, entry["trace"] = \
@@ -1201,6 +1462,8 @@ def main(argv=None) -> int:
         entry["launches_hybrid"], entry["rounds_hybrid"], sample_hybrid, _ = \
             phase_device_overlap(lst, genome, wd, draft,
                                  "hybrid overlap path", ["--hybrid-overlap"])
+        # phase 9: the rest of the CLI and the API
+        rest = phase_rest(lst, genome, truth, wd)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
     # the entry's headline is the main path's largest launch, traced, and
@@ -1214,6 +1477,7 @@ def main(argv=None) -> int:
         share_of_bound=head["share_of_bound"], plain_ms=sample["plain_ms"],
         plain_lanes=sample["lanes"])
 
+    say(json.dumps({"phase9": rest}))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], **results[name]}
                for name in REPLACES]

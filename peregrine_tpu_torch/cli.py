@@ -1,16 +1,24 @@
-"""Command-line interface of the PyTorch port (the `asm` verb).
+"""Command-line interface of the PyTorch port (the reference pg_run.py
+equivalent, with the verbs of pg-tpu).
 
     pg-tpu-torch asm reads.lst --output ./wd --with-consensus
     pg-tpu-torch asm reads.lst --shimmer-k 28 --with-L0-index --with-consensus
     pg-tpu-torch asm reads.lst --device-aligner --device-pairs
+    pg-tpu-torch asm reads.lst --profile-dir prof
+    pg-tpu-torch map ref_prefix read_prefix --output rows.txt
+    pg-tpu-torch seqdb reads.lst prefix
+    pg-tpu-torch dump-index wd/1-index/shmr-L2-01-of-01.dat --limit 10
+    pg-tpu-torch stats wd
+    pg-tpu-torch gather-mc a-MC-01-of-02.dat b-MC-02-of-02.dat --output all.dat
 
-The flags and defaults are those of `pg-tpu asm`, plus --device (default
-cuda; there is no quiet switch to the CPU: pass --device cpu to run the
-device work, the SHIMMER indexes of stages 1 and 4 and, with
---device-aligner, --hybrid-overlap or --device-pairs, the stage-2 work,
-on the host).  Flags whose paths are
-not yet ported exit non-zero with a message naming the ROADMAP item; the
-other verbs of pg-tpu come later.
+The verbs, flags, defaults and printed output are those of pg-tpu, plus
+--device on asm and map (default cuda; there is no quiet switch to the
+CPU: pass --device cpu to run the device work, the SHIMMER indexes and,
+with --device-aligner, --hybrid-overlap or --device-pairs, the stage-2
+work, on the host).  seqdb, dump-index, stats and gather-mc are host
+code.  --profile-dir writes a torch.profiler trace of the run.  Flags
+whose paths are not yet ported exit non-zero with a message naming the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,7 +33,6 @@ _NOT_PORTED = {
     "shard_overlap": ("--shard-overlap", "queue 1, flag paths"),
     "mesh": ("--mesh", "queue 1, flag paths"),
     "multihost": ("--multihost", "queue 1, flag paths"),
-    "profile_dir": ("--profile-dir", "queue 1, flag paths"),
 }
 
 
@@ -94,7 +101,8 @@ def main(argv=None) -> int:
                           "32e9) for the overlap stage; spill engages "
                           "automatically past it.  Default: 85%% of "
                           "MemAvailable (equals setting PG_MEM_BUDGET)")
-    asm.add_argument("--profile-dir", default=None, help="not yet ported")
+    asm.add_argument("--profile-dir", default=None,
+                     help="write a torch.profiler trace of the run here")
     asm.add_argument("--on-config-change", default="error",
                      choices=("error", "clean", "ignore"),
                      help="resuming an outdir built with a different config: "
@@ -102,19 +110,62 @@ def main(argv=None) -> int:
                           "or trust the caller (ignore)")
     asm.add_argument("-v", "--verbose", action="store_true")
 
+    mp = sub.add_parser("map", help="map reads to a reference "
+                        "(shmr_map equivalent)")
+    mp.add_argument("ref_prefix", help="reference seqdb prefix")
+    mp.add_argument("read_prefix", help="read seqdb prefix")
+    mp.add_argument("--output", default="-", help="output path (- = stdout)")
+    mp.add_argument("--device", default="cuda",
+                    help="torch device for the two indexes (cuda or cpu)")
+    mp.add_argument("--shimmer-k", type=int, default=16, dest="k")
+    mp.add_argument("--shimmer-w", type=int, default=80, dest="w")
+    mp.add_argument("--shimmer-r", type=int, default=6, dest="r")
+    mp.add_argument("--shimmer-l", type=int, default=2, dest="levels")
+
+    sq = sub.add_parser("seqdb", help="build a packed seqdb from a read list "
+                        "(shmr_mkseqdb equivalent)")
+    sq.add_argument("reads_lst")
+    sq.add_argument("prefix")
+
+    dp = sub.add_parser("dump-index", help="print SHIMMER index records as "
+                        "text (py-utils dumper equivalent)")
+    dp.add_argument("mmlist", help="a *-L?-cc-of-tt.dat file")
+    dp.add_argument("--limit", type=int, default=0)
+
+    st = sub.add_parser("stats", help="summarize a working directory: seqdb "
+                        "read stats, SHIMMER index density + multiplicity "
+                        "histogram, overlap degree (the process_L2-style "
+                        "analyses from the reference's py-utils, as one "
+                        "command)")
+    st.add_argument("workdir", help="assembly output dir (or a seqdb prefix "
+                    "with --prefix)")
+    st.add_argument("--prefix", action="store_true",
+                    help="treat WORKDIR as a seqdb prefix instead")
+
+    gm = sub.add_parser("gather-mc", help="merge per-chunk minimizer-count "
+                        "files (shmr_gather_mc equivalent)")
+    gm.add_argument("mc_files", nargs="+", help="*-MC-cc-of-tt.dat files")
+    gm.add_argument("--output", required=True, help="merged -MC-all.dat path")
+
     args = p.parse_args(argv)
-    for dest, (flag, item) in _NOT_PORTED.items():
-        if getattr(args, dest):
-            p.error(f"{flag} is not yet ported to peregrine_tpu_torch "
-                    f"(ROADMAP: {item})")
-    if not 1 <= args.k <= 28:
+    if args.cmd == "asm":
+        for dest, (flag, item) in _NOT_PORTED.items():
+            if getattr(args, dest):
+                p.error(f"{flag} is not yet ported to peregrine_tpu_torch "
+                        f"(ROADMAP: {item})")
+    if args.cmd in ("asm", "map") and not 1 <= args.k <= 28:
         p.error(f"--shimmer-k {args.k} outside 1..28 (56-bit hash space)")
     logging.basicConfig(
-        level=logging.DEBUG if args.verbose else logging.INFO,
+        level=logging.DEBUG if getattr(args, "verbose", False) else logging.INFO,
         format="%(asctime)s %(name)s %(message)s")
+    return {"asm": _asm, "map": _map, "seqdb": _seqdb,
+            "dump-index": _dump_index, "stats": _stats,
+            "gather-mc": _gather_mc}[args.cmd](args)
 
+
+def _asm(args) -> int:
     from .config import AsmConfig
-    from .pipeline.run import Assembly
+    from .pipeline.run import Assembly, profiled
 
     cfg = AsmConfig(
         k=args.k, w=args.w, r=args.r, levels=args.levels,
@@ -131,13 +182,125 @@ def main(argv=None) -> int:
     asm_obj = Assembly(args.output, cfg, device=args.device,
                        with_alt=args.with_alt,
                        on_config_change=args.on_config_change)
-    asm_obj.build_db(reads_list=args.reads_lst)
-    asm_obj.build_shimmer_index(keep_l0=args.with_l0)
-    asm_obj.build_overlaps(args.n_chunks, args.n_workers)
-    fa = asm_obj.build_contigs()
-    if args.with_consensus:
-        fa = asm_obj.build_consensus(args.n_workers)
+    with profiled(args.profile_dir, asm_obj.device):
+        asm_obj.build_db(reads_list=args.reads_lst)
+        asm_obj.build_shimmer_index(keep_l0=args.with_l0)
+        asm_obj.build_overlaps(args.n_chunks, args.n_workers)
+        fa = asm_obj.build_contigs()
+        if args.with_consensus:
+            fa = asm_obj.build_consensus(args.n_workers)
     print(fa)
+    return 0
+
+
+def _map(args) -> int:
+    from .config import AsmConfig
+    from .io.seqdb import SeqDB
+    from .ops.index import build_index
+    from .ops.kernels import require_device
+    from .ops.mapping import map_reads_to_ref
+
+    device = require_device(args.device)
+    cfg = AsmConfig(k=args.k, w=args.w, r=args.r, levels=args.levels)
+    ref_db = SeqDB.open(args.ref_prefix)
+    read_db = SeqDB.open(args.read_prefix)
+    ref_idx = build_index(ref_db, cfg, device)
+    read_idx = build_index(read_db, cfg, device)
+    rows = map_reads_to_ref(read_idx, read_db.lengths, ref_idx, cfg)
+    out = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        for r in rows:
+            print(" ".join(str(int(v)) for v in r), file=out)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+def _seqdb(args) -> int:
+    from .io.seqdb import SeqDB
+    # streamed: peak RSS stays bounded regardless of dataset size
+    SeqDB.build_to_disk(args.reads_lst, args.prefix)
+    return 0
+
+
+def _dump_index(args) -> int:
+    from .io import formats
+    x, y = formats.read_mmlist(args.mmlist)
+    n = args.limit or len(x)
+    for i in range(min(n, len(x))):
+        xi, yi = int(x[i]), int(y[i])
+        print(f"{xi >> 8} {xi & 0xFF} {yi >> 32} "
+              f"{(yi & 0xFFFFFFFF) >> 1} {yi & 1}")
+    return 0
+
+
+def _stats(args) -> int:
+    import glob
+
+    import numpy as np
+
+    from .io import formats
+    from .io.seqdb import SeqDB
+
+    if args.prefix:
+        prefix, mms, ovl = args.workdir, [], None
+    else:
+        prefix = os.path.join(args.workdir, "0-seqdb", "seq_dataset")
+        mms = sorted(glob.glob(
+            os.path.join(args.workdir, "1-index", "*-L?-*-of-*.dat")))
+        mms = [p for p in mms if "-MC-" not in p]
+        ovl = os.path.join(args.workdir, "2-ovlp", "preads.ovl")
+    db = SeqDB.open(prefix)
+    lens = np.sort(db.lengths)[::-1]
+    half = lens.sum() / 2
+    n50 = int(lens[np.searchsorted(np.cumsum(lens), half)])
+    print(f"seqdb: {len(db)} reads, {int(lens.sum())} bases, "
+          f"mean {lens.mean():.0f}, N50 {n50}, max {int(lens[0])}")
+    for mm in mms:
+        x, y = formats.read_mmlist(mm)
+        if not len(x):
+            continue
+        dens = 1000.0 * len(x) / lens.sum()
+        h, c = np.unique(x >> np.uint64(8), return_counts=True)
+        hist = np.bincount(np.minimum(c, 10))
+        print(f"{os.path.basename(mm)}: {len(x)} SHIMMERs "
+              f"({dens:.2f}/kb), {len(h)} distinct; multiplicity "
+              "histogram (1..9,10+): "
+              + " ".join(str(int(v)) for v in hist[1:]))
+    if ovl and os.path.exists(ovl):
+        rid0 = []
+        with open(ovl, "rb") as f:
+            for ln in f:
+                if ln.startswith(b"-"):
+                    break
+                rid0.append(int(ln.split(b" ", 1)[0]))
+        deg = np.bincount(np.asarray(rid0, np.int64), minlength=len(db))
+        print(f"overlaps: {len(rid0)} records; per-read out-degree "
+              f"mean {deg.mean():.1f}, median {int(np.median(deg))}, "
+              f"zero-degree reads {(deg == 0).sum()}")
+    return 0
+
+
+def _gather_mc(args) -> int:
+    # merge per-chunk minimizer-count files into one, summing counts per
+    # mer (reference shmr_gather_mc, src/shmr_gather_mc.c:61-82 /
+    # aggregate_mm_count, src/shmr_utils.c:162-176)
+    import numpy as np
+
+    from .io import formats
+    mers, counts = [], []
+    for p in args.mc_files:
+        m, c = formats.read_mm_count(p)
+        mers.append(m)
+        counts.append(c)
+    m = np.concatenate(mers) if mers else np.zeros(0, np.uint64)
+    c = np.concatenate(counts) if counts else np.zeros(0, np.uint32)
+    um, inv = np.unique(m, return_inverse=True)
+    uc = np.zeros(len(um), np.uint64)
+    np.add.at(uc, inv, c.astype(np.uint64))
+    formats.write_mm_count(args.output, um, uc.astype(np.uint32))
+    print(f"{len(um)} mers from {len(args.mc_files)} chunk files")
     return 0
 
 

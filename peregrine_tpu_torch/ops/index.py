@@ -7,9 +7,11 @@ each row drained to the host; records concatenate in rid order.  For
 k <= 16 a batch runs on the packed (H, P) planes (the first four kernels
 of ops.kernels) and records are assembled at the end; for k > 16 it runs
 the wide sketch and reduce_impl on int64 records (compact_planes).
-Sequences longer than sketch_pad_len take the segmented long route
-(sketch_long_np + reduce_flat_np).  keep_l0 (--with-L0-index) also
-returns the level-0 index.
+Sequences longer than sketch_pad_len take the segmented long route: the
+segments of all of them share sketch batches (sketch_long_many_np), and
+each reduction level runs once per length class of them
+(reduce_flat_np), where the JAX package runs one sequence a thread.
+keep_l0 (--with-L0-index) also returns the level-0 index.
 
 build_index_segmented indexes a seqdb past the device budget in
 contiguous read groups, each uploading only its byte window.
@@ -32,7 +34,7 @@ from ..io.seqdb import SeqDB
 from .dbgather import PackedSeqDB, gather_codes, upload_seqdb
 from .kernels import reduce_step
 from .reduce import reduce_flat_np, reduce_impl
-from .sketch import (assemble_records, sketch_long_np, sketch_planes,
+from .sketch import (assemble_records, sketch_long_many_np, sketch_planes,
                      sketch_wide)
 
 
@@ -162,6 +164,36 @@ def _index_of(xs: dict, ys: dict) -> ShimmerIndex:
     return ShimmerIndex(x, y, mh, mc)
 
 
+def _index_long(db: SeqDB, rids: np.ndarray, cfg: AsmConfig, device,
+                xs: dict, ys: dict, l0: tuple | None) -> None:
+    """The long route: every long sequence's segments sketched in shared
+    batches (sketch_long_many_np), then each reduction level run once per
+    length class on the concatenation of its sequences, one row each.  A
+    class holds the sequences whose level-0 counts have one bit length,
+    so a row pads to less than twice its records.  Per-rid records go to
+    xs/ys, and the level-0 ones to l0 = (l0xs, l0ys) where given."""
+    rids = np.sort(rids)
+    sketched = sketch_long_many_np(
+        ((rid, db.codes(rid)) for rid in rids), cfg.w, cfg.k, device,
+        seg=cfg.sketch_pad_len)
+    if l0 is not None:
+        for rid, (lx, ly) in zip(rids, sketched):
+            l0[0][rid], l0[1][rid] = lx, ly
+    bits = np.array([len(lx).bit_length() for lx, _ in sketched])
+    for b in np.unique(bits):
+        members = np.flatnonzero(bits == b)
+        lx = np.concatenate([sketched[i][0] for i in members])
+        ly = np.concatenate([sketched[i][1] for i in members])
+        for _ in range(cfg.levels):
+            lx, ly = reduce_flat_np(lx, ly, cfg.r, device)
+        # rows come back in row order, which is rid order here
+        bounds = np.searchsorted((ly >> np.uint64(32)).astype(np.int64),
+                                 rids[members])
+        for rid, a, e in zip(rids[members], bounds,
+                             np.r_[bounds[1:], len(lx)]):
+            xs[rid], ys[rid] = lx[a:e], ly[a:e]
+
+
 def build_index_segmented(db: SeqDB, cfg: AsmConfig, device,
                           budget_bytes: int,
                           keep_l0: bool = False) -> ShimmerIndex:
@@ -231,14 +263,9 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
     # long sequences (contigs/references) take the fixed-shape segmented
     # route: pad classes above sketch_pad_len are not index batch shapes
     long_sel = lengths > cfg.sketch_pad_len
-    for rid in rids_all[long_sel]:
-        lx, ly = sketch_long_np(db.codes(rid), int(rid), cfg.w, cfg.k, device,
-                                seg=cfg.sketch_pad_len)
-        if keep_l0:
-            l0xs[rid], l0ys[rid] = lx, ly
-        for _ in range(cfg.levels):
-            lx, ly = reduce_flat_np(lx, ly, cfg.r, device)
-        xs[rid], ys[rid] = lx, ly
+    if long_sel.any():
+        _index_long(db, rids_all[long_sel], cfg, device, xs, ys,
+                    (l0xs, l0ys) if keep_l0 else None)
     rids_all = rids_all[~long_sel]
     lengths = lengths[~long_sel]
 

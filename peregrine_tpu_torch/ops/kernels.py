@@ -86,6 +86,17 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def require_device(device) -> torch.device:
+    """torch.device(device), raising where cuda is asked for and torch
+    sees no card: there is no quiet switch to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
+                           "device (pass the cpu device explicitly to run "
+                           "the device work on the host)")
+    return device
+
+
 def _route(*tensors: torch.Tensor) -> str:
     """'cpu' (plain version) or 'cuda' (kernel); anything else raises."""
     kinds = {t.device.type for t in tensors}

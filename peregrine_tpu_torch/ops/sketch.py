@@ -211,59 +211,80 @@ def sketch_reads_np(codes: np.ndarray, lengths: np.ndarray, rids: np.ndarray,
     return _u64(x[valid]), _u64(y[valid])
 
 
-def sketch_long_np(codes: np.ndarray, rid: int, w: int, k: int, device,
-                   seg: int = 1 << 15, margin: int = 1 << 12
-                   ) -> tuple[np.ndarray, np.ndarray]:
-    """Sketch one long sequence via fixed-shape segments
-    (peregrine_tpu/ops/sketch.py:sketch_long_np): `seg`-sized ownership
-    ranges padded with `margin` context on both sides, batches of SB=64
-    segments at width seg + 2 * margin, the first `cap` records per row
-    fetched to the host and the whole row refetched where a count
-    exceeds the cap; emissions are kept where their global position lies
-    in the segment's own range."""
-    n = len(codes)
+LONG_BATCH = 64  # segment rows per sketch_batch call on the long route
+
+
+def _segments(n: int, seg: int, margin: int):
+    """(lo, hi, own_lo, own_hi) of each segment of a sequence of n bases:
+    the context [lo, hi) it is sketched on and the range it owns.  A
+    sequence of at most seg + 2 * margin bases is one segment."""
+    if n <= seg + 2 * margin:
+        return [(0, n, 0, n)]
+    return [(max(0, s - margin), min(n, s + seg + margin), s,
+             min(n, s + seg)) for s in range(0, n, seg)]
+
+
+def sketch_long_many_np(seqs, w: int, k: int, device, seg: int = 1 << 15,
+                        margin: int = 1 << 12
+                        ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Sketch long sequences (contigs, references) via fixed-shape
+    segments (peregrine_tpu/ops/sketch.py:sketch_long_np, one sequence at
+    a time there): `seg`-sized ownership ranges padded with `margin`
+    context on both sides, at width seg + 2 * margin, LONG_BATCH segment
+    rows a sketch_batch call whichever sequences they come from.
+
+    seqs: an iterable of (rid, codes), read once; each sequence's codes
+    are held only until its last segment is sketched.  Returns each
+    sequence's (x, y) in the order of seqs.  A batch's rows carry rid 0:
+    each record's y is rebuilt from its segment's rid and offset, and
+    emissions are kept where their global position lies in the segment's
+    own range.  The first `cap` records per row are fetched to the host,
+    and a batch's whole rows where any count exceeds the cap."""
     pad = seg + 2 * margin
     cap = max(256, pad // 8)  # >5x the expected 2/(w+1) minimizer density
+    out: list[tuple[list, list]] = []
+    rows: list[tuple] = []  # (slot, rid, lo, own_lo, own_hi, codes[lo:hi])
 
-    def run(batch: np.ndarray, lens: np.ndarray, rids: np.ndarray):
+    def flush():
+        batch = np.full((len(rows), pad), 4, np.uint8)
+        lens = np.zeros(len(rows), np.int32)
+        for i, row in enumerate(rows):
+            batch[i, :len(row[5])] = row[5]
+            lens[i] = len(row[5])
         x, y, c = sketch_batch(
-            _codes_tensor(batch, device),
-            torch.from_numpy(lens).to(device),
-            torch.from_numpy(rids).to(device), w=w, k=k)
+            _codes_tensor(batch, device), torch.from_numpy(lens).to(device),
+            torch.zeros(len(rows), dtype=torch.int64, device=device),
+            w=w, k=k)
         c = c.cpu().numpy()
         width = cap if (c <= cap).all() else x.shape[1]  # exact refetch
-        return _u64(x[:, :width]), _u64(y[:, :width]), c
-
-    if n <= seg + 2 * margin:
-        batch = np.full((1, pad), 4, np.uint8)
-        batch[0, :n] = codes
-        x, y, c = run(batch, np.asarray([n], np.int32),
-                      np.asarray([rid], np.int64))
-        return x[0, :c[0]].copy(), y[0, :c[0]].copy()
-
-    starts = list(range(0, n, seg))
-    SB = 64  # fixed batch shape, as in the JAX package
-    xs, ys = [], []
-    for b0 in range(0, len(starts), SB):
-        part = starts[b0:b0 + SB]
-        batch = np.full((SB, pad), 4, np.uint8)
-        lens = np.zeros(SB, np.int32)
-        for i, s in enumerate(part):
-            lo = max(0, s - margin)
-            hi = min(n, s + seg + margin)
-            batch[i, :hi - lo] = codes[lo:hi]
-            lens[i] = hi - lo
-        x, y, c = run(batch, lens, np.zeros(SB, np.int64))
-        for i, s in enumerate(part):
+        x, y = _u64(x[:, :width]), _u64(y[:, :width])
+        for i, (slot, rid, lo, own_lo, own_hi, _) in enumerate(rows):
             xi = x[i, :c[i]]
             yi = y[i, :c[i]]
             pos = ((yi & np.uint64(0xFFFFFFFF)) >> np.uint64(1)).astype(
-                np.int64) + max(0, s - margin)
-            keep = (pos >= s) & (pos < min(n, s + seg))
+                np.int64) + lo
+            keep = (pos >= own_lo) & (pos < own_hi)
             # y with global positions and the real rid
             yg = ((np.uint64(rid) << np.uint64(32))
                   | ((pos.astype(np.uint64) << np.uint64(1))
                      & np.uint64(0xFFFFFFFE)) | (yi & np.uint64(1)))
-            xs.append(xi[keep])
-            ys.append(yg[keep])
-    return np.concatenate(xs), np.concatenate(ys)
+            out[slot][0].append(xi[keep])
+            out[slot][1].append(yg[keep])
+        rows.clear()
+
+    for slot, (rid, codes) in enumerate(seqs):
+        out.append(([], []))
+        for lo, hi, own_lo, own_hi in _segments(len(codes), seg, margin):
+            rows.append((slot, int(rid), lo, own_lo, own_hi, codes[lo:hi]))
+            if len(rows) == LONG_BATCH:
+                flush()
+    if rows:
+        flush()
+    return [(np.concatenate(xs), np.concatenate(ys)) for xs, ys in out]
+
+
+def sketch_long_np(codes: np.ndarray, rid: int, w: int, k: int, device,
+                   seg: int = 1 << 15, margin: int = 1 << 12
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Sketch one long sequence: sketch_long_many_np of one."""
+    return sketch_long_many_np([(rid, codes)], w, k, device, seg, margin)[0]

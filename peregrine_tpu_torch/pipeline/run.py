@@ -23,6 +23,7 @@ splits them between a device thread and the host cores.  Not yet ported
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import resource
@@ -38,6 +39,7 @@ from ..graph.string_graph import generate_string_graph
 from ..graph.tiling import tiling_paths
 from ..io.seqdb import SeqDB, read_fastx
 from ..ops.index import ShimmerIndex, build_index, build_index_segmented
+from ..ops.kernels import require_device
 from ..ops.overlap import overlap_all
 
 log = logging.getLogger("peregrine_tpu_torch")
@@ -181,17 +183,15 @@ class Assembly:
 
     def __init__(self, outdir: str, cfg: AsmConfig = AsmConfig(),
                  device="cuda", with_alt: bool = False,
+                 profile_dir: str | None = None,
                  on_config_change: str = "error"):
         """device: where stage 1 runs ("cuda" or "cpu"; no fallback).
+        profile_dir: run() writes a torch.profiler trace of itself here.
         on_config_change: when outdir holds checkpoints written under a
         semantically different AsmConfig — "error" (refuse), "clean"
         (invalidate stages 1-4 and re-run), or "ignore"."""
         assert on_config_change in ("error", "clean", "ignore")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but torch sees no "
-                               "CUDA device (pass --device cpu explicitly to "
-                               "run stage 1 on the host)")
+        self.device = require_device(device)
         if cfg.mesh:
             raise not_ported("--mesh", "queue 1, flag paths")
         if cfg.shard_overlap:
@@ -199,6 +199,7 @@ class Assembly:
         self.outdir = outdir
         self.cfg = cfg
         self.with_alt = with_alt
+        self.profile_dir = profile_dir
         cfg_path = os.path.join(outdir, "config.json")
         if os.path.exists(cfg_path) and on_config_change != "ignore":
             try:
@@ -235,10 +236,21 @@ class Assembly:
                 shutil.rmtree(p)
 
     # --- stage 0: sequence database ------------------------------------
-    def build_db(self, reads=None, reads_list: str | None = None) -> SeqDB:
+    def build_db(self, reads=None, reads_list: str | None = None,
+                 reads_iter=None) -> SeqDB:
         prefix = os.path.join(self.outdir, "0-seqdb", "seq_dataset")
         if _stage_done(prefix + ".idx") and reads is None:
             self.db = SeqDB.open(prefix)
+        elif reads_iter is not None:
+            # an in-process (name, seq) stream: the same bounded-RSS disk
+            # build, with no FASTA on disk
+            t0 = time.time()
+            self.db = SeqDB.build_to_disk_from_iter(reads_iter, prefix)
+            wall = time.time() - t0
+            log.info("stage 0 seqdb: %d reads, %d bases (%.1fs streamed "
+                     "to disk; peak RSS %.1f GB)", len(self.db),
+                     int(self.db.lengths.sum()), wall, _peak_rss_gb(),
+                     extra={"stage_wall": ("seqdb", wall)})
         elif reads is None:
             # manifest input streams straight to disk: peak RSS is one
             # read + the write buffer; the pipeline then reads back
@@ -592,15 +604,56 @@ class Assembly:
                  extra={"stage_wall": (tag + "consensus", wall)})
         return out_fa
 
-    # --- not yet ported --------------------------------------------------
-
-    def run_multihost(self, reads_list: str, with_consensus: bool = False):
-        raise not_ported("the multihost pipeline (--multihost)",
-                         "queue 1, flag paths")
-
     def run_draft(self, reads=None, reads_list: str | None = None) -> str:
         """Stages 0-3: reads -> draft p_ctg.fa."""
         self.build_db(reads, reads_list)
         self.build_shimmer_index()
         self.build_overlaps()
         return self.build_contigs()
+
+    def run(self, reads=None, reads_list: str | None = None,
+            with_consensus: bool = True) -> str:
+        """The whole pipeline, under the profiler when profile_dir is set;
+        returns the final fasta path."""
+        with profiled(self.profile_dir, self.device):
+            fa = self.run_draft(reads, reads_list)
+            if with_consensus:
+                fa = self.build_consensus()
+        return fa
+
+    # --- not yet ported --------------------------------------------------
+
+    def run_multihost(self, reads_list: str, with_consensus: bool = False):
+        raise not_ported("the multihost pipeline (--multihost)",
+                         "queue 1, flag paths")
+
+
+@contextlib.contextmanager
+def profiled(profile_dir: str | None, device: torch.device):
+    """A torch.profiler trace of the block, written into profile_dir by
+    tensorboard_trace_handler (nothing without a directory).  On a cuda
+    device it traces the host and the card, and raises where the profiler
+    cannot trace the card (no CUPTI) rather than trace the host alone; on
+    the cpu device it traces the host.  Shapes, stacks and memory are not
+    recorded: a whole run's trace holds ~10^5 device events."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                supported_activities,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError("--profile-dir: torch.profiler cannot trace "
+                               "the CUDA device here (no CUPTI)")
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield
+
+
+def assemble(reads=None, reads_list: str | None = None, outdir: str = "./wd",
+             cfg: AsmConfig = AsmConfig(), device="cuda") -> str:
+    """One-call draft assembly; returns the p_ctg.fa path."""
+    return Assembly(outdir, cfg, device=device).run_draft(reads, reads_list)

@@ -563,3 +563,68 @@ def test_device_pairs_on_the_card_match_the_cpu():
             for a, b in zip(on_card[0] + on_card[1], on_cpu[0] + on_cpu[1]):
                 assert a.dtype == b.dtype
                 np.testing.assert_array_equal(a, b)
+
+
+def test_long_route_and_map_on_the_card_match_the_cpu(tmp_path, capsys):
+    """The batched long route (pieces past sketch_pad_len, several a
+    sketch batch, at k=16 and k=28) and `pg-tpu-torch map` on cuda equal
+    the cpu run (itself held to the JAX package by the CPU tests); map
+    launches each of the four packed kernels."""
+    from peregrine_tpu_torch import cli
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops.index import build_index
+    from peregrine_tpu_torch.simdata import (random_genome, simulate_reads,
+                                             write_reads)
+
+    rng = np.random.default_rng(11)
+    genome = random_genome(rng, 300_000)
+    cuts = [0, 12_000, 26_000, 60_000, 100_000, 300_000]
+    ref = [(f"piece{i}", genome[a:b]) for i, (a, b) in
+           enumerate(zip(cuts[:-1], cuts[1:]))]
+    db = SeqDB.from_reads(ref)
+    for k in (16, 28):
+        cfg = AsmConfig(k=k, sketch_pad_len=8192)
+        on_card, on_cpu = (build_index(db, cfg, dev) for dev in ("cuda", "cpu"))
+        for f in ("x", "y", "mc_hash", "mc_count"):
+            np.testing.assert_array_equal(getattr(on_card, f),
+                                          getattr(on_cpu, f), err_msg=f)
+    reads, _ = simulate_reads(rng, genome, read_len=5000, coverage=4.0)
+    for name, seqs in (("ref", ref), ("reads", reads)):
+        write_reads(seqs, str(tmp_path / f"{name}.fa"),
+                    str(tmp_path / f"{name}.lst"))
+        assert cli.main(["seqdb", str(tmp_path / f"{name}.lst"),
+                         str(tmp_path / name)]) == 0
+    args = ["map", str(tmp_path / "ref"), str(tmp_path / "reads")]
+    capsys.readouterr()
+    kn.reset_launches()
+    assert cli.main(args + ["--device", "cuda"]) == 0
+    on_card = capsys.readouterr().out
+    assert all(fn.launches > 0 for fn in kn.KERNELS[:4])
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    assert on_card == capsys.readouterr().out
+    assert len(on_card.splitlines()) > len(reads)
+
+
+def test_api_on_the_card_matches_the_cpu():
+    """get_shimmers_from_seq at levels 0-2 (k=16 and the wide k=24) and
+    get_cns_from_reads on cuda equal the cpu run."""
+    from peregrine_tpu_torch import api
+    from peregrine_tpu_torch.io.seqdb import revcomp
+    from peregrine_tpu_torch.simdata import mutate, random_genome
+
+    rng = np.random.default_rng(42)
+    seq = random_genome(rng, 20_000)
+    for k in (16, 24):
+        for levels in (0, 1, 2):
+            got = api.get_shimmers_from_seq(seq, rid=5, levels=levels, k=k,
+                                            device="cuda")
+            want = api.get_shimmers_from_seq(seq, rid=5, levels=levels, k=k,
+                                             device="cpu")
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+    template = seq[:3000]
+    reads = [template] + [mutate(rng, template, 0.02) for _ in range(6)]
+    reads = [r if i % 2 == 0 else revcomp(r) for i, r in enumerate(reads)]
+    assert api.get_cns_from_reads(reads, device="cuda") \
+        == api.get_cns_from_reads(reads, device="cpu")

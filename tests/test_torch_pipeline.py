@@ -3,13 +3,14 @@
 The JAX package's CLI and the port's CLI (--device cpu) run on the same
 simulated reads; the index files, preads.ovl and p_ctg.fa must be
 byte-identical.  Also: resume in the port, a JAX-written output directory
-resumed by the port, and the port's refusals (unported flags, a missing
-CUDA device, a changed config).  The device stage-2 flags are in
+resumed by the port, asm --profile-dir, and the port's refusals (unported
+flags, a missing CUDA device, a changed config).  The device stage-2 flags are in
 tests/test_torch_overlap_device.py.  Stage 4 (--with-consensus) and the
 level-0 index are in tests/test_torch_consensus.py.
 """
 
 import filecmp
+import json
 import os
 import shutil
 import time
@@ -136,8 +137,22 @@ def test_config_change_detection(tmp_path):
     Assembly(wd, cfg.replace(k=14, sketch_batch=32), device="cpu")
 
 
-@pytest.mark.parametrize("flag", ["--shard-overlap", "--mesh", "--multihost",
-                                  "--profile-dir=prof"])
+def test_asm_profile_dir(jax_runs):
+    """asm --profile-dir D writes a torch.profiler trace under D (host
+    events on the cpu device) and the same outputs as a run without it."""
+    d, lst, flags = jax_runs["k12"]
+    out, prof = str(d / "profiled"), str(d / "prof")
+    assert cli.main(["asm", lst, "--output", out, "--device", "cpu",
+                     "--profile-dir", prof] + flags) == 0
+    _same(str(d / "jax"), out)
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+@pytest.mark.parametrize("flag", ["--shard-overlap", "--mesh", "--multihost"])
 def test_unported_flags_exit_nonzero(tmp_path, capsys, flag):
     with pytest.raises(SystemExit) as exc:
         cli.main(["asm", "reads.lst", "--output", str(tmp_path / "wd"),
