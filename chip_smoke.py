@@ -83,10 +83,26 @@ Phases, in order; any failure raises and exits non-zero:
      trace names the four kernels; verify_fasta of phase 6's polished
      contig against the genome, with its wall (phase 5's draft, at ~1%
      error, stalls the verifier's exact re-alignment: it is built for
-     polished contigs).
+     polished contigs);
+ 10. the multi-device paths, on an in-process mesh of four shards on
+     cuda:0: build_index_mesh equal to build_index on the card at k=16
+     (the four packed kernels launched) and k=28 (compact_planes), each
+     hash shard of 256 reads equal to the same mesh's on the cpu,
+     build_pairs_mesh equal to the host build_pairs and bucket_stream,
+     sharded_align of a seeded 1,024-lane sample of phase 7's largest
+     launch equal to myers_batch_db (the aligner launched); Assembly over
+     the mesh with cfg.mesh (index, preads.ovl and p_ctg.fa equal to
+     phase 5's); overlap_chunk_device with shard_overlap equal to the
+     unsharded call; `asm --multihost` at world size 1 over NCCL in a
+     subprocess (torchrun's environment; preads.ovl and p_ctg.fa equal
+     to phase 5's); run_multihost(with_consensus=True) on two gloo ranks
+     sharing the card (subprocesses of tests/torch_multihost_worker.py,
+     a file:// init) equal to world size 1 in preads.ovl, p_ctg.fa and
+     p_ctg_cns.fa, each rank doing >= 0.8 of its fair share of the round
+     alignments and of the consensus windows.
 Each path's launch counts are zeroed just before it runs and read just
-after.  It then prints phase 9's JSON line, the kernels' JSON line and,
-last, the device JSON line.
+after.  It then prints phase 9's and phase 10's JSON lines, the
+kernels' JSON line and, last, the device JSON line.
 There is no CPU path: without a CUDA device it exits non-zero at once.
 
 --index-profile measures stage 1 alone (at --profile-k, default 16) on
@@ -945,11 +961,19 @@ def trace_myers(calls) -> list:
         ms = sum(e["dur"] for e in events if e.get("ph") == "X"
                  and e.get("cat") == "kernel"
                  and "myers_align_kernel" in e["name"]) / 1000
-        check(ms > 0, "the profiler trace holds no myers_align kernel")
+        timed_by = "trace"
+        if ms == 0:
+            # the profiler can drop a launch from its trace: time it back
+            # to back with CUDA events instead
+            say(f"the profiler trace holds no myers_align kernel at "
+                f"{len(cols)} lanes; timing it with CUDA events")
+            ms = kernel_ms(lambda: da.myers_batch_db(pdb, c), n=5)
+            timed_by = "events"
         bound = myers_bound_ms(cols)
         out.append({"lanes": len(cols), "lane_columns": int(
             np.clip(cols[:, 5], 0, None).sum()), "trace_ms": ms,
-            "bound_ms": bound, "share_of_bound": bound / ms})
+            "timed_by": timed_by, "bound_ms": bound,
+            "share_of_bound": bound / ms})
     return out
 
 
@@ -998,7 +1022,8 @@ def phase_device_overlap(lst: str, genome, wd: str, draft, label: str,
     0.9 against phase 5's (the device aligner's optimal distances differ
     from the host aligner's greedy ones, so the files are not identical);
     returns the aligner's launches, each device call's record, the
-    sample's check and, with `trace`, each launch's profiled time."""
+    sample's check, with `trace` each launch's profiled time, and the
+    device calls (seqdb, request columns, outputs)."""
     from peregrine_tpu_torch.io.seqdb import read_fastx
 
     draft_frac, draft_pairs = draft
@@ -1038,7 +1063,7 @@ def phase_device_overlap(lst: str, genome, wd: str, draft, label: str,
     check(abs(frac - draft_frac) <= 0.01, f"{label}: 21-mer agreement "
           f"{frac:.6f} is more than 0.01 from the draft's {draft_frac:.6f}")
     check(jac > 0.9, f"{label}: overlap pair Jaccard {jac:.4f} <= 0.9")
-    return launches["myers_align"], rounds, sample, traced
+    return launches["myers_align"], rounds, sample, traced, calls
 
 
 def phase_consensus(lst: str, genome, wd: str, results: dict,
@@ -1317,6 +1342,285 @@ def phase_rest(lst: str, genome, truth, wd: str) -> dict:
     return out
 
 
+MESH_SHARDS = 4   # phase 10's in-process mesh: four shards on cuda:0
+SUBSET = 256      # reads whose shards phase 10 also builds on the cpu
+MH_TIMEOUT = 300  # seconds a phase-10 subprocess may take
+# one gloo rank of run_multihost, shared with the multi-process tests
+WORKER = os.path.join(ROOT, "tests", "torch_multihost_worker.py")
+
+
+def _same_files(a: str, b: str, rels) -> None:
+    for rel in rels:
+        with open(os.path.join(a, rel), "rb") as fa, \
+                open(os.path.join(b, rel), "rb") as fb:
+            check(fa.read() == fb.read(), f"{rel} of {b} differs from {a}'s")
+
+
+def _same_index(a, b, what: str) -> None:
+    for f in ("x", "y", "mc_hash", "mc_count"):
+        check(np.array_equal(getattr(a, f), getattr(b, f)),
+              f"{what}: {f} differs")
+
+
+def _counted(label: str, fn, kernels):
+    """fn() with every launch count zeroed just before and read just
+    after; each named kernel must have launched.  Returns (result, wall
+    s, launches)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = launch_counts()
+    for name in kernels:
+        check(launches[name] > 0, f"{label}: kernel {name} was not launched")
+    say(f"{label}: {wall:.3f} s; launches {json.dumps(launches)}")
+    return out, wall, launches
+
+
+def _run_ranks(cmds, env, label: str) -> list:
+    """Start each command at once, wait for all (killing any left at the
+    timeout); returns their outputs, each run having exited 0."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env,
+                              cwd=ROOT) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MH_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            # on stderr, whose end is what a failed run shows
+            print(o[-4000:], file=sys.stderr, flush=True)
+        check(p.returncode == 0, f"{label}: process {r} exited "
+              f"{p.returncode}")
+    return outs
+
+
+def _json_line(out: str, key: str) -> dict:
+    for ln in out.splitlines():
+        if ln.startswith("{") and key in ln:
+            return json.loads(ln)
+    check(False, f"no JSON line with {key} in the output")
+
+
+def phase_mesh(lst: str, wd: str, calls) -> dict:
+    """Phase 10, the multi-device paths on the E. coli-class set, over an
+    in-process mesh of MESH_SHARDS shards on cuda:0 (the smoke needs one
+    card): build_index_mesh equal to build_index on the card (k=16 and
+    k=28), each shard of SUBSET reads equal to the cpu mesh's, the pair
+    map over the mesh equal to the host's, sharded_align of a seeded
+    1,024-lane sample of phase 7's largest launch equal to myers_batch_db;
+    then Assembly over the mesh with cfg.mesh, overlap_chunk_device with
+    shard_overlap, `asm --multihost` at world size 1 over NCCL, and
+    run_multihost with the consensus on two gloo ranks sharing the card
+    against world size 1.  Returns the phase's walls, launches and
+    shares."""
+    import socket
+
+    import torch
+
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops import device_align as da
+    from peregrine_tpu_torch.ops.index import ShimmerIndex, build_index
+    from peregrine_tpu_torch.ops.overlap import (bucket_stream, build_pairs,
+                                                 overlap_chunk_device,
+                                                 ovlps_to_text)
+    from peregrine_tpu_torch.parallel.mesh import Mesh
+    from peregrine_tpu_torch.parallel.sharded_index import (
+        build_index_mesh, sharded_index_host)
+    from peregrine_tpu_torch.parallel import sharded_overlap as so
+    from peregrine_tpu_torch.parallel.sharded_overlap import (shard_seqdb,
+                                                             sharded_align)
+    from peregrine_tpu_torch.parallel.sharded_pairs import build_pairs_mesh
+    from peregrine_tpu_torch.pipeline.run import Assembly
+
+    t_phase = time.time()
+    label = "mesh paths"
+    mesh = Mesh(["cuda:0"] * MESH_SHARDS)
+    cpu_mesh = Mesh(["cpu"] * MESH_SHARDS)
+    asm = os.path.join(wd, "asm")  # phase 5's workdir
+    db = SeqDB.open(os.path.join(asm, "0-seqdb", "seq_dataset"))
+    res: dict = {"shards": MESH_SHARDS, "walls_s": {}, "launches": {}}
+    walls, launches = res["walls_s"], res["launches"]
+    packed4 = ("build_stream", "move_plane", "emit_mask", "reduce_step")
+
+    # 10.1: the sharded functions, k=16 then k=28
+    sub = np.arange(SUBSET)
+    pad = -(-int(db.lengths[sub].max()) // 8192) * 8192
+    codes, lens = db.padded_code_batch(sub, pad)
+    for k, kernels in ((K, packed4), (K_WIDE, ("compact_planes",))):
+        cfg = AsmConfig(k=k)
+        got, walls[f"index_mesh_k{k}"], launches[f"index_mesh_k{k}"] = \
+            _counted(f"{label}: build_index_mesh k={k}",
+                     lambda: build_index_mesh(db, cfg, mesh), kernels)
+        t = time.time()
+        one = build_index(db, cfg, "cuda")
+        walls[f"index_one_k{k}"] = time.time() - t
+        _same_index(got, one, f"build_index_mesh k={k}")
+        step = dict(w=cfg.w, k=k, r=cfg.r, levels=cfg.levels)
+        shards = sharded_index_host(mesh, codes, lens, sub, **step)
+        want = sharded_index_host(cpu_mesh, codes, lens, sub, **step)
+        for d, ((gx, gy), (wx, wy)) in enumerate(zip(shards, want)):
+            check(np.array_equal(gx, wx) and np.array_equal(gy, wy),
+                  f"k={k} shard {d} of {SUBSET} reads differs from the cpu's")
+        say(f"{label}: k={k}: {len(got.x)} SHIMMERs == build_index on the "
+            f"card ({walls[f'index_one_k{k}']:.3f} s); {SUBSET} reads' "
+            f"shards of {[len(x) for x, _ in shards]} records == the cpu "
+            "mesh's")
+        if k == K:
+            idx16 = one
+    cfg = AsmConfig()
+    gates = (cfg.mc_lower, cfg.mc_upper, cfg.min_anchor_dist)
+    t = time.time()
+    pairs = build_pairs_mesh(idx16, db.lengths, mesh, *gates, cfg.ovlp_upper)
+    walls["pairs_mesh"] = time.time() - t
+    t = time.time()
+    hp = build_pairs(idx16, db.lengths, 1, 1, *gates)
+    hs = bucket_stream(hp[0], hp[1], hp[2], hp[4], cfg.ovlp_upper)
+    walls["pairs_host"] = time.time() - t
+    for i, (a, b) in enumerate(zip(pairs[0] + pairs[1], hp + hs)):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"build_pairs_mesh [{i}] differs from the host build")
+    say(f"{label}: build_pairs_mesh {len(pairs[0][0])} records, stream "
+        f"{len(pairs[1][0])} == the host build ({walls['pairs_mesh']:.3f} s "
+        f"against {walls['pairs_host']:.3f} s)")
+    pdb, cols, _ = max(calls, key=lambda call: len(call[1]))
+    rng = np.random.default_rng(len(cols))
+    c = cols[np.sort(rng.choice(len(cols), min(1024, len(cols)),
+                                replace=False))]
+    q_rid = np.searchsorted(db.offsets, c[:, 1])
+    t_rid = np.searchsorted(db.offsets, c[:, 4])
+    L = -(-int(max(c[:, 2].max(), c[:, 5].max())) // 8192) * 8192
+    sdb = shard_seqdb(db.data, db.offsets, db.lengths, mesh)
+    got, walls["sharded_align"], launches["sharded_align"] = _counted(
+        f"{label}: sharded_align of {len(c)} phase-7 lanes",
+        lambda: sharded_align(sdb, q_rid, c[:, 0], c[:, 2], c[:, 3], t_rid,
+                              c[:, 4], c[:, 5], c[:, 6], L=L),
+        ("myers_align",))
+    want = da.myers_batch_db(pdb, torch.from_numpy(c).cuda())
+    for a, b in zip(got, want):
+        check(np.array_equal(a, b.cpu().numpy()),
+              "sharded_align differs from myers_batch_db")
+    res["align_lanes"] = len(c)
+
+    # 10.2: Assembly over the mesh, 10.3: overlap_chunk_device sharded
+    draft_fa = os.path.join(asm, "3-asm", "p_ctg.fa")
+    out = os.path.join(wd, "mesh-asm")
+    _, walls["asm_mesh"], launches["asm_mesh"] = _counted(
+        f"{label}: Assembly(mesh=) run_draft with cfg.mesh",
+        lambda: Assembly(out, AsmConfig(mesh=True), device="cuda",
+                         mesh=mesh).run_draft(reads_list=lst), packed4)
+    _same_files(asm, out, ("1-index/shmr-L2-01-of-01.dat",
+                           "2-ovlp/preads.ovl", "3-asm/p_ctg.fa"))
+    idx = ShimmerIndex.load_chunks(
+        [os.path.join(asm, "1-index", "shmr-L2-01-of-01.dat")],
+        [os.path.join(asm, "1-index", "shmr-L2-MC-01-of-01.dat")])
+    acfg = AsmConfig(use_device_aligner=True)
+    n_calls: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with counted(so, "sharded_align", n_calls):
+        sharded, walls["overlap_sharded"], launches["overlap_sharded"] = \
+            _counted(f"{label}: overlap_chunk_device with shard_overlap",
+                     lambda: ovlps_to_text(overlap_chunk_device(
+                         db, idx, acfg.replace(shard_overlap=True), "cuda",
+                         mesh=mesh)), ("myers_align",))
+    res["overlap_sharded_calls"] = n_calls["sharded_align"]
+    res["overlap_sharded_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                      - held) / 1e9
+    say(f"{label}: {n_calls['sharded_align']} sharded_align calls, device "
+        f"memory peak {res['overlap_sharded_peak_gb']:.3f} GB above the "
+        f"{held / 1e9:.3f} GB held before")
+    t = time.time()
+    single = ovlps_to_text(overlap_chunk_device(db, idx, acfg, "cuda"))
+    walls["overlap_one"] = time.time() - t
+    check(sharded == single and len(single) > 0,
+          "overlap_chunk_device with shard_overlap differs from unsharded")
+    res["overlap_rows"] = len(single)
+
+    # 10.4: `asm --multihost` at world size 1 over NCCL
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT, RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    out = os.path.join(wd, "mh-nccl")
+    code = ("import json, sys; from peregrine_tpu_torch import cli; "
+            "from peregrine_tpu_torch.ops import kernels as kn; "
+            "rc = cli.main(sys.argv[1:]); "
+            "print(json.dumps({'launches': {f.__name__: f.launches "
+            "for f in kn.KERNELS}})); sys.exit(rc)")
+    t = time.time()
+    o = _run_ranks([[sys.executable, "-c", code, "asm", lst, "--output", out,
+                     "--multihost"]], env, "asm --multihost (NCCL)")[0]
+    walls["multihost_nccl_ws1"] = time.time() - t
+    launches["multihost_nccl_ws1"] = _json_line(o, "launches")["launches"]
+    for name in packed4:
+        check(launches["multihost_nccl_ws1"][name] > 0,
+              f"asm --multihost: kernel {name} was not launched")
+    check(any(ln.strip() == os.path.join(out, "3-asm", "p_ctg.fa")
+              for ln in o.splitlines()), "asm --multihost printed no fasta "
+          "path")
+    _same_files(asm, out, ("2-ovlp/preads.ovl", "3-asm/p_ctg.fa"))
+    say(f"{label}: asm --multihost at world size 1 over NCCL: "
+        f"{walls['multihost_nccl_ws1']:.2f} s in its process, the same "
+        "preads.ovl and p_ctg.fa as phase 5")
+
+    # 10.5: run_multihost with the consensus, two gloo ranks on cuda:0,
+    # against world size 1
+    one = os.path.join(wd, "mh-ws1")
+    _, walls["multihost_ws1"], launches["multihost_ws1"] = _counted(
+        f"{label}: run_multihost(with_consensus=True) at world size 1",
+        lambda: Assembly(one, AsmConfig(mesh=True), device="cuda")
+        .run_multihost(lst, with_consensus=True), packed4)
+    two = os.path.join(wd, "mh-gloo")
+    os.makedirs(two)
+    shutil.copy(lst, os.path.join(two, "reads.lst"))
+    init = "file://" + os.path.join(two, "init")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    t = time.time()
+    env["PYTHONPATH"] = ROOT
+    outs = _run_ranks([[sys.executable, WORKER, "defaults", str(r), "2", init,
+                        two, "cuda"] for r in range(2)], env,
+                      "run_multihost on 2 ranks")
+    walls["multihost_gloo_2"] = time.time() - t
+    _same_files(one, os.path.join(two, "wd"),
+                ("2-ovlp/preads.ovl", "3-asm/p_ctg.fa", "4-cns/p_ctg_cns.fa"))
+    shares = []
+    for r, o in enumerate(outs):
+        rec = _json_line(o, "launches")
+        launches[f"multihost_gloo_rank{r}"] = rec["launches"]
+        for name in packed4:
+            check(rec["launches"][name] > 0, f"rank {r}: kernel {name} was "
+                  "not launched")
+        m = re.search(r"rank share: (\d+) of (\d+) round alignments", o)
+        w = re.search(r"rank \d+ computed (\d+) of (\d+) windows", o)
+        check(bool(m and w), f"rank {r} printed no work share")
+        share = [int(m[1]) / int(m[2]), int(w[1]) / int(w[2])]
+        check(min(share) >= 0.8 / 2, f"rank {r} did {share} of the round "
+              "alignments and windows, below 0.8 of its fair share")
+        shares.append(share)
+    res["rank_shares"] = shares
+    say(f"{label}: run_multihost on 2 gloo ranks sharing cuda:0 "
+        f"{walls['multihost_gloo_2']:.2f} s (world size 1: "
+        f"{walls['multihost_ws1']:.2f} s): the same preads.ovl, p_ctg.fa "
+        f"and p_ctg_cns.fa; shares of the round alignments and windows "
+        f"{shares}")
+    res["phase_s"] = time.time() - t_phase
+    say(f"{label}: phase 10 took {res['phase_s']:.1f} s")
+    return res
+
+
 def aligner_sass(lib_path: str) -> None:
     """Each loop of pg_myers_align's SASS (cuobjdump of the built
     library), with its instructions by opcode.  The column loop is the
@@ -1453,17 +1757,20 @@ def main(argv=None) -> int:
             say(json.dumps({"phase9": phase_rest(lst, genome, truth, wd)}))
             return 0
         # phases 7 and 8: stage 2 on the card
-        entry = results["myers_align"]
-        entry["launches"], entry["rounds"], sample, entry["trace"] = \
+        entry = results.setdefault("myers_align", {})
+        entry["launches"], entry["rounds"], sample, entry["trace"], calls = \
             phase_device_overlap(lst, genome, wd, draft,
                                  "device aligner path",
                                  ["--device-aligner", "--device-pairs"],
                                  trace=True)
-        entry["launches_hybrid"], entry["rounds_hybrid"], sample_hybrid, _ = \
-            phase_device_overlap(lst, genome, wd, draft,
-                                 "hybrid overlap path", ["--hybrid-overlap"])
+        (entry["launches_hybrid"], entry["rounds_hybrid"], sample_hybrid, _,
+         _) = phase_device_overlap(lst, genome, wd, draft,
+                                   "hybrid overlap path",
+                                   ["--hybrid-overlap"])
         # phase 9: the rest of the CLI and the API
         rest = phase_rest(lst, genome, truth, wd)
+        # phase 10: the multi-device paths
+        mesh = phase_mesh(lst, wd, calls)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
     # the entry's headline is the main path's largest launch, traced, and
@@ -1478,6 +1785,7 @@ def main(argv=None) -> int:
         plain_lanes=sample["lanes"])
 
     say(json.dumps({"phase9": rest}))
+    say(json.dumps({"phase10": mesh}))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], **results[name]}
                for name in REPLACES]

@@ -5,6 +5,8 @@ equivalent, with the verbs of pg-tpu).
     pg-tpu-torch asm reads.lst --shimmer-k 28 --with-L0-index --with-consensus
     pg-tpu-torch asm reads.lst --device-aligner --device-pairs
     pg-tpu-torch asm reads.lst --profile-dir prof
+    pg-tpu-torch asm reads.lst --mesh --shard-overlap
+    torchrun --nproc-per-node 4 -m peregrine_tpu_torch.cli asm reads.lst --multihost
     pg-tpu-torch map ref_prefix read_prefix --output rows.txt
     pg-tpu-torch seqdb reads.lst prefix
     pg-tpu-torch dump-index wd/1-index/shmr-L2-01-of-01.dat --limit 10
@@ -16,9 +18,16 @@ The verbs, flags, defaults and printed output are those of pg-tpu, plus
 CPU: pass --device cpu to run the device work, the SHIMMER indexes and,
 with --device-aligner, --hybrid-overlap or --device-pairs, the stage-2
 work, on the host).  seqdb, dump-index, stats and gather-mc are host
-code.  --profile-dir writes a torch.profiler trace of the run.  Flags
-whose paths are not yet ported exit non-zero with a message naming the
-ROADMAP item.
+code.  --profile-dir writes a torch.profiler trace of the run.
+
+Several cards: --mesh spreads stage 1 and the pair map over every visible
+card of one process, and --shard-overlap splits the seqdb over them for
+the device aligner.  --multihost runs one process a card under torchrun
+(torch.distributed: NCCL for cuda, gloo for cpu); rank 0 prints the
+fasta path.  Without a torchrun environment --multihost runs as one
+process.  NCCL takes one rank a card; ranks that share a card run
+Assembly.run_multihost after parallel.distributed.init_distributed(
+backend="gloo").
 """
 
 from __future__ import annotations
@@ -27,14 +36,6 @@ import argparse
 import logging
 import os
 import sys
-
-# flag dest -> (flag, ROADMAP item); each exits non-zero when given
-_NOT_PORTED = {
-    "shard_overlap": ("--shard-overlap", "queue 1, flag paths"),
-    "mesh": ("--mesh", "queue 1, flag paths"),
-    "multihost": ("--multihost", "queue 1, flag paths"),
-}
-
 
 def main(argv=None) -> int:
     from .config import DEFAULT
@@ -90,8 +91,19 @@ def main(argv=None) -> int:
     asm.add_argument("--device-pairs", action="store_true",
                      help="build the overlap pair map on the device (byte-"
                           "identical output)")
-    for flag in ("--shard-overlap", "--mesh", "--multihost"):
-        asm.add_argument(flag, action="store_true", help="not yet ported")
+    asm.add_argument("--shard-overlap", action="store_true",
+                     help="shard the seqdb across all devices and route "
+                          "alignment requests between them (for dbs larger "
+                          "than one card's memory); implies --device-aligner")
+    asm.add_argument("--mesh", action="store_true",
+                     help="run the index stage sharded over all devices "
+                          "(data-parallel sketch + hash all_to_all); output "
+                          "is identical to the single-device build")
+    asm.add_argument("--multihost", action="store_true",
+                     help="run under torch.distributed (launch one process "
+                          "per card with torchrun's environment set): rank "
+                          "0 executes the host stages and writes outputs, "
+                          "every rank executes stage 1 over the global mesh")
     asm.add_argument("--spill-dir", default=None,
                      help="back the overlap pair map / bucket stream with "
                           "unlinked files in this directory instead of "
@@ -148,11 +160,6 @@ def main(argv=None) -> int:
     gm.add_argument("--output", required=True, help="merged -MC-all.dat path")
 
     args = p.parse_args(argv)
-    if args.cmd == "asm":
-        for dest, (flag, item) in _NOT_PORTED.items():
-            if getattr(args, dest):
-                p.error(f"{flag} is not yet ported to peregrine_tpu_torch "
-                        f"(ROADMAP: {item})")
     if args.cmd in ("asm", "map") and not 1 <= args.k <= 28:
         p.error(f"--shimmer-k {args.k} outside 1..28 (56-bit hash space)")
     logging.basicConfig(
@@ -174,11 +181,27 @@ def _asm(args) -> int:
         ovlp_upper=args.ovlp_upper, min_len=args.min_len,
         min_idt=args.min_idt, lfc=args.lfc,
         disable_chimer_bridge_removal=args.disable_chimer_bridge_removal,
-        use_device_aligner=args.device_aligner,
+        use_device_aligner=args.device_aligner or args.shard_overlap,
         hybrid_overlap=args.hybrid_overlap, device_pairs=args.device_pairs,
+        shard_overlap=args.shard_overlap, mesh=args.mesh,
         spill_dir=args.spill_dir)
     if args.mem_budget is not None:
         os.environ["PG_MEM_BUDGET"] = str(int(float(args.mem_budget)))
+    if args.multihost:
+        from .parallel import distributed
+        distributed.init_distributed(device=args.device)
+        try:
+            asm_obj = Assembly(args.output, cfg.replace(mesh=True),
+                               device=distributed.local_device(args.device),
+                               with_alt=args.with_alt,
+                               on_config_change=args.on_config_change)
+            fa = asm_obj.run_multihost(args.reads_lst,
+                                       with_consensus=args.with_consensus)
+        finally:
+            distributed.shutdown()
+        if fa:
+            print(fa)
+        return 0
     asm_obj = Assembly(args.output, cfg, device=args.device,
                        with_alt=args.with_alt,
                        on_config_change=args.on_config_change)

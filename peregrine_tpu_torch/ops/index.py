@@ -47,19 +47,19 @@ def _capped(a: torch.Tensor, b: torch.Tensor, cap: int):
 
 def index_step(codes: torch.Tensor, lengths: torch.Tensor, rids: torch.Tensor,
                *, w: int, k: int, r: int, levels: int, cap: int = 0,
-               keep_l0: bool = False):
+               keep_l0: bool = False, tight_out: bool = True):
     """Sketch -> L1 -> ... -> L_levels for one padded batch.
 
     cap > 0 truncates the minimizer axis after sketching (the expected
     density is 2/(w+1), so cap ~ L/8 is generous); the exact sketch
     count c0 is returned so callers detect an overflow and re-run the
-    batch with cap=0.  With a cap the final level is sliced to out_cap
-    columns as well.  Returns (x, y, count) of the final level + c0, and
+    batch with cap=0.  With a cap and tight_out the final level is sliced
+    to out_cap columns as well (the mesh build keeps it whole).  Returns (x, y, count) of the final level + c0, and
     with keep_l0 also the uncapped level-0 records (x0, y0), whose counts
     are c0.
     """
     out_cap = 0
-    if levels > 0 and cap:
+    if levels > 0 and cap and tight_out:
         # each level shrinks the list ~(r/2)x in practice; slice
         # conservatively (c stays exact for the overflow check)
         out_cap = max(64, cap // max(1, int((r / 2) ** levels)))

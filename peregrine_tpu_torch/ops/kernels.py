@@ -116,13 +116,20 @@ def _check(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str):
 
 
 def _call(fn, *args) -> None:
-    """Launch C entry fn on the current stream; raise on a CUDA error."""
+    """Launch C entry fn on the current stream of its tensors' card, with
+    that card current (the entry points never pick a device themselves);
+    raise on a CUDA error."""
     if len(args) + 1 != len(fn.argtypes):
         raise TypeError(f"{fn.__name__} takes {len(fn.argtypes)} arguments "
                         f"with the stream, got {len(args) + 1}")
-    stream = torch.cuda.current_stream().cuda_stream
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    device = tensors[0].device
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{fn.__name__}: tensors on several devices, "
+                         f"{sorted({str(t.device) for t in tensors})}")
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    rc = fn(*args, stream)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 

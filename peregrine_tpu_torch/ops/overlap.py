@@ -965,7 +965,8 @@ def write_ovl_file(path: str, ovlps: np.ndarray, seen: set | None = None,
 def overlap_chunk_device(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
                          device, chunk: int = 1, total_chunk: int = 1,
                          spec_window: int = 8, spec_per_pair: int = 1,
-                         cand=None, seqdb_dev=None) -> np.ndarray:
+                         cand=None, seqdb_dev=None,
+                         mesh=None) -> np.ndarray:
     """Overlap detection with device-batched alignment.
 
     Speculatively aligns, for every anchor, its next `spec_window`
@@ -974,7 +975,10 @@ def overlap_chunk_device(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     accept logic against the result cache; cache misses (rare: long skip
     runs) and requests longer than cfg.aln_max_len align natively in the
     replay.  The seqdb is uploaded to `device` unless seqdb_dev holds it.
-    (The JAX package's sharded branch is --shard-overlap, not ported.)
+    With cfg.shard_overlap and a mesh of several shards (--shard-overlap)
+    the seqdb is split over the mesh instead and the requests go to their
+    target read's shard (parallel.sharded_overlap), in calls sized by a
+    device-memory budget per 8 kb length class; the result is the same.  A failed launch or exchange raises: there is no host fallback.
     """
     import logging
     import time as _time
@@ -999,15 +1003,19 @@ def overlap_chunk_device(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     reqs = spec_enum(sys_, sdirs, spos, sbs, sbe,
                      spec_window + 4, spec_per_pair)
     key_a, key_b = _req_keys(reqs)
-    if seqdb_dev is None:
-        from .dbgather import upload_seqdb
-        seqdb_dev = upload_seqdb(db.data, torch.device(device))
     cols, mlen = _request_columns(db, reqs["rid0"], reqs["rid1"],
                                   reqs["pos0"], reqs["pos1"],
                                   reqs["strand0"], reqs["strand1"])
     got = np.flatnonzero(mlen <= cfg.aln_max_len)  # longer: native replay
     t_enum = _time.time()
-    d, qe, te = _align_lanes(seqdb_dev, cols[got])
+    if cfg.shard_overlap and mesh is not None and mesh.n > 1:
+        d, qe, te = _align_sharded(db, mesh, reqs["rid0"][got],
+                                   reqs["rid1"][got], cols[got], mlen[got])
+    else:
+        if seqdb_dev is None:
+            from .dbgather import upload_seqdb
+            seqdb_dev = upload_seqdb(db.data, torch.device(device))
+        d, qe, te = _align_lanes(seqdb_dev, cols[got])
     t_dev = _time.time()
 
     # replay in C++ against the result cache; the device kernel reports
@@ -1025,3 +1033,33 @@ def overlap_chunk_device(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
         len(got), misses, _t_pairs, t_enum - _t0 - _t_pairs,
         t_dev - t_enum, _time.time() - t_dev)
     return result
+
+
+# device bytes a sharded_align call may hold in packed windows, and its
+# bytes a lane and window base: each lane's two windows at 3/8 of a byte
+# a base, sent, received, gathered and laid out for the aligner
+SHARDED_ALIGN_BYTES = 4 << 30
+SHARDED_ALIGN_BYTES_PER_BASE = 4
+
+
+def _align_sharded(db: SeqDB, mesh, rid0, rid1, cols: np.ndarray,
+                   mlen: np.ndarray):
+    """(dist, q_end, t_end) of request columns aligned over a mesh whose
+    shards each hold a slice of the seqdb (parallel.sharded_overlap):
+    windows of 8 kb length classes, as many lanes a call as
+    SHARDED_ALIGN_BYTES holds (65,536 at L = 16 kb)."""
+    from ..parallel.sharded_overlap import shard_seqdb, sharded_align
+    sdb = shard_seqdb(db.data, db.offsets, db.lengths, mesh)
+    pad_class = -(-mlen // 8192) * 8192
+    out = np.zeros((len(cols), 3), np.int32)
+    for pad in np.unique(pad_class):
+        idxs = np.flatnonzero(pad_class == pad)
+        lanes = max(mesh.n, SHARDED_ALIGN_BYTES
+                    // (SHARDED_ALIGN_BYTES_PER_BASE * int(pad)))
+        for i in range(0, len(idxs), lanes):
+            part = idxs[i:i + lanes]
+            c = cols[part]
+            out[part] = np.stack(sharded_align(
+                sdb, rid0[part], c[:, 0], c[:, 2], c[:, 3], rid1[part],
+                c[:, 4], c[:, 5], c[:, 6], L=int(pad)), 1)
+    return out[:, 0], out[:, 1], out[:, 2]

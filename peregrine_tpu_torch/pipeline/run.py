@@ -1,6 +1,6 @@
 """Assembly pipeline orchestrator, stages 0-4.
 
-The port of peregrine_tpu/pipeline/run.py's single-device path.  Stages
+The port of peregrine_tpu/pipeline/run.py.  Stages
 run in-process with file-checkpointed outputs in the reference's
 directory layout, byte-identical to the JAX package's, so either package
 resumes the other's output directory:
@@ -17,8 +17,18 @@ stages 0, 2 and 3 and stage 4's mapping and consensus are host numpy and
 native C++, except where a flag moves stage 2 to the device:
 device_pairs builds the pair map there, use_device_aligner aligns the
 overlap requests there (the banded Myers kernel), and hybrid_overlap
-splits them between a device thread and the host cores.  Not yet ported
-(each raises): the mesh/multihost runs and shard_overlap.
+splits them between a device thread and the host cores.
+
+Several devices: an Assembly holds a mesh (parallel.mesh, by default all
+visible cards of its device type, one shard on the CPU).  With cfg.mesh
+and more than one shard, stage 1 runs over it (build_index_mesh) and so
+does the pair map (build_pairs_mesh, where the mesh lives wholly in this
+process); with cfg.shard_overlap the seqdb is split over it for the
+device aligner (--shard-overlap).  run_multihost runs the pipeline in
+several processes over torch.distributed (--multihost): stage 1 over
+the global mesh, the overlap rounds and the consensus windows split
+between the ranks through files in the output directory.  Every output
+is byte-identical to the single-device run.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import contextlib
 import logging
 import os
 import resource
+import threading
 import time
 
 import numpy as np
@@ -41,6 +52,7 @@ from ..io.seqdb import SeqDB, read_fastx
 from ..ops.index import ShimmerIndex, build_index, build_index_segmented
 from ..ops.kernels import require_device
 from ..ops.overlap import overlap_all
+from ..parallel.mesh import Mesh, make_mesh
 
 log = logging.getLogger("peregrine_tpu_torch")
 
@@ -49,11 +61,6 @@ log = logging.getLogger("peregrine_tpu_torch")
 _NON_SEMANTIC_CFG_FIELDS = frozenset(
     {"sketch_pad_len", "sketch_batch", "aln_batch", "aln_max_len",
      "spill_dir", "device_pairs"})
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to peregrine_tpu_torch (ROADMAP: {item})")
 
 
 class ConfigMismatchError(RuntimeError):
@@ -184,18 +191,18 @@ class Assembly:
     def __init__(self, outdir: str, cfg: AsmConfig = AsmConfig(),
                  device="cuda", with_alt: bool = False,
                  profile_dir: str | None = None,
-                 on_config_change: str = "error"):
+                 on_config_change: str = "error", mesh: Mesh | None = None):
         """device: where stage 1 runs ("cuda" or "cpu"; no fallback).
+        mesh: the shards that cfg.mesh and cfg.shard_overlap spread work
+        over (default make_mesh(device)); a mesh of one shard takes the
+        single-device path.
         profile_dir: run() writes a torch.profiler trace of itself here.
         on_config_change: when outdir holds checkpoints written under a
         semantically different AsmConfig — "error" (refuse), "clean"
         (invalidate stages 1-4 and re-run), or "ignore"."""
         assert on_config_change in ("error", "clean", "ignore")
         self.device = require_device(device)
-        if cfg.mesh:
-            raise not_ported("--mesh", "queue 1, flag paths")
-        if cfg.shard_overlap:
-            raise not_ported("--shard-overlap", "queue 1, flag paths")
+        self.mesh = mesh if mesh is not None else make_mesh(self.device)
         self.outdir = outdir
         self.cfg = cfg
         self.with_alt = with_alt
@@ -219,8 +226,13 @@ class Assembly:
                             "checkpoints in %s", diff, outdir)
         for d in ("0-seqdb", "1-index", "2-ovlp", "3-asm", "4-cns"):
             os.makedirs(os.path.join(outdir, d), exist_ok=True)
-        with open(cfg_path, "w") as f:
+        # tmp + rename: the ranks of a multi-process run construct their
+        # Assembly over one directory at once, and a rank that read a
+        # peer's half-written config.json would refuse it as a mismatch
+        tmp = f"{cfg_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        with open(tmp, "w") as f:
             f.write(cfg.to_json())
+        os.replace(tmp, cfg_path)
         self.db: SeqDB | None = None
         self.idx: ShimmerIndex | None = None
         self._save_thread = None  # async stage-0 checkpoint write
@@ -267,7 +279,6 @@ class Assembly:
             self.db = SeqDB.from_reads(reads)
             # the checkpoint write overlaps the index stage; save() writes
             # .seqdb before .idx, and resume trusts .idx
-            import threading
             self._save_thread = threading.Thread(
                 target=self.db.save, args=(prefix,), name="seqdb-save")
             self._save_thread.start()
@@ -295,7 +306,12 @@ class Assembly:
         else:
             t0 = time.time()
             budget = _device_db_budget(self.device, self.cfg)
-            if not keep_l0 and self.db.data.nbytes > budget:
+            on_mesh = self.cfg.mesh and self.mesh.n > 1 and not keep_l0
+            if on_mesh:
+                from ..parallel.sharded_index import build_index_mesh
+                self.idx, l0 = build_index_mesh(self.db, self.cfg,
+                                                self.mesh), None
+            elif not keep_l0 and self.db.data.nbytes > budget:
                 log.info("stage 1: the %.1f GB seqdb exceeds the %.1f GB "
                          "device budget: indexing in segments",
                          self.db.data.nbytes / (1 << 30), budget / (1 << 30))
@@ -313,18 +329,26 @@ class Assembly:
                      "%s; peak RSS %.1f GB%s)",
                      len(self.idx.x), len(self.idx.mc_hash),
                      f"; {len(l0.x)} level-0 minimizers" if keep_l0 else "",
-                     wall, self.device, _peak_rss_gb(),
+                     wall, self.mesh if on_mesh else self.device,
+                     _peak_rss_gb(),
                      _device_mem_line(self.device),
                      extra={"stage_wall": ("index", wall)})
         return self.idx
 
     def _pair_map(self):
         """The unchunked oriented read pair map, shared by stages 2 and 4:
-        built on the device with cfg.device_pairs (byte-identical), else
-        by the host build."""
+        built over the mesh with cfg.mesh (where it has several shards,
+        all in this process), on the device with cfg.device_pairs, else
+        by the host build; all byte-identical."""
         if self._pairs is None:
             self._maybe_auto_spill()
-            if self.cfg.device_pairs:
+            if self.cfg.mesh and self.mesh.n > 1 and self.mesh.group is None:
+                from ..parallel.sharded_pairs import build_pairs_mesh
+                self._pairs, _ = build_pairs_mesh(
+                    self.idx, self.db.lengths, self.mesh, self.cfg.mc_lower,
+                    self.cfg.mc_upper, self.cfg.min_anchor_dist,
+                    self.cfg.ovlp_upper)
+            elif self.cfg.device_pairs:
                 from ..ops.device_pairs import build_pairs_device
                 self._pairs, _ = build_pairs_device(
                     self.idx, self.db.lengths, self.device,
@@ -403,14 +427,16 @@ class Assembly:
                     self.db, self.idx, self.cfg, self.device,
                     n_chunks=n_chunks or (n_workers + 1),
                     n_host_workers=n_workers)
-            elif self.cfg.use_device_aligner and dedup:
+            elif self.cfg.use_device_aligner and dedup \
+                    and not self.cfg.shard_overlap:
                 from ..ops.overlap import overlap_all_spec
                 ovlps = overlap_all_spec(self.db, self.idx, self.cfg,
                                          n_workers=n_workers,
                                          backend="device",
                                          pairs=self._pair_map(),
                                          device=self.device)
-            elif dedup and self.cfg.spill_dir is not None:
+            elif dedup and self.cfg.spill_dir is not None \
+                    and not self.cfg.shard_overlap:
                 # low-memory mode: overlap_all_spec builds and frees its
                 # own pair map, and stage 4 rebuilds it (the JAX package
                 # shares it when the spill filesystem has room)
@@ -425,7 +451,7 @@ class Assembly:
                     log.warning("device aligner runs in-process; "
                                 "n_chunks/n_workers ignored")
                 ovlps = overlap_chunk_device(self.db, self.idx, self.cfg,
-                                             self.device)
+                                             self.device, mesh=self.mesh)
             else:
                 if n_workers is None:
                     n_workers = 1 if len(self.db) < 2000 else (os.cpu_count() or 1)
@@ -621,11 +647,224 @@ class Assembly:
                 fa = self.build_consensus()
         return fa
 
-    # --- not yet ported --------------------------------------------------
+    # --- several processes (--multihost) ---------------------------------
+    def _mh_overlap(self, rank: int, nranks: int, barrier) -> None:
+        """Stage 2 with the alignment rounds split between the ranks.
 
-    def run_multihost(self, reads_list: str, with_consensus: bool = False):
-        raise not_ported("the multihost pipeline (--multihost)",
-                         "queue 1, flag paths")
+        Every rank runs the same deterministic collect loop
+        (overlap_all_spec); rank r aligns only its block-cyclic share of
+        each round's requests, the results travel through exchange files
+        in the output directory with a barrier a round, every rank merges
+        the same full result set, and the final exact replay runs on rank
+        0 alone, so preads.ovl is byte-identical to the single-process
+        run at any rank count."""
+        from ..ops.overlap import overlap_all_spec, write_ovl_file
+
+        path = os.path.join(self.outdir, "2-ovlp", "preads.ovl")
+        xdir = os.path.join(self.outdir, "2-ovlp", "xchg")
+        os.makedirs(xdir, exist_ok=True)
+        self._maybe_auto_spill()
+
+        def exchange(rnd: int, reqs, res, mine):
+            my_idx = np.flatnonzero(mine)
+            p = os.path.join(xdir, f"res-r{rnd}-p{rank}.npz")
+            np.savez(p + ".tmp.npz", idx=my_idx, res=res[my_idx],
+                     n=np.int64(len(res)))
+            os.replace(p + ".tmp.npz", p)
+            barrier(f"pg-tpu ovl-xchg-{rnd}")
+            for r in range(nranks):
+                if r == rank:
+                    continue
+                with np.load(os.path.join(
+                        xdir, f"res-r{rnd}-p{r}.npz")) as d:
+                    if int(d["n"]) != len(res):
+                        raise RuntimeError(
+                            f"overlap exchange round {rnd}: rank {r} "
+                            f"collected {int(d['n'])} requests vs local "
+                            f"{len(res)}: the ranks diverged")
+                    res[d["idx"]] = d["res"]
+            return res
+
+        t0 = time.time()
+        ovlps = overlap_all_spec(
+            self.db, self.idx, self.cfg, n_workers=os.cpu_count() or 1,
+            backend="host", pairs=None, shard=(rank, nranks),
+            exchange=exchange, run_final=(rank == 0))
+        # every rank has read the last round's files before rank 0
+        # removes them
+        barrier("pg-tpu ovl-xchg-done")
+        if rank == 0:
+            n_rows = write_ovl_file(path, ovlps)
+            wall = time.time() - t0
+            log.info("stage 2 overlap [multihost x%d]: %d records -> %d "
+                     "rows (%.1fs on rank 0)", nranks, len(ovlps), n_rows,
+                     wall, extra={"stage_wall": ("overlap", wall)})
+            import shutil
+            shutil.rmtree(xdir, ignore_errors=True)
+
+    def _mh_consensus(self, rank: int, nranks: int, barrier,
+                      n_workers: int | None = None) -> str:
+        """Stage 4 with the consensus windows split by job index % nranks.
+        Rank 0 maps the reads to the contigs (read_map.npy and
+        read_map_offs.npy in 4-cns), every rank computes its share of the
+        windows, the segments travel through exchange files, and rank 0
+        stitches and writes p_ctg_cns.fa, byte-identical to the
+        single-process consensus."""
+        import pickle
+
+        from ..ops.consensus import consensus_windows, plan_all, stitch_all
+
+        cns_dir = os.path.join(self.outdir, "4-cns")
+        out_fa = os.path.join(cns_dir, "p_ctg_cns.fa")
+        if _stage_done(out_fa):
+            return out_fa
+        if rank == 0:
+            self._ensure_mapping()
+        barrier("pg-tpu stage4-map")
+
+        t0 = time.time()
+        ctg_db = SeqDB.open(os.path.join(cns_dir, "ctg"))
+        mm = np.load(os.path.join(cns_dir, "read_map.npy"), mmap_mode="r")
+        offs = np.load(os.path.join(cns_dir, "read_map_offs.npy"))
+        contig_rows = {rid: mm[offs[rid]:offs[rid + 1]]
+                       for rid in range(len(ctg_db))}
+        plans = plan_all(contig_rows, ctg_db.lengths, self.cfg)
+        if self._save_thread is not None:
+            # the window threads re-open the seqdb from disk
+            self._save_thread.join()
+            self._save_thread = None
+        read_db = SeqDB.open(
+            os.path.join(self.outdir, "0-seqdb", "seq_dataset"))
+        part = consensus_windows(read_db, ctg_db, plans, self.cfg,
+                                 n_workers or os.cpu_count() or 1,
+                                 shard=(rank, nranks))
+        n_windows = sum(len(s) for s in plans.values())
+        log.info("stage 4 consensus [multihost]: rank %d computed %d of "
+                 "%d windows (%.1fs)", rank, len(part), n_windows,
+                 time.time() - t0)
+        xdir = os.path.join(cns_dir, "xchg")
+        os.makedirs(xdir, exist_ok=True)
+        p = os.path.join(xdir, f"cns-p{rank}.pkl")
+        with open(p + ".tmp", "wb") as f:
+            pickle.dump(part, f)
+        os.replace(p + ".tmp", p)
+        barrier("pg-tpu stage4-cns")
+        if rank != 0:
+            return out_fa
+        results = dict(part)
+        for r in range(1, nranks):
+            # written by this run's ranks, in this run's output directory
+            with open(os.path.join(xdir, f"cns-p{r}.pkl"), "rb") as f:
+                results.update(pickle.load(f))
+        seqs = stitch_all(plans, results)
+        with open(out_fa + ".tmp", "w") as f:
+            for ctg_rid in range(len(ctg_db)):
+                f.write(f">{ctg_db.names[ctg_rid]}\n"
+                        f"{seqs[ctg_rid].decode()}\n")
+        os.replace(out_fa + ".tmp", out_fa)
+        import shutil
+        shutil.rmtree(xdir, ignore_errors=True)
+        log.info("stage 4 consensus done [multihost x%d]", nranks)
+        return out_fa
+
+    def _ensure_mapping(self) -> None:
+        """The stage-4 mapping (contig seqdb, its index on the device and
+        the grouped rows read_map.npy + read_map_offs.npy), unless it is
+        on disk already: the shared input of the consensus ranks."""
+        from ..ops.mapping import map_reads_to_ref_grouped
+
+        cns_dir = os.path.join(self.outdir, "4-cns")
+        os.makedirs(cns_dir, exist_ok=True)
+        if _stage_done(os.path.join(cns_dir, "read_map_offs.npy")):
+            return
+        t0 = time.time()
+        ctg_prefix = os.path.join(cns_dir, "ctg")
+        ctg_db = SeqDB.from_reads(
+            read_fastx(os.path.join(self.outdir, "3-asm", "p_ctg.fa")))
+        ctg_db.save(ctg_prefix)
+        ctg_idx = build_index(ctg_db, self.cfg, self.device)
+        mm, offs = map_reads_to_ref_grouped(
+            self.idx, self.db.lengths, ctg_idx, self.cfg,
+            os.path.join(cns_dir, "read_map.npy"), len(ctg_db),
+            pairs=self._pairs)
+        tmp = os.path.join(cns_dir, "read_map_offs.npy.tmp.npy")
+        np.save(tmp, offs)
+        os.replace(tmp, os.path.join(cns_dir, "read_map_offs.npy"))
+        log.info("stage 4 mapping: %d rows (%.1fs; external grouped)",
+                 len(mm), time.time() - t0)
+
+    def run_multihost(self, reads_list: str, with_consensus: bool = False
+                      ) -> str | None:
+        """The pipeline in several processes sharing the output directory,
+        one rank each of the torch.distributed group that
+        parallel.distributed.init_distributed joined (one process, rank 0
+        of 1, without a group):
+
+          0 seqdb    rank 0
+          1 index    every rank over the global mesh, one shard a rank
+                     (data-parallel sketch, hash exchange, replicated)
+          2 overlap  every rank: the alignment rounds split block-
+                     cyclically (_mh_overlap); final replay on rank 0
+          3 layout   rank 0
+          4 mapping  rank 0; the consensus windows split between every
+                     rank (_mh_consensus)
+
+        Every stage output is byte-identical to the single-process run at
+        any rank count.  Returns the final fasta path on rank 0, None
+        elsewhere."""
+        from ..parallel import distributed
+        from ..parallel.sharded_index import build_index_mesh
+
+        rank, nranks = distributed.rank(), distributed.world_size()
+        primary = rank == 0
+        barrier = distributed.barrier
+        if primary:
+            self.build_db(reads_list=reads_list)
+        barrier("pg-tpu stage0")
+        if not primary:
+            self.db = SeqDB.open(
+                os.path.join(self.outdir, "0-seqdb", "seq_dataset"))
+
+        prefix = os.path.join(self.outdir, "1-index", "shmr")
+        level = self.cfg.levels
+        mm = f"{prefix}-L{level}-01-of-01.dat"
+        if _stage_done(mm):
+            self.idx = ShimmerIndex.load_chunks(
+                [mm], [f"{prefix}-L{level}-MC-01-of-01.dat"])
+        else:
+            t0 = time.time()
+            mesh = distributed.global_mesh(self.device)
+            self.idx = build_index_mesh(self.db, self.cfg, mesh)
+            if primary:
+                self.idx.save(prefix, level=level)
+                wall = time.time() - t0
+                log.info("stage 1 index [multihost x%d over %s]: %d "
+                         "SHIMMERs (%.1fs)", nranks, mesh, len(self.idx.x),
+                         wall, extra={"stage_wall": ("index", wall)})
+        barrier("pg-tpu stage1")
+
+        if not _stage_done(os.path.join(self.outdir, "2-ovlp",
+                                        "preads.ovl")):
+            if nranks > 1:
+                self._mh_overlap(rank, nranks, barrier)
+            elif primary:
+                self.build_overlaps()
+        barrier("pg-tpu stage2")
+
+        fa = None
+        if primary:
+            fa = self.build_contigs()
+        barrier("pg-tpu stage3")
+
+        if with_consensus:
+            if nranks > 1:
+                out = self._mh_consensus(rank, nranks, barrier)
+                if primary:
+                    fa = out
+            elif primary:
+                fa = self.build_consensus()
+        barrier("pg-tpu final")
+        return fa if primary else None
 
 
 @contextlib.contextmanager

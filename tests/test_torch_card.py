@@ -19,7 +19,10 @@ check what each launch published to its status and that it zeroed the
 earlier one, and repeat launches on two status buffers in turn to catch
 races.  move_plane and reduce_step write only the columns below their
 counts, so the columns past them keep the canary; compact_planes writes
-every column, the fills past the count included.
+every column, the fills past the count included.  The mesh tests put a
+two-shard mesh on one card and, where there are two, one shard on each;
+the two-card tests also run --mesh and --shard-overlap over both cards
+and run_multihost on two ranks, one a card, over NCCL and over gloo.
 """
 
 import numpy as np
@@ -33,6 +36,8 @@ pytestmark = [pytest.mark.cuda,
               pytest.mark.skipif(not torch.cuda.is_available(),
                                  reason="needs a CUDA card: the kernels "
                                  "build with nvcc there")]
+TWO_CARDS = pytest.mark.skipif(torch.cuda.device_count() < 2,
+                               reason="needs two CUDA cards")
 
 B, K, W, R = 64, 16, 80, 6
 CANARY = 0x5A5A5A5A
@@ -628,3 +633,156 @@ def test_api_on_the_card_matches_the_cpu():
     reads = [r if i % 2 == 0 else revcomp(r) for i, r in enumerate(reads)]
     assert api.get_cns_from_reads(reads, device="cuda") \
         == api.get_cns_from_reads(reads, device="cpu")
+
+
+@pytest.mark.parametrize("cards", [
+    pytest.param(("cuda:0", "cuda:0"), id="one-card"),
+    pytest.param(("cuda:0", "cuda:1"), id="two-cards", marks=TWO_CARDS)])
+@pytest.mark.parametrize("k", [16, 28])
+def test_mesh_on_the_card_matches_the_cpu_mesh(k, cards):
+    """A two-shard Mesh on the card (both shards on cuda:0, or one on each
+    of two cards) gives the two-shard cpu Mesh's build_index_mesh,
+    build_pairs_mesh and sharded_align (the cpu meshes are held to the
+    JAX package and to the single-device builds by the CPU tests), and
+    its index launches the k's kernels on the card."""
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.parallel.mesh import Mesh
+    from peregrine_tpu_torch.parallel.sharded_index import build_index_mesh
+    from peregrine_tpu_torch.parallel.sharded_overlap import (shard_seqdb,
+                                                             sharded_align)
+    from peregrine_tpu_torch.parallel.sharded_pairs import build_pairs_mesh
+    from peregrine_tpu_torch.simdata import random_genome, simulate_reads
+
+    rng = np.random.default_rng(k)
+    genome = random_genome(rng, 60000)
+    reads, _ = simulate_reads(rng, genome, read_len=5000, coverage=10.0)
+    db = SeqDB.from_reads(reads)
+    cfg = AsmConfig(k=k, sketch_pad_len=8192, sketch_batch=16)
+    meshes = {"cuda": Mesh(cards), "cpu": Mesh(["cpu"] * 2)}
+    kn.reset_launches()
+    idx = {dev: build_index_mesh(db, cfg, m) for dev, m in meshes.items()}
+    launched = [fn.__name__ for fn in kn.KERNELS if fn.launches]
+    assert launched == (["compact_planes"] if k > 16 else
+                        ["build_stream", "move_plane", "emit_mask",
+                         "reduce_step"])
+    for f in ("x", "y", "mc_hash", "mc_count"):
+        np.testing.assert_array_equal(getattr(idx["cuda"], f),
+                                      getattr(idx["cpu"], f), err_msg=f)
+    pairs = {dev: build_pairs_mesh(idx["cpu"], db.lengths, m)
+             for dev, m in meshes.items()}
+    for a, b in zip(pairs["cuda"][0] + pairs["cuda"][1],
+                    pairs["cpu"][0] + pairs["cpu"][1]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    nreq = 64
+    q = rng.integers(0, len(db), nreq)
+    t = rng.integers(0, len(db), nreq)
+    shift = rng.integers(0, 300, nreq)
+    req = (q, db.offsets[q] + shift, db.lengths[q] - shift,
+           rng.integers(0, 2, nreq), t, db.offsets[t], db.lengths[t],
+           rng.integers(0, 2, nreq))
+    got = {dev: sharded_align(shard_seqdb(db.data, db.offsets, db.lengths, m),
+                              *req, L=8192)
+           for dev, m in meshes.items()}
+    for a, b in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def _multihost_reads(d):
+    """tests/test_torch_multihost.py's reads (those of
+    scripts/multihost_pipeline.py) in d/reads.lst."""
+    from peregrine_tpu_torch.simdata import (random_genome, simulate_reads,
+                                             write_reads)
+    rng = np.random.default_rng(11)
+    genome = random_genome(rng, 60000)
+    reads, _ = simulate_reads(rng, genome, read_len=4000, coverage=14.0,
+                              error=0.005, circular_wrap=6000)
+    lst = str(d / "reads.lst")
+    write_reads(reads, str(d / "reads.fa"), lst)
+    return reads, lst
+
+
+def _same_stage_files(a, b, rels):
+    import os
+    for rel in rels:
+        with open(os.path.join(a, rel), "rb") as fa, \
+                open(os.path.join(b, rel), "rb") as fb:
+            assert fa.read() == fb.read(), f"{rel} differs"
+
+
+@TWO_CARDS
+def test_mesh_flags_on_two_cards_match_one_card(tmp_path):
+    """cfg.mesh and cfg.shard_overlap over make_mesh("cuda", 2), one shard
+    on each card, write one card's index, preads.ovl and p_ctg.fa (the
+    same flags on a mesh of one shard, which takes the single-device
+    paths: overlap_chunk_device unsharded), and launch their kernels."""
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.ops import device_align as da
+    from peregrine_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from peregrine_tpu_torch.pipeline.run import Assembly
+
+    reads, _ = _multihost_reads(tmp_path)
+    cfg = AsmConfig(k=12, w=24, r=4, min_len=2500, sketch_pad_len=8192,
+                    sketch_batch=8, use_device_aligner=True, mesh=True,
+                    shard_overlap=True)
+    mesh = make_mesh("cuda", 2)
+    assert [str(d) for d in mesh.devices] == ["cuda:0", "cuda:1"]
+    Assembly(str(tmp_path / "one"), cfg, device="cuda",
+             mesh=Mesh(["cuda:0"])).run_draft(reads=reads)
+    kn.reset_launches()
+    da.myers_batch_db.launches = 0
+    Assembly(str(tmp_path / "two"), cfg, device="cuda",
+             mesh=mesh).run_draft(reads=reads)
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    assert all(fn.launches for fn in kn.KERNELS[:4])
+    assert da.myers_batch_db.launches >= 2
+    _same_stage_files(tmp_path / "one", tmp_path / "two",
+                      ("1-index/shmr-L2-01-of-01.dat", "2-ovlp/preads.ovl",
+                       "3-asm/p_ctg.fa"))
+
+
+@TWO_CARDS
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_multihost_on_two_cards_matches_one_process(tmp_path, backend):
+    """run_multihost(with_consensus=True) on two ranks, rank r on cuda:r
+    (LOCAL_RANK), over NCCL and over gloo (which exchanges through host
+    memory), writes the one-process run's preads.ovl, p_ctg.fa and
+    p_ctg_cns.fa."""
+    import os
+    import subprocess
+    import sys
+
+    from peregrine_tpu_torch.pipeline.run import Assembly
+    from torch_multihost_worker import PIPELINE_CFG
+
+    _, lst = _multihost_reads(tmp_path)
+    Assembly(str(tmp_path / "one"), PIPELINE_CFG,
+             device="cuda").run_multihost(lst, with_consensus=True)
+    out = tmp_path / "two"
+    out.mkdir()
+    os.symlink(lst, out / "reads.lst")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = root
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests",
+                                      "torch_multihost_worker.py"),
+         "pipeline", str(r), "2", f"file://{out}/init", str(out), "cuda",
+         backend], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(env, LOCAL_RANK=str(r))) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{o[-3000:]}"
+        assert f'"rank": {r}' in o
+    _same_stage_files(tmp_path / "one", out / "wd",
+                      ("2-ovlp/preads.ovl", "3-asm/p_ctg.fa",
+                       "4-cns/p_ctg_cns.fa"))

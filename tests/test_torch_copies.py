@@ -107,7 +107,10 @@ def test_every_copied_module_is_checked():
     ported = {"__init__.py", "api.py", "cli.py", "ops/__init__.py",
               "ops/dbgather.py", "ops/device_align.py", "ops/device_pairs.py",
               "ops/index.py", "ops/overlap.py", "ops/reduce.py",
-              "ops/sketch.py", "pipeline/__init__.py", "pipeline/run.py"}
+              "ops/sketch.py", "parallel/__init__.py",
+              "parallel/distributed.py", "parallel/sharded_index.py",
+              "parallel/sharded_overlap.py", "parallel/sharded_pairs.py",
+              "pipeline/__init__.py", "pipeline/run.py"}
     port = ROOT / "peregrine_tpu_torch"
     twins = {str(p.relative_to(port)) for p in port.rglob("*.py")
              if (ROOT / "peregrine_tpu" / p.relative_to(port)).exists()}

@@ -1,6 +1,6 @@
 """The port stands without JAX: no module of peregrine_tpu_torch (nor
-chip_smoke.py, nor the kernel cases it loads) imports jax or the JAX
-package, every module imports with both made unimportable, and
+chip_smoke.py, nor the kernel cases it loads, nor the multi-process
+tests' worker) imports jax or the JAX package, every module imports with both made unimportable, and
 chip_smoke.py refuses to run without a card or outside a checkout."""
 
 import ast
@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "peregrine_tpu")
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_kernel_cases.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_kernel_cases.py",
+        ROOT / "tests" / "torch_multihost_worker.py"]
 
 
 def _imported(path: pathlib.Path):

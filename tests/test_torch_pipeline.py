@@ -3,9 +3,11 @@
 The JAX package's CLI and the port's CLI (--device cpu) run on the same
 simulated reads; the index files, preads.ovl and p_ctg.fa must be
 byte-identical.  Also: resume in the port, a JAX-written output directory
-resumed by the port, asm --profile-dir, and the port's refusals (unported
-flags, a missing CUDA device, a changed config).  The device stage-2 flags are in
-tests/test_torch_overlap_device.py.  Stage 4 (--with-consensus) and the
+resumed by the port, asm --profile-dir, and the port's refusals (a missing
+CUDA device, a changed config).  The device stage-2 flags are in
+tests/test_torch_overlap_device.py; --mesh, --shard-overlap and
+--multihost in tests/test_torch_parallel.py and
+tests/test_torch_multihost.py.  Stage 4 (--with-consensus) and the
 level-0 index are in tests/test_torch_consensus.py.
 """
 
@@ -150,16 +152,6 @@ def test_asm_profile_dir(jax_runs):
     with open(os.path.join(prof, traces[0])) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
-
-
-@pytest.mark.parametrize("flag", ["--shard-overlap", "--mesh", "--multihost"])
-def test_unported_flags_exit_nonzero(tmp_path, capsys, flag):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["asm", "reads.lst", "--output", str(tmp_path / "wd"),
-                  "--device", "cpu", flag])
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "wd")
 
 
 def test_missing_cuda_raises(tmp_path):
