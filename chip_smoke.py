@@ -6,7 +6,7 @@
     python3 chip_smoke.py --index-profile # phases 1-2, then stage 1 profiled
     python3 chip_smoke.py --index-profile --profile-k 28   # the same at k=28
     python3 chip_smoke.py --aligner-sass  # phases 1-2, then the aligner's
-                                          # SASS loops
+                                          # SASS loops, registers, spills
     python3 chip_smoke.py --cli-only      # phases 1-2, 5, 6 and 9
 
 Phases, in order; any failure raises and exits non-zero:
@@ -30,8 +30,10 @@ Phases, in order; any failure raises and exits non-zero:
      L = COMPACT_CHUNK - 1, COMPACT_CHUNK, COMPACT_CHUNK + 1, 16384 with
      planes of 8+8+4, 8+8 and 4+8+4 bytes), after which the look-back
      status that the next launch will take must be zeroed; and
-     pg_myers_align on 1,024 E. coli-class read pairs and on the crafted
-     lanes of tests/torch_kernel_cases.py, with its operation bound; kernel times
+     pg_myers_align on 1,024 E. coli-class read pairs, on the crafted
+     lanes of tests/torch_kernel_cases.py (windows at every word offset)
+     and on its plane-end lanes (planes cut to the data and followed by
+     junk, windows past the end), with its operation bound; kernel times
      are device times (many launches back to back between two CUDA
      events, divided by their number), plain times the same over a few
      calls; each kernel's byte bound at its main-path shape from this
@@ -476,29 +478,51 @@ def phase_kernels(results: dict) -> None:
             f" {bound_ms / ms:.4f} of the bound")
 
 
-def phase_align(results: dict) -> None:
-    """pg_myers_align against its plain version on the card, exactly, at
-    the main shape (1,024 E. coli-class read pairs: reads of 15 kb +-
-    1.5 kb, both strands, 1% error) and on the crafted lanes of
-    tests/torch_kernel_cases.py (at the 15 kb read length, one lane at
-    aln_max_len), each with its operation bound and the plain time."""
+def align_shapes(kernel_cases):
+    """Phase 3's aligner inputs, as (label, packed seqdb on the card,
+    request columns): the main shape (1,024 E. coli-class read pairs:
+    reads of 15 kb +- 1.5 kb, both strands, 1% error); the crafted lanes
+    of tests/torch_kernel_cases.py at the 15 kb read length (one lane at
+    aln_max_len; windows at every word offset); and the crafted lanes at
+    1.5 kb with lanes that run past the data's end, on planes cut to the
+    data that start one byte past a word and are followed by junk (the
+    kernel must read the clamped last byte, never the junk)."""
     import torch
 
     from peregrine_tpu_torch.io.seqdb import SeqDB
-    from peregrine_tpu_torch.ops import device_align as da
-    from peregrine_tpu_torch.ops.dbgather import upload_seqdb
+    from peregrine_tpu_torch.ops.dbgather import PackedSeqDB, upload_seqdb
 
-    kernel_cases = load_kernel_cases()
     rng = np.random.default_rng(7)
-    shapes = []
+    out = []
     for label, (seqs, cols) in (
             ("main", kernel_cases.myers_requests(rng, 1024, READ_LEN, 1500,
                                                  0.01)),
             ("crafted", kernel_cases.myers_lanes(rng, READ_LEN,
                                                  ALN_MAX_LEN))):
         db = SeqDB.from_reads([(str(i), q) for i, q in enumerate(seqs)])
-        pdb = upload_seqdb(db.data, "cuda")
-        c = torch.from_numpy(cols).cuda()
+        out.append((label, upload_seqdb(db.data, "cuda"),
+                    torch.from_numpy(cols).cuda()))
+    seqs, cols = kernel_cases.myers_lanes(rng, 1500, 4096)
+    cols = np.concatenate([cols, kernel_cases.myers_past_end_lanes(seqs)])
+    fw, amb, nf, na = kernel_cases.plane_end_planes(seqs, junk=4096, seed=7)
+
+    def view(a, n):
+        return torch.from_numpy(np.concatenate([[0xA5], a]).astype(
+            np.uint8)).cuda()[1:1 + n]
+    out.append(("plane_end", PackedSeqDB(fw=view(fw, nf), amb=view(amb, na)),
+                torch.from_numpy(cols).cuda()))
+    return out
+
+
+def phase_align(results: dict) -> None:
+    """pg_myers_align against its plain version on the card, exactly, on
+    align_shapes' inputs, each with its operation bound and the plain
+    time."""
+    from peregrine_tpu_torch.ops import device_align as da
+
+    shapes = []
+    for label, pdb, c in align_shapes(load_kernel_cases()):
+        cols = c.cpu().numpy()
         got = da.myers_batch_db(pdb, c)
         a, b = _events()
         a.record()
@@ -1621,12 +1645,17 @@ def phase_mesh(lst: str, wd: str, calls) -> dict:
     return res
 
 
-def aligner_sass(lib_path: str) -> None:
+def aligner_sass(lib_path: str) -> dict:
     """Each loop of pg_myers_align's SASS (cuobjdump of the built
-    library), with its instructions by opcode.  The column loop is the
-    innermost loop with two byte loads (the target base's fw and amb
-    bytes): its length is what the kernel executes per lane and target
-    column, beside MYERS_OPS_PER_COLUMN, what the function needs."""
+    library), with its instructions by opcode, and the kernel's registers
+    and local (spill) bytes.  The column loops are the innermost loops
+    with at least 32 LOP3s (8 block updates of several three-input logic
+    operations each).  A loop body may hold several columns: the match
+    word takes two LOP3s with the table 0x82 a block, 16 a column, so a
+    body runs (its 0x82 LOP3s) / 16 columns, or one if it has none.
+    Instructions a lane-column are the body's length over its columns;
+    the least over the column loops is what an unambiguous column runs,
+    beside MYERS_OPS_PER_COLUMN, what the function needs."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
@@ -1638,7 +1667,7 @@ def aligner_sass(lib_path: str) -> None:
         if m and int(m.group(1), 16) < a:
             loops.append((int(m.group(1), 16), a))
     say(f"pg_myers_align SASS: {len(ins)} instructions, {len(loops)} loops")
-    column = None
+    columns = []
     for lo, hi in loops:
         body = [op for a, op in ins if lo <= a <= hi]
         inner = not any(lo <= x and y <= hi and (x, y) != (lo, hi)
@@ -1647,16 +1676,33 @@ def aligner_sass(lib_path: str) -> None:
         for op in body:
             name = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0]
             ops[name] = ops.get(name, 0) + 1
-        byte_loads = sum("LDG.E.U8" in op for op in body)
+        loads = sum(op.startswith("LDG") or " LDG" in op for op in body)
         say(f"  loop {lo:#x}-{hi:#x}{' (innermost)' if inner else ''}: "
-            f"{len(body)} instructions, {byte_loads} byte loads; "
+            f"{len(body)} instructions, {loads} global loads; "
             + ", ".join(f"{k} {v}" for k, v in sorted(
                 ops.items(), key=lambda kv: -kv[1])))
-        if inner and byte_loads == 2:
-            column = len(body)
-    say(f"column loop: {column} instructions a lane and target column; the "
-        f"function needs {MYERS_OPS_PER_COLUMN} (MYERS_OPS_PER_COLUMN)"
-        if column else "column loop: not identified")
+        if inner and ops.get("LOP3", 0) >= 32:
+            per = max(1, sum("LOP3" in op and "0x82" in op for op in body)
+                      // 16)
+            columns.append(len(body) / per)
+    res = subprocess.run([tool, "-res-usage", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    m = re.search(r"myers_align_kernel.*?REG:(\d+).*?STACK:(\d+).*?"
+                  r"LOCAL:(\d+)", res, re.S)
+    regs, stack, local = (int(g) for g in m.groups()) if m else (0, 0, 0)
+    spills = sum(op.split()[0].split(".")[0] in ("STL", "LDL")
+                 for _, op in ins)
+    out = {"column_loops": columns,
+           "instructions_per_lane_column": min(columns) if columns else None,
+           "ops_per_lane_column_needed": MYERS_OPS_PER_COLUMN,
+           "registers": regs, "stack_bytes": stack, "local_bytes": local,
+           "local_loads_and_stores": spills}
+    say(f"column loop: {out['instructions_per_lane_column']} instructions a "
+        f"lane and target column (column loops {columns} a column); the "
+        f"function needs {MYERS_OPS_PER_COLUMN} (MYERS_OPS_PER_COLUMN); "
+        f"{regs} registers, stack {stack} B, local {local} B, {spills} "
+        "local loads and stores (spills)")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1712,7 +1758,7 @@ def main(argv=None) -> int:
         f"{t_native:.1f} s")
 
     if args.aligner_sass:
-        aligner_sass(da.library()._name)
+        say(json.dumps({"aligner_sass": aligner_sass(da.library()._name)}))
         return 0
 
     # phase 3: kernels against their plain versions

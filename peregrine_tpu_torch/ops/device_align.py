@@ -10,7 +10,8 @@ along the anchor diagonal, and the alignment's ends.
                       requests as seven int64 columns against the packed
                       device seqdb; on a CUDA tensor one launch of
                       pg_myers_align (csrc/myers_align.cu) for every lane,
-                      on a CPU tensor gather_codes then myers_core_plain
+                      longest target first (launch_order), on a CPU
+                      tensor gather_codes then myers_core_plain
   myers_core_plain <- _myers_core: the plain PyTorch version, vectorised
                       over lanes with a Python loop over columns
   myers_batch_np   <- myers_batch_np (:257): lists of code arrays
@@ -44,8 +45,8 @@ _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of the C entry, in the order of its prototype in the .cu file
 # (a test checks the two agree)
 SIGNATURES = {
-    "pg_myers_align": [_VP, _VP, _I64, _I64, _VP, _INT, _INT, _VP, _VP, _VP,
-                       _VP],
+    "pg_myers_align": [_VP, _VP, _I64, _I64, _VP, _VP, _INT, _INT, _VP, _VP,
+                       _VP, _VP],
 }
 _lib = None
 
@@ -185,12 +186,21 @@ def myers_batch_db_plain(pdb: PackedSeqDB, cols: torch.Tensor, *,
     return myers_core_plain(qc, q_len, tc, t_len, nb=nb)
 
 
+def launch_order(cols: torch.Tensor) -> torch.Tensor:
+    """The order in which the kernel's lanes take the requests: by
+    descending t_len, then request index (a stable sort), so that a
+    warp's 32 lanes end together and the longest start first."""
+    return torch.sort(cols[:, 5], descending=True, stable=True).indices
+
+
 def myers_batch_db(pdb: PackedSeqDB, cols: torch.Tensor, *, nb: int = NB):
     """Align [B, 7] int64 requests (q_off, q_rstart, q_len, q_strand,
     t_off, t_len, t_strand) against the packed seqdb on its device.
     Returns (dist, q_end, t_end) int32 [B] on that device: on a CUDA
-    device from one pg_myers_align launch for all B lanes, on the CPU from
-    the plain version."""
+    device from one pg_myers_align launch for all B lanes (lane i works
+    on request launch_order(cols)[i] and writes its outputs there, so
+    they come back in request order), on the CPU from the plain
+    version."""
     B = cols.shape[0]
     if cols.dtype != torch.int64 or cols.dim() != 2 or cols.shape[1] != 7:
         raise ValueError(f"cols: want int64 [B, 7], got {cols.dtype} "
@@ -217,7 +227,7 @@ def myers_batch_db(pdb: PackedSeqDB, cols: torch.Tensor, *, nb: int = NB):
            for _ in range(3)]
     if B:
         _call(library().pg_myers_align, pdb.fw, pdb.amb, pdb.fw.numel(),
-              pdb.amb.numel(), cols, B, nb, *out)
+              pdb.amb.numel(), cols, launch_order(cols), B, nb, *out)
         myers_batch_db.launches += 1
     return tuple(out)
 

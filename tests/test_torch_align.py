@@ -6,7 +6,10 @@ torch_kernel_cases.myers_lanes (identical sequences, a query shorter
 than its target and the reverse, q_len < 32, a t_len not a multiple of
 32, 10% error, tandem repeats at the ends, ambiguous bases, a lane at
 aln_max_len, a query window inside its read, empty and one-base
-sequences, each on all four strand pairs) and random overlap requests.
+sequences, windows starting at every residue mod 16 with t_len of 16m +- 1
+and 32m +- 1, strand-1 windows down to the first base after the guard,
+and windows that end on the data's last base, each on all four strand
+pairs) and random overlap requests.
 Every output is an integer, so the tolerance is exact equality.  The JAX
 aligner runs at unroll=1, as its own CPU tests run it.
 """
@@ -63,6 +66,18 @@ def lanes():
             "random": kernel_cases.myers_requests(rng, 48, 2000, 300, 0.01)}
 
 
+_JAX_LANES = {}
+
+
+def _jax_lanes(lanes, kind):
+    """JAX myers_batch_db of a kind's lanes at the 8 kb pad class, once."""
+    if kind not in _JAX_LANES:
+        seqs, cols = lanes[kind]
+        assert max(cols[:, 2].max(), cols[:, 5].max()) <= 8192
+        _JAX_LANES[kind] = _jax_db_lanes(seqs, cols, 8192)
+    return _JAX_LANES[kind]
+
+
 @pytest.mark.parametrize("kind", ["crafted", "random"])
 def test_myers_batch_db_matches_jax(lanes, kind):
     """myers_batch_db on CPU tensors (gather_codes + myers_core_plain) is
@@ -72,13 +87,77 @@ def test_myers_batch_db_matches_jax(lanes, kind):
     before = da.myers_batch_db.launches
     got = da.myers_batch_db(dbgather.upload_seqdb(_db(seqs).data, "cpu"),
                             torch.from_numpy(cols))
-    L = 8192
-    assert max(cols[:, 2].max(), cols[:, 5].max()) <= L
-    want = _jax_db_lanes(seqs, cols, L)
+    want = _jax_lanes(lanes, kind)
     for name, g, w in zip(("dist", "q_end", "t_end"), got, want):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
     assert da.myers_batch_db.launches == before   # the plain route
+
+
+def test_crafted_lanes_reach_every_word_boundary(lanes):
+    """The crafted lanes start query and target reads at every residue
+    mod 16 on all four strand pairs, hold t_len of 16m +- 1 and 32m +- 1,
+    read strand 1 down to the first base after the guard, and end
+    queries and targets of both strands on the data's last base, whose
+    count is a multiple of 8 (so planes cut to the data end there)."""
+    seqs, cols = lanes["crafted"]
+    n = sum(len(s) for s in seqs)
+    assert n % 8 == 0
+    q_off, rs, q_len, qs, t_off, t_len, ts = cols.T
+    q_lo = np.where(qs == 0, q_off, rs)
+    for s in range(2):
+        for s2 in range(2):
+            pair = (qs == s) & (ts == s2)
+            assert set(q_lo[pair] % 16) == set(range(16))
+            assert set(t_off[pair] % 16) == set(range(16))
+            # strand 1 reads its window from the top down to q_lo, t_off
+            assert ((q_lo[pair] == 0) & (q_len[pair] > 0)).any() or s == 0
+            assert ((t_off[pair] == 0) & (t_len[pair] > 1)).any() or s2 == 0
+            assert (np.where(qs == 0, q_off, rs)[pair] + q_len[pair]
+                    == n).any()
+            assert (t_off[pair] + t_len[pair] == n).any()
+            # t_len of 32m - 1, 32m + 1, 16(2m + 1) - 1 and 16(2m + 1) + 1
+            assert {1, 15, 17, 31} <= set(t_len[pair & (t_len > 32)] % 32)
+
+
+def test_plane_end_lanes_match_jax(lanes):
+    """The crafted lanes on planes cut to the data, so that the last
+    lanes end on the planes' last base, with junk after the planes that
+    gather_codes must never read (numpy views into larger buffers), give
+    the JAX package's results on its padded planes."""
+    seqs, cols = lanes["crafted"]
+    fw, amb, nf, na = kernel_cases.plane_end_planes(seqs, junk=64)
+    pdb = dbgather.PackedSeqDB(fw=torch.from_numpy(fw)[:nf],
+                               amb=torch.from_numpy(amb)[:na])
+    got = da.myers_batch_db(pdb, torch.from_numpy(cols))
+    for name, g, w in zip(("dist", "q_end", "t_end"), got,
+                          _jax_lanes(lanes, "crafted")):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+def test_past_end_lanes_clamp_to_the_last_byte(lanes):
+    """Windows that run past the planes' end read the last byte again, as
+    gather_codes' clamp (and the kernel) does, whatever follows the
+    planes: the past-end lanes give the same results over two kinds of
+    junk."""
+    seqs, _ = lanes["crafted"]
+    n = sum(len(s) for s in seqs)
+    cols = torch.from_numpy(kernel_cases.myers_past_end_lanes(seqs))
+    assert (cols[:, 4] + cols[:, 5] > n).all()
+    outs = []
+    for seed in (1, 2):
+        fw, amb, nf, na = kernel_cases.plane_end_planes(seqs, junk=64,
+                                                        seed=seed)
+        pdb = dbgather.PackedSeqDB(fw=torch.from_numpy(fw)[:nf],
+                                   amb=torch.from_numpy(amb)[:na])
+        one = torch.ones(1, dtype=torch.int64)
+        codes = dbgather.gather_codes(pdb, one * (n - 8), one * 40, one * 0,
+                                      40, fill=7)[0].tolist()
+        assert codes[8:] == [(int(fw[nf - 1]) >> 2 * ((n + i) % 4)) & 3
+                             for i in range(32)]
+        outs.append(da.myers_batch_db(pdb, cols))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def _views(seqs, cols):
@@ -149,8 +228,8 @@ def test_binding_matches_c_prototype():
                  for p in params.split(",")]
         assert kinds == da.SIGNATURES[name], name
         assert [p.split()[-1].lstrip("*") for p in params.split(",")] == [
-            "fw", "amb", "fw_bytes", "amb_bytes", "cols", "B", "nb", "dist",
-            "q_end", "t_end", "stream"]
+            "fw", "amb", "fw_bytes", "amb_bytes", "cols", "order", "B", "nb",
+            "dist", "q_end", "t_end", "stream"]
     const = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
     assert int(const["kNb"]) == da.NB and int(const["kWb"]) == da.WB
     assert const["kGuard"] == "1 << 16" and dbgather.GUARD_BASES == 1 << 16
@@ -178,6 +257,9 @@ class _FakeCudaTensor:
     def data_ptr(self):
         return self._t.data_ptr()
 
+    def __getitem__(self, index):
+        return self._t[index]
+
 
 def test_cuda_call_raises_without_fallback(monkeypatch):
     """On a host without a card a CUDA call raises; it never falls back
@@ -201,15 +283,32 @@ def test_cuda_call_raises_without_fallback(monkeypatch):
 
 def test_one_launch_for_all_lanes(monkeypatch):
     """On the CUDA branch every lane of a call goes to one pg_myers_align
-    launch with the planes' byte counts, and nb is the built width."""
+    launch with the planes' byte counts and the lane order (descending
+    t_len, stable on ties), nb is the built width, the outputs the kernel
+    writes at order[i] come back in request order, and B = 0 launches
+    nothing."""
     import types
     calls = []
+
+    def launch(fn, *args):
+        # the kernel's contract: lane i aligns request order[i] and
+        # writes its outputs there
+        calls.append((fn, args))
+        cols, order = args[4]._t, args[5]
+        for i, r in enumerate(order.tolist()):
+            args[8]._t[r] = cols[r, 5]
+            args[9]._t[r] = r
+            args[10]._t[r] = i
+
     monkeypatch.setattr(da, "library", lambda: types.SimpleNamespace(
         pg_myers_align="pg_myers_align"))
-    monkeypatch.setattr(da, "_call", lambda fn, *args: calls.append((fn, args)))
+    monkeypatch.setattr(da, "_call", launch)
     fw = _FakeCudaTensor(torch.zeros(96, dtype=torch.uint8))
     amb = _FakeCudaTensor(torch.zeros(48, dtype=torch.uint8))
-    cols = _FakeCudaTensor(torch.zeros((1500, 7), dtype=torch.int64))
+    rng = np.random.default_rng(2)
+    t_len = rng.integers(0, 40, 1500) * 100   # many ties
+    cols = _FakeCudaTensor(torch.from_numpy(
+        np.stack([t_len] * 7, 1).astype(np.int64)))
     monkeypatch.setattr(torch, "empty", lambda *a, **kw: _FakeCudaTensor(
         torch.zeros(a[0], dtype=kw["dtype"])))
     before = da.myers_batch_db.launches
@@ -218,10 +317,29 @@ def test_one_launch_for_all_lanes(monkeypatch):
     [(fn, args)] = calls
     assert fn == "pg_myers_align"
     assert args[0] is fw and args[1] is amb and args[4] is cols
-    assert args[2:4] == (96, 48) and args[5:7] == (1500, 8)
-    assert args[7:] == tuple(out)
+    assert args[2:4] == (96, 48) and args[6:8] == (1500, 8)
+    order = args[5].numpy()
+    np.testing.assert_array_equal(order, np.argsort(-t_len, kind="stable"))
+    assert (np.diff(t_len[order]) <= 0).all()
+    assert args[8:] == tuple(out)
+    d, r, lane = (o._t.numpy() for o in out)
+    np.testing.assert_array_equal(d, t_len)            # request order
+    np.testing.assert_array_equal(r, np.arange(1500))
+    np.testing.assert_array_equal(order[lane], np.arange(1500))
     with pytest.raises(ValueError, match="nb=8"):
         da.myers_batch_db(dbgather.PackedSeqDB(fw, amb), cols, nb=4)
+    empty = _FakeCudaTensor(torch.zeros((0, 7), dtype=torch.int64))
+    out = da.myers_batch_db(dbgather.PackedSeqDB(fw, amb), empty)
+    assert len(calls) == 1 and da.myers_batch_db.launches == before + 1
+    assert [o._t.shape for o in out] == [(0,)] * 3
+
+
+def test_launch_order_is_longest_first_and_stable():
+    """launch_order: descending t_len, request index on ties."""
+    t_len = np.array([5, 9, 5, 0, 9, -3, 5], np.int64)
+    cols = torch.zeros((7, 7), dtype=torch.int64)
+    cols[:, 5] = torch.from_numpy(t_len)
+    assert da.launch_order(cols).tolist() == [1, 4, 0, 2, 6, 3, 5]
 
 
 def test_bad_inputs_raise():

@@ -509,6 +509,25 @@ def _myers_inputs(kind):
     return upload_seqdb(db.data, "cuda"), torch.from_numpy(cols).cuda()
 
 
+def _myers_launch(pdb, cols, order):
+    """One pg_myers_align launch with the given lane order; its outputs
+    are views into buffers with canary margins."""
+    from peregrine_tpu_torch.ops import device_align as da
+
+    B = cols.shape[0]
+    bufs, views = _outputs((B,), (B,), (B,))
+    rc = da.library().pg_myers_align(
+        pdb.fw.data_ptr(), pdb.amb.data_ptr(), pdb.fw.numel(),
+        pdb.amb.numel(), cols.data_ptr(), order.data_ptr(), B, da.NB,
+        *(v.data_ptr() for v in views),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    for buf in bufs:
+        assert (buf[:GUARD] == CANARY).all() and (buf[-GUARD:] == CANARY).all()
+    return views
+
+
 @pytest.mark.parametrize("kind", ["crafted", "random"])
 def test_myers_align_matches_plain_and_stays_in_its_outputs(kind):
     """pg_myers_align equals its plain version on every lane and writes
@@ -516,24 +535,61 @@ def test_myers_align_matches_plain_and_stays_in_its_outputs(kind):
     from peregrine_tpu_torch.ops import device_align as da
 
     pdb, cols = _myers_inputs(kind)
-    B = cols.shape[0]
     want = da.myers_batch_db_plain(pdb, cols)
-    bufs, views = _outputs((B,), (B,), (B,))
-    rc = da.library().pg_myers_align(
-        pdb.fw.data_ptr(), pdb.amb.data_ptr(), pdb.fw.numel(),
-        pdb.amb.numel(), cols.data_ptr(), B, da.NB,
-        *(v.data_ptr() for v in views),
-        torch.cuda.current_stream().cuda_stream)
-    assert rc == 0
-    torch.cuda.synchronize()
-    for got, ref in zip(views, want):
+    for got, ref in zip(_myers_launch(pdb, cols, da.launch_order(cols)), want):
         assert torch.equal(got, ref)
-    for buf in bufs:
-        assert (buf[:GUARD] == CANARY).all() and (buf[-GUARD:] == CANARY).all()
     before = da.myers_batch_db.launches
     for got, ref in zip(da.myers_batch_db(pdb, cols), want):
         assert torch.equal(got, ref)
     assert da.myers_batch_db.launches == before + 1
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_myers_align_reads_nothing_past_the_planes(offset):
+    """Planes cut to the data, given as views at a byte offset into larger
+    buffers whose bytes after the planes are random junk: the crafted
+    lanes (targets and queries that end on the planes' last base, strand
+    1 down to the first base) and lanes whose windows run past the end,
+    where gather_codes clamps to the last byte, equal the plain version
+    on the same views exactly."""
+    from peregrine_tpu_torch.ops import device_align as da
+    from peregrine_tpu_torch.ops.dbgather import PackedSeqDB
+
+    seqs, cols = kernel_cases.myers_lanes(np.random.default_rng(13), 1500,
+                                          4096)
+    cols = np.concatenate([cols, kernel_cases.myers_past_end_lanes(seqs)])
+    fw, amb, nf, na = kernel_cases.plane_end_planes(seqs, junk=4096,
+                                                    seed=offset)
+
+    def view(a, n):
+        buf = torch.from_numpy(np.concatenate([
+            np.full(offset, 0xA5, np.uint8), a])).cuda()
+        return buf[offset:offset + n]
+    pdb = PackedSeqDB(fw=view(fw, nf), amb=view(amb, na))
+    c = torch.from_numpy(cols).cuda()
+    want = da.myers_batch_db_plain(pdb, c)
+    for got, ref in zip(da.myers_batch_db(pdb, c), want):
+        assert torch.equal(got, ref)
+
+
+def test_myers_align_lane_order_does_not_change_outputs():
+    """The same requests with their lanes launched in ascending, descending
+    and shuffled length order, and given in shuffled request order, come
+    back identical in request order."""
+    from peregrine_tpu_torch.ops import device_align as da
+
+    pdb, cols = _myers_inputs("random")
+    want = da.myers_batch_db_plain(pdb, cols)
+    t_len = cols[:, 5].cpu()
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(len(cols)))
+    for order in (torch.sort(t_len, stable=True).indices,
+                  torch.sort(t_len, descending=True, stable=True).indices,
+                  perm):
+        for got, ref in zip(_myers_launch(pdb, cols, order.cuda()), want):
+            assert torch.equal(got, ref)
+    got = da.myers_batch_db(pdb, cols[perm.cuda()])
+    for g, ref in zip(got, want):
+        assert torch.equal(g, ref[perm.cuda()])
 
 
 def test_myers_align_repeated_launches_are_identical():

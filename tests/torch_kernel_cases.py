@@ -192,17 +192,40 @@ class _Requests:
         self.off += len(seq)
         return off
 
-    def add(self, q: bytes, t: bytes, qs: int, ts: int, prefix: bytes = b""):
+    def pad_to(self, residue: int, mod: int = 16):
+        """Store a spacer so that the next sequence starts at `residue`
+        mod `mod` (a 32-bit fw word holds 16 bases, an amb word 32)."""
+        if (self.off - residue) % mod:
+            self._store(b"A" * ((residue - self.off) % mod))
+
+    def add(self, q: bytes, t: bytes, qs: int, ts: int, prefix: bytes = b"",
+            residues: tuple[int, int] | None = None):
         """Query view q (behind `prefix` in its read on strand 0, so that
-        q_off lies inside the read) against target view t."""
+        q_off lies inside the read) against target view t; `residues`
+        places the query's and the target's stored reads at those
+        residues mod 16."""
+        if residues:
+            self.pad_to(residues[0])
         if qs == 0:
             rs = self._store(prefix + q)
             q_off = rs + len(prefix)
         else:
             rs = self._store(revcomp(q) + prefix)
             q_off = rs
+        if residues:
+            self.pad_to(residues[1])
         t_off = self._store(t if ts == 0 else revcomp(t))
-        self.cols.append([q_off, rs, len(q), qs, t_off, len(t), ts])
+        self.lane(q_off, rs, len(q), qs, t_off, len(t), ts)
+
+    def lane(self, q_off: int, rs: int, q_len: int, qs: int, t_off: int,
+             t_len: int, ts: int):
+        """A request on sequences already stored."""
+        self.cols.append([q_off, rs, q_len, qs, t_off, t_len, ts])
+
+    def offset(self, seq: bytes) -> int:
+        """Where the first stored copy of seq starts."""
+        i = self.seqs.index(seq)
+        return sum(len(s) for s in self.seqs[:i])
 
     def result(self):
         return self.seqs, np.array(self.cols, np.int64).reshape(-1, 7)
@@ -215,8 +238,15 @@ def myers_lanes(rng: np.random.Generator, read_len: int, cap: int):
     10% error; tandem repeats at both ends (ties in the readouts);
     ambiguous bases; a lane whose max(q_len, t_len) is `cap` (the
     aln_max_len that still goes to the device); 1% error with the query
-    window inside its read; a target of one base and a query of none.
-    Each kind on all four strand pairs.  Returns (seqs, cols [B, 7])."""
+    window inside its read; a target of one base and a query of none;
+    query and target reads starting at every residue mod 16 (windows
+    that straddle the kernel's 32-bit words at every offset) with t_len
+    of 16m +- 1 and 32m +- 1; strand-1 windows that read down to the
+    first base after the guard; and, last, targets and queries that end
+    on the last base of the data, whose length is a multiple of 8, so
+    that with planes cut to the data they end on the planes' last base
+    (plane_end_planes).  Each kind on all four strand pairs.  Returns
+    (seqs, cols [B, 7])."""
     a = random_genome(rng, read_len)
     n2 = read_len // 2
     rep = b"AC" * 60
@@ -238,11 +268,58 @@ def myers_lanes(rng: np.random.Generator, read_len: int, cap: int):
          a[:300]),
         (b"", a[:1], b""),
     ]
+    pairs = ((0, 0), (1, 1), (0, 1), (1, 0))
     req = _Requests()
     for q, t, prefix in kinds:
-        for qs, ts in ((0, 0), (1, 1), (0, 1), (1, 0)):
+        for qs, ts in pairs:
             req.add(q, t, qs, ts, prefix)
+    # word boundaries
+    g = random_genome(rng, 700)
+    for r in range(16):
+        m = 5 + r // 2
+        tl = (32 * m - 1, 32 * m + 1, 32 * m + 15, 32 * m + 17)[r % 4]
+        q = mutate(rng, g[:tl + 7 * (r % 3 - 1)], 0.02)
+        for qs, ts in pairs:
+            req.add(q, g[:tl], qs, ts, residues=(r, (5 * r + 3) % 16))
+    # strand 1 down to the first base: the first stored read is `a`, so
+    # its reverse complement is the view of strand 1 at offset 0
+    ra, n = req.offset(revcomp(a)), len(a)
+    for qs, ts in pairs:
+        req.lane(ra + n - n2 if qs == 0 else 0, ra if qs == 0 else 0, n2, qs,
+                 ra if ts == 0 else 0, n, ts)
+    # the end of the data: revcomp(e) then e, the last read
+    e = random_genome(rng, 1013)
+    req.pad_to(-2 * len(e) % 8, 8)
+    off_r = req._store(revcomp(e))
+    off_e = req._store(e)
+    n = len(e) - 100
+    for qs, ts in pairs:   # views e[100:] and e
+        req.lane(off_e + 100 if qs == 0 else off_r,
+                 off_e if qs == 0 else off_r, n, qs,
+                 off_e if ts == 0 else off_r, len(e), ts)
+    for qs, ts in pairs:   # views revcomp(e)[:n] and revcomp(e)
+        req.lane(off_r if qs == 0 else off_e + 100,
+                 off_r if qs == 0 else off_e + 100, n, qs,
+                 off_r if ts == 0 else off_e, len(e), ts)
+    assert req.off % 8 == 0
     return req.result()
+
+
+def plane_end_planes(seqs: list[bytes], junk: int = 0, seed: int = 0):
+    """The packed (fw, amb) planes of the concatenated seqs cut to the
+    data (no padding rows after its last base), each followed by `junk`
+    random bytes that are not part of the plane: a kernel that reads past
+    a plane's end, where gather_codes clamps, sees them.  Returns numpy
+    (fw, amb, fw_bytes, amb_bytes)."""
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops.dbgather import pack_db_np
+
+    data = SeqDB.from_reads([(str(i), s) for i, s in enumerate(seqs)]).data
+    fw, amb = pack_db_np(data)
+    rng = np.random.default_rng(seed)
+    return (np.concatenate([fw, rng.integers(0, 256, junk, np.uint8)]),
+            np.concatenate([amb, rng.integers(0, 256, junk, np.uint8)]),
+            len(fw), len(amb))
 
 
 def myers_requests(rng: np.random.Generator, B: int, read_len: int,
@@ -264,3 +341,15 @@ def myers_requests(rng: np.random.Generator, B: int, read_len: int,
         req.add(q, t, int(rng.integers(0, 2)), int(rng.integers(0, 2)),
                 prefix)
     return req.result()
+
+
+def myers_past_end_lanes(seqs: list[bytes]) -> np.ndarray:
+    """Requests whose windows run 1, 17 and 300 bases past the end of the
+    concatenated seqs, on all four strand pairs: with planes cut to the
+    data (plane_end_planes), gather_codes clamps those bases to the
+    plane's last byte, so the junk after a plane changes a result if a
+    kernel reads it.  Returns cols [24, 7]."""
+    n = sum(len(s) for s in seqs)
+    return np.array([[n - 200, n - 200, 200 + over, qs, n - 250, 250 + over, ts]
+                     for qs, ts in ((0, 0), (1, 1), (0, 1), (1, 0))
+                     for over in (1, 17, 300)], np.int64)
