@@ -101,10 +101,26 @@ Phases, in order; any failure raises and exits non-zero:
      sharing the card (subprocesses of tests/torch_multihost_worker.py,
      a file:// init) equal to world size 1 in preads.ovl, p_ctg.fa and
      p_ctg_cns.fa, each rank doing >= 0.8 of its fair share of the round
-     alignments and of the consensus windows.
+     alignments and of the consensus windows;
+ 11. spill mode: phase 6's flags with `--mem-budget 1e6` (auto-spill into
+     outdir/spill), once as the disk is (the spill filesystem holds
+     0.55x the seqdb bytes, so stage 2 shares its pair map with stage
+     4) and once with the free space patched to 0.4x (stage 4 rebuilds
+     the map): each logs "sharing" or "not sharing" and its spill free
+     space, launches compact_planes, and writes phase 6's p_ctg.fa,
+     read_map.txt and p_ctg_cns.fa byte for byte; the stage-4 walls of
+     both runs are printed;
+ 12. the repeat genome of tests/test_modes.py (900 kb with dispersed
+     elements, a tandem array and segmental duplications; 16x of 4 kb
+     reads) through Assembly(device="cuda", with_alt=True) and
+     build_consensus: the four packed kernels launched, non-empty c_path,
+     a_ctg_tiling_path and a_ctg.fa, the alt polish where a_ctg.fa passes
+     its gate, the polished contigs all anchored at identity >= 0.99
+     (verify_contigs_multi), and stage 1's index and p_ctg.fa equal to
+     the same draft on the cpu in this process.
 Each path's launch counts are zeroed just before it runs and read just
-after.  It then prints phase 9's and phase 10's JSON lines, the
-kernels' JSON line and, last, the device JSON line.
+after.  It then prints the JSON lines of phases 9 to 12, the kernels'
+JSON line and, last, the device JSON line.
 There is no CPU path: without a CUDA device it exits non-zero at once.
 
 --index-profile measures stage 1 alone (at --profile-k, default 16) on
@@ -851,6 +867,27 @@ def ovl_pairs(path: str) -> set:
                 if not ln.startswith("-")}
 
 
+@contextlib.contextmanager
+def stage_log():
+    """The package's log records for as long as the block runs: yields
+    (walls, messages), the stage walls by stage name (the records'
+    `stage_wall`) and every message."""
+    walls, messages = {}, []
+
+    class Records(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+            if hasattr(record, "stage_wall"):
+                walls[record.stage_wall[0]] = record.stage_wall[1]
+
+    handler = Records()
+    logging.getLogger("peregrine_tpu_torch").addHandler(handler)
+    try:
+        yield walls, messages
+    finally:
+        logging.getLogger("peregrine_tpu_torch").removeHandler(handler)
+
+
 def run_asm(lst: str, out: str, flags: list, label: str, stages: tuple):
     """`pg-tpu-torch asm` through cli.main with every launch count zeroed
     just before and read just after; returns (walls, launches, total)."""
@@ -858,16 +895,7 @@ def run_asm(lst: str, out: str, flags: list, label: str, stages: tuple):
 
     from peregrine_tpu_torch import cli
 
-    walls = {}
-
-    class Walls(logging.Handler):
-        def emit(self, record):
-            if hasattr(record, "stage_wall"):
-                walls[record.stage_wall[0]] = record.stage_wall[1]
-
-    handler = Walls()
-    logging.getLogger("peregrine_tpu_torch").addHandler(handler)
-    try:
+    with stage_log() as (walls, _):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -876,8 +904,6 @@ def run_asm(lst: str, out: str, flags: list, label: str, stages: tuple):
         torch.cuda.synchronize()
         total = time.time() - t0
         launches = launch_counts()
-    finally:
-        logging.getLogger("peregrine_tpu_torch").removeHandler(handler)
     check(rc == 0, f"{label}: asm returned {rc}")
     say(f"{label}: `asm {' '.join(flags)}` stage walls " + ", ".join(
         f"{s} {walls[s]:.2f} s" for s in stages if s in walls)
@@ -1645,6 +1671,199 @@ def phase_mesh(lst: str, wd: str, calls) -> dict:
     return res
 
 
+SPILL_STAGES = ("overlap", "ctg_index", "mapping", "consensus")
+SPILL_SAME = ("3-asm/p_ctg.fa", "4-cns/read_map.txt", "4-cns/p_ctg_cns.fa")
+
+
+def phase_spill(lst: str, wd: str, db_bytes: int) -> dict:
+    """Phase 11, spill mode on the card: phase 6's flags with --mem-budget
+    1e6, so auto-spill engages, twice: as the disk is (the spill
+    filesystem has 0.55x the seqdb bytes free, so stage 2 shares its
+    pair map with stage 4), and with the free space patched to 0.4x
+    (above the 0.22x preflight, below the sharing rule, so stage 4
+    rebuilds the map).  Both reproduce phase 6's unspilled bytes.
+    Returns each run's walls and launches."""
+    from peregrine_tpu_torch.pipeline import run as prun
+
+    res = {"db_bytes": db_bytes}
+    flags = ["--shimmer-k", str(K_WIDE), "--with-L0-index",
+             "--with-consensus", "--mem-budget", "1e6"]
+    unspilled = os.path.join(wd, "asm-k28-cns")  # phase 6's workdir
+    budget = os.environ.get("PG_MEM_BUDGET")
+    free_bytes = prun._spill_free_bytes
+    t_phase = time.time()
+    try:
+        for name, free in (("sharing", None),
+                           ("not sharing", int(0.4 * db_bytes))):
+            label = f"spill path, {name}"
+            out = os.path.join(wd, "asm-spill-" + name.replace(" ", "-"))
+            if free is not None:
+                prun._spill_free_bytes = lambda d: free
+            try:
+                with stage_log() as (_, messages):
+                    walls, launches, total = run_asm(
+                        lst, out, flags, label, ("seqdb", "index")
+                        + SPILL_STAGES)
+            finally:
+                prun._spill_free_bytes = free_bytes
+            check(launches["compact_planes"] > 0,
+                  f"{label}: kernel compact_planes was not launched")
+            check(os.path.isdir(os.path.join(out, "spill")),
+                  f"{label}: auto-spill made no {out}/spill")
+            said = [m for m in messages
+                    if m.startswith("overlap spill mode: ")]
+            check(len(said) == 1 and said[0].startswith(
+                "overlap spill mode: " + name + " the stage-2/4 pair map"),
+                f"{label}: stage 2 logged {said}")
+            stage2 = [m for m in messages if m.startswith("stage 2 overlap")]
+            check(len(stage2) == 1 and "spill free" in stage2[0],
+                  f"{label}: the stage-2 line {stage2} has no spill free")
+            rebuilt = [m for m in messages
+                       if m.startswith("stage 4 contig index")
+                       and "the pair map is rebuilt next" in m]
+            check(len(rebuilt) == (name == "not sharing"),
+                  f"{label}: stage 4 rebuilt the pair map "
+                  f"{len(rebuilt)} times")
+            _same_files(unspilled, out, SPILL_SAME)
+            say(f"{label}: {said[0]}; {stage2[0]}")
+            say(f"{label}: the same p_ctg.fa, read_map.txt and "
+                "p_ctg_cns.fa as phase 6 (unspilled)")
+            res[name] = {"walls": {s: walls[s] for s in SPILL_STAGES},
+                         "asm_s": total,
+                         "compact_planes": launches["compact_planes"]}
+    finally:
+        if budget is None:
+            os.environ.pop("PG_MEM_BUDGET", None)
+        else:
+            os.environ["PG_MEM_BUDGET"] = budget
+    shared, rebuilt = res["sharing"]["walls"], res["not sharing"]["walls"]
+    say("spill path: stage 4 ctg_index + mapping "
+        f"{shared['ctg_index'] + shared['mapping']:.3f} s sharing, "
+        f"{rebuilt['ctg_index'] + rebuilt['mapping']:.3f} s rebuilding")
+    res["phase_s"] = time.time() - t_phase
+    say(f"spill path: phase 11 took {res['phase_s']:.1f} s")
+    return res
+
+
+# phase 12's repeat genome: tests/test_modes.py's repeat-genome test
+REPEAT_N, REPEAT_SEGDUP = 900_000, (50_000, 90_000)
+REPEAT_CFG = dict(k=12, w=24, r=4, levels=2, min_len=2500,
+                  sketch_pad_len=8192, sketch_batch=16)
+PACKED = ("build_stream", "move_plane", "emit_mask", "reduce_step")
+VERIFY_TIMEOUT = 300  # seconds phase 12's verifier process may take
+# phase 12's verifier, in a process of its own so that it runs beside the
+# cpu draft (it is pure Python, ~1 min at 900 kb): argv = the polished
+# contigs; it simulates the genome again from the seed and prints the
+# verify_contigs_multi totals as JSON
+VERIFY = """
+import json, sys
+import numpy as np
+from peregrine_tpu_torch.io.seqdb import read_fastx
+from peregrine_tpu_torch.simdata import repeat_genome
+from peregrine_tpu_torch.verify import verify_contigs_multi
+chroms, _ = repeat_genome(np.random.default_rng(9), %(n)d, n_chrom=1,
+                          segdup_len=%(segdup)r)
+ctgs = dict(read_fastx(sys.argv[1]))
+agg = verify_contigs_multi(ctgs, chroms, circular=True, min_len=30000)
+print(json.dumps({"contigs": len(ctgs), "identity": agg["identity"],
+                  "n_unanchored": agg["n_unanchored"],
+                  "breaks": agg["breaks"], "length": agg["length"]}))
+"""
+
+
+def phase_repeat(wd: str) -> dict:
+    """Phase 12, a 900 kb repeat genome (dispersed elements, a tandem
+    array, segmental duplications) at 16x of 4 kb reads through
+    Assembly(device="cuda", with_alt=True) with consensus: compound paths
+    and alternate contigs come out, the polished contigs pass the
+    reference test's verifier bounds (checked in a process of its own
+    while the cpu draft runs), and stage 1's index and p_ctg.fa equal
+    the same draft on the cpu in this process.  Returns its walls,
+    launches and verifier numbers."""
+    import torch
+
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.pipeline.run import Assembly
+    from peregrine_tpu_torch.simdata import repeat_genome, simulate_reads
+
+    label = "repeat path"
+    t_phase = time.time()
+    rng = np.random.default_rng(9)
+    chroms, info = repeat_genome(rng, REPEAT_N, n_chrom=1,
+                                 segdup_len=REPEAT_SEGDUP)
+    reads, _ = simulate_reads(rng, chroms[0], read_len=4000, coverage=16.0,
+                              circular_wrap=8000)
+    check(bool(info["segdup"]), f"{label}: the genome has no segdups")
+    say(f"{label}: {len(chroms[0])} b genome, {len(info['segdup'])} "
+        f"segdups, {len(info['dispersed'])} dispersed, "
+        f"{len(info['tandem'])} tandem; {len(reads)} reads")
+    cfg = AsmConfig(**REPEAT_CFG)
+    res = {}
+    outs = {dev: os.path.join(wd, f"repeat-{dev}") for dev in ("cuda", "cpu")}
+    torch.cuda.reset_peak_memory_stats()
+    with stage_log() as (walls, _):
+        asm = Assembly(outs["cuda"], cfg, device="cuda", with_alt=True)
+        _, res["cuda_s"], launches = _counted(
+            f"{label}, cuda", lambda: (asm.run_draft(reads=reads),
+                                       asm.build_consensus()), PACKED)
+    res["walls"] = dict(walls)
+    res["launches"] = {k: launches[k] for k in PACKED}
+    say(f"{label}: stage walls " + ", ".join(
+        f"{s} {w:.2f} s" for s, w in walls.items())
+        + f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / (1 << 30):.3f} GiB")
+    t_verify = time.time()
+    verifier = subprocess.Popen(
+        [sys.executable, "-c", VERIFY % dict(n=REPEAT_N,
+                                             segdup=REPEAT_SEGDUP),
+         os.path.join(outs["cuda"], "4-cns", "p_ctg_cns.fa")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT)
+    try:
+        t = time.time()
+        Assembly(outs["cpu"], cfg, device="cpu", with_alt=True).run_draft(
+            reads=reads)
+        res["cpu_draft_s"] = time.time() - t
+        _same_files(outs["cpu"], outs["cuda"], (
+            "1-index/shmr-L2-01-of-01.dat",
+            "1-index/shmr-L2-MC-01-of-01.dat", "3-asm/p_ctg.fa"))
+        say(f"{label}: stage 1's index and p_ctg.fa on cuda equal the cpu "
+            f"run's ({res['cpu_draft_s']:.1f} s on the cpu)")
+        verified = verifier.communicate(timeout=VERIFY_TIMEOUT)[0]
+    finally:
+        verifier.kill()
+        verifier.wait()
+    if verifier.returncode:
+        print(verified[-4000:], file=sys.stderr, flush=True)
+    check(verifier.returncode == 0,
+          f"{label}: the verifier exited {verifier.returncode}")
+    asm_dir = os.path.join(outs["cuda"], "3-asm")
+    sizes = {f: os.path.getsize(os.path.join(asm_dir, f))
+             for f in ("c_path", "a_ctg_tiling_path", "a_ctg.fa")}
+    for f, n in sizes.items():
+        check(n > 0, f"{label}: {f} is empty")
+    alt = os.path.join(outs["cuda"], "4-cns-alt", "a_ctg_cns.fa")
+    gated = sizes["a_ctg.fa"] > cfg.alt_cns_min_size
+    check(os.path.exists(alt) == gated and (
+        not gated or os.path.getsize(alt) > 0),
+        f"{label}: 4-cns-alt does not follow the {cfg.alt_cns_min_size} B "
+        "gate")
+    res["bytes"] = dict(sizes, a_ctg_cns=os.path.getsize(alt) if gated
+                        else None)
+    agg = res["verify"] = _json_line(verified, '"identity"')
+    agg["wall_s"] = time.time() - t_verify
+    say(f"{label}: {sizes}; 4-cns-alt "
+        f"{'polished' if gated else 'below the gate'}; verifier "
+        f"{json.dumps(agg)} (beside the cpu draft)")
+    check(agg["n_unanchored"] == 0,
+          f"{label}: {agg['n_unanchored']} contigs anchor nowhere")
+    check(agg["identity"] >= 0.99,
+          f"{label}: identity {agg['identity']:.5f} < 0.99")
+    res["phase_s"] = time.time() - t_phase
+    say(f"{label}: phase 12 took {res['phase_s']:.1f} s")
+    return res
+
+
 def aligner_sass(lib_path: str) -> dict:
     """Each loop of pg_myers_align's SASS (cuobjdump of the built
     library), with its instructions by opcode, and the kernel's registers
@@ -1817,6 +2036,10 @@ def main(argv=None) -> int:
         rest = phase_rest(lst, genome, truth, wd)
         # phase 10: the multi-device paths
         mesh = phase_mesh(lst, wd, calls)
+        # phase 11: spill mode, sharing and rebuilding the pair map
+        spill = phase_spill(lst, wd, sum(len(s) for _, s in reads))
+        # phase 12: the repeat genome's hard paths
+        repeat = phase_repeat(wd)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
     # the entry's headline is the main path's largest launch, traced, and
@@ -1832,6 +2055,8 @@ def main(argv=None) -> int:
 
     say(json.dumps({"phase9": rest}))
     say(json.dumps({"phase10": mesh}))
+    say(json.dumps({"phase11": spill}))
+    say(json.dumps({"phase12": repeat}))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], **results[name]}
                for name in REPLACES]

@@ -437,14 +437,28 @@ class Assembly:
                                          device=self.device)
             elif dedup and self.cfg.spill_dir is not None \
                     and not self.cfg.shard_overlap:
-                # low-memory mode: overlap_all_spec builds and frees its
-                # own pair map, and stage 4 rebuilds it (the JAX package
-                # shares it when the spill filesystem has room)
+                # low-memory mode: sharing the stage-2/stage-4 pair map
+                # pins its spill file on disk across stages 2-4, on top of
+                # the replay stream and result arena the overlap rounds
+                # spill.  Share it only when the spill filesystem has that
+                # headroom; otherwise overlap_all_spec builds and frees
+                # its own copy and stage 4 rebuilds it.
                 from ..ops.overlap import overlap_all_spec
+                free = _spill_free_bytes(self.cfg.spill_dir)
+                # the JAX package's rule: pinning the map costs ~0.13x db
+                # of disk, on top of ~0.11x transient spill and ~0.25x of
+                # stage-3/4 outputs still to come -- require 0.55x db free
+                keep_map = free >= int(0.55 * self.db.data.nbytes)
+                log.info("overlap spill mode: %s the stage-2/4 pair map "
+                         "(spill free %.1f GB vs %.1f GB to keep it)",
+                         "sharing" if keep_map else "not sharing",
+                         free / (1 << 30),
+                         0.55 * self.db.data.nbytes / (1 << 30))
                 ovlps = overlap_all_spec(
                     self.db, self.idx, self.cfg,
                     n_workers=n_workers or (os.cpu_count() or 1),
-                    backend="host")
+                    backend="host",
+                    pairs=self._pair_map() if keep_map else None)
             elif self.cfg.use_device_aligner:
                 from ..ops.overlap import overlap_chunk_device
                 if n_chunks or n_workers:
@@ -465,10 +479,16 @@ class Assembly:
             from ..ops.overlap import write_ovl_file
             n_rows = write_ovl_file(path, ovlps)
             wall = time.time() - t0
+            spill_line = ""
+            if self.cfg.spill_dir is not None:
+                spill_line = (", spill free %.1f GB"
+                              % (_spill_free_bytes(self.cfg.spill_dir)
+                                 / (1 << 30)))
             log.info("stage 2 overlap: %d records -> %d rows (%.1fs; "
-                     "peak RSS %.1f GB, anon %.1f GB)",
+                     "peak RSS %.1f GB, anon %.1f GB%s%s)",
                      len(ovlps), n_rows, wall, _peak_rss_gb(),
-                     _anon_rss_gb(), extra={"stage_wall": ("overlap", wall)})
+                     _anon_rss_gb(), _device_mem_line(self.device),
+                     spill_line, extra={"stage_wall": ("overlap", wall)})
         return path
 
     # --- stage 3: layout + draft contigs --------------------------------

@@ -842,3 +842,40 @@ def test_multihost_on_two_cards_matches_one_process(tmp_path, backend):
     _same_stage_files(tmp_path / "one", out / "wd",
                       ("2-ovlp/preads.ovl", "3-asm/p_ctg.fa",
                        "4-cns/p_ctg_cns.fa"))
+
+
+def test_spill_sharing_on_the_card_matches_the_cpu(tmp_path, monkeypatch):
+    """The pair-map sharing run of tests/test_torch_spill.py (--spill-dir,
+    the spill filesystem at 0.6x the seqdb bytes free, with consensus) on
+    cuda: stage 2 keeps its spilled map for stage 4, and every output of
+    stages 1-4 equals the cpu run's (itself held to the JAX package by the
+    CPU test)."""
+    import filecmp
+
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.pipeline import run as prun
+    from peregrine_tpu_torch.simdata import random_genome, simulate_reads
+
+    rng = np.random.default_rng(42)
+    genome = random_genome(rng, 40000)
+    reads, _ = simulate_reads(rng, genome, read_len=4000, coverage=14.0)
+    free = int(0.6 * SeqDB.from_reads(reads).data.nbytes)
+    monkeypatch.setattr(prun, "_spill_free_bytes", lambda d: free)
+    for dev in ("cuda", "cpu"):
+        cfg = AsmConfig(k=12, w=24, r=4, levels=2, min_len=2500,
+                        sketch_pad_len=8192, sketch_batch=16,
+                        spill_dir=str(tmp_path / f"spill-{dev}"))
+        asm = prun.Assembly(str(tmp_path / dev), cfg, device=dev)
+        kn.reset_launches()
+        asm.run_draft(reads=reads)
+        assert asm._pairs is not None
+        assert all(isinstance(x, np.memmap) for x in asm._pairs)
+        asm.build_consensus()
+        assert all((fn.launches > 0) == (dev == "cuda")
+                   for fn in kn.KERNELS[:4])
+    for f in ("1-index/shmr-L2-01-of-01.dat",
+              "1-index/shmr-L2-MC-01-of-01.dat", "2-ovlp/preads.ovl",
+              "3-asm/p_ctg.fa", "4-cns/read_map.txt", "4-cns/p_ctg_cns.fa"):
+        assert filecmp.cmp(str(tmp_path / "cuda" / f),
+                           str(tmp_path / "cpu" / f), shallow=False), f
