@@ -13,8 +13,8 @@ Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the SHIMMER kernels and the banded Myers aligner (nvcc, sm_90a)
      and the native host library, the three at once;
-  3. each of the five kernels against its plain PyTorch version on the
-     card, exactly, at the main paths' shapes (B=64, L in 8192/16384/
+  3. each of the eight SHIMMER kernels against its plain PyTorch version
+     on the card, exactly, at the main paths' shapes (B=64, L in 8192/16384/
      24576/32768/40960, 16384 being the draft's main bucket; move_plane
      moving both stream planes in one launch; reduce_step on the draft's
      two levels at L=2048, the sketch cap, and on one row of 131,072
@@ -29,7 +29,17 @@ Phases, in order; any failure raises and exits non-zero:
      REDUCE_CHUNK + 1, 2048 and r = 2, 6, 255; compact_planes at
      L = COMPACT_CHUNK - 1, COMPACT_CHUNK, COMPACT_CHUNK + 1, 16384 with
      planes of 8+8+4, 8+8 and 4+8+4 bytes), after which the look-back
-     status that the next launch will take must be zeroed; and
+     status that the next launch will take must be zeroed; the wide
+     route's three kernels at k=28, w=80, r=6, B=64, each shape with its
+     bytes, bound, share and plain ms: wide_stream at L = 16384 (the
+     main shape), 24576 and 40960, wide_emit on the stream compacted from
+     the same codes, reduce_wide on the main shape's sketch capped at
+     2048, uncapped (n ~ 370; level 1 is the main shape) and both levels,
+     and on one row of 131,072, then tests/torch_kernel_cases.py's wide
+     rows (wide_stream at L = CHUNK - 1, CHUNK + 1, 16384 and k = 17, 28;
+     wide_emit there at w = 1, 5, 80, 255 with and without ties;
+     reduce_wide at L = REDUCE_WIDE_CHUNK - 1, REDUCE_WIDE_CHUNK + 1, 5000
+     and r = 2, 6, 255); and
      pg_myers_align on 1,024 E. coli-class read pairs, on the crafted
      lanes of tests/torch_kernel_cases.py (windows at every word offset)
      and on its plane-end lanes (planes cut to the data and followed by
@@ -58,7 +68,8 @@ Phases, in order; any failure raises and exits non-zero:
      complement;
   6. the wide consensus path: `pg-tpu-torch asm --shimmer-k 28
      --with-L0-index --with-consensus` on the same set, with the stage
-     walls of stages 0-4, launch counts (compact_planes must be > 0),
+     walls of stages 0-4, launch counts (compact_planes, wide_stream,
+     wide_emit and reduce_wide must each be > 0),
      peak device memory, and a check of the polished contigs: the longest
      covers >= 0.9 of the genome, and >= 0.95 of its 21-mers, and more
      than of the phase-5 draft's, occur in the genome;
@@ -88,7 +99,8 @@ Phases, in order; any failure raises and exits non-zero:
      polished contigs);
  10. the multi-device paths, on an in-process mesh of four shards on
      cuda:0: build_index_mesh equal to build_index on the card at k=16
-     (the four packed kernels launched) and k=28 (compact_planes), each
+     (the four packed kernels launched) and k=28 (compact_planes and the
+     three wide kernels), each
      hash shard of 256 reads equal to the same mesh's on the cpu,
      build_pairs_mesh equal to the host build_pairs and bucket_stream,
      sharded_align of a seeded 1,024-lane sample of phase 7's largest
@@ -107,7 +119,8 @@ Phases, in order; any failure raises and exits non-zero:
      0.55x the seqdb bytes, so stage 2 shares its pair map with stage
      4) and once with the free space patched to 0.4x (stage 4 rebuilds
      the map): each logs "sharing" or "not sharing" and its spill free
-     space, launches compact_planes, and writes phase 6's p_ctg.fa,
+     space, launches compact_planes and the three wide kernels, and
+     writes phase 6's p_ctg.fa,
      read_map.txt and p_ctg_cns.fa byte for byte; the stage-4 walls of
      both runs are printed;
  12. the repeat genome of tests/test_modes.py (900 kb with dispersed
@@ -158,7 +171,12 @@ REPLACES = {
     "emit_mask": "peregrine_tpu/ops/compact_pallas.py:351",
     "reduce_step": "peregrine_tpu/ops/compact_pallas.py:464",
     "compact_planes": "peregrine_tpu/ops/compact_pallas.py:391",
+    # the wide route's XLA code between and around its compactions
+    "wide_stream": "peregrine_tpu/ops/sketch.py:383",
+    "wide_emit": "peregrine_tpu/ops/sketch.py:425",
+    "reduce_wide": "peregrine_tpu/ops/reduce.py:26",
 }
+WIDE = ("wide_stream", "wide_emit", "reduce_wide")
 # the kernel the port adds where the JAX package used XLA: the banded
 # Myers aligner's fused loop (_myers_core, as myers_batch_db_packed calls it)
 ALIGN_SOURCE = "peregrine_tpu_torch/csrc/myers_align.cu"
@@ -468,6 +486,8 @@ def phase_kernels(results: dict) -> None:
         f"chunk-boundary rows at L {kn.REDUCE_CHUNK - 1}/"
         f"{kn.REDUCE_CHUNK + 1}/{CAP}, r 2/{R}/255 with and without ties, "
         f"and on one row of {LONG}")
+    phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
+                       results)
     torch.cuda.synchronize()
 
     for name, st in stats.items():
@@ -480,18 +500,148 @@ def phase_kernels(results: dict) -> None:
         check(st["err"] == 0, f"{name} disagrees with its plain version "
               f"(max_abs_err {st['err']})")
         main = {"reduce_step": CAP,  # level 1
-                "compact_planes": (MAIN_L, 0.98)}.get(name, MAIN_L)
+                "compact_planes": (MAIN_L, 0.98),
+                "reduce_wide": WIDE_LEVEL}.get(name, MAIN_L)
         ms, pms = st["times"][main]
         bound_ms = moved[name] / HBM_BYTES_PER_S * 1e3
-        results[name] = {"max_abs_err": st["err"], "ms": ms, "plain_ms": pms,
-                         "bound_ms": bound_ms, "bound_by": "bytes",
-                         "library_ms": None, "bound_us": bound_ms * 1e3,
-                         "share_of_bound": bound_ms / ms}
+        results[name].update(
+            max_abs_err=st["err"], ms=ms, plain_ms=pms, bound_ms=bound_ms,
+            bound_by="bytes", library_ms=None, bound_us=bound_ms * 1e3,
+            share_of_bound=bound_ms / ms)
         if name == "compact_planes":
             results[name]["shapes"] = compact_shapes
         say(f"kernel {name} at its main-path shape ({main}): {moved[name]} "
             f"bytes, bound {bound_ms * 1e3:.3f} us, kernel {ms * 1e3:.3f} us,"
             f" {bound_ms / ms:.4f} of the bound")
+
+WIDE_LEVEL = f"B=64 L={MAIN_L} uncapped, level 1"  # reduce_wide's main shape
+
+
+def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
+                       results) -> None:
+    """Phase 3's wide route (k=28, w=80, r=6, B=64): wide_stream on reads
+    at L = 16,384 (the main shape), 24,576 and stage 4's contig batches at
+    40,960; wide_emit on the stream compact_planes makes of the same
+    codes; reduce_wide on the sketch of the main shape, capped at 2,048
+    (stage 1 without the level-0 index), uncapped with n ~ 370 as
+    --with-L0-index runs both levels, and on one row of 131,072 as stage
+    4's contig level; then tests/torch_kernel_cases.py's chunk-boundary,
+    tie-heavy rows.  Each shape is held to the plain version exactly and
+    timed, with the bytes it must move and its bound; results[name]
+    ["shapes"] lists them."""
+    import torch
+
+    from peregrine_tpu_torch.ops import kernels as kn
+
+    B = 64
+    shapes = {name: [] for name in WIDE}
+
+    def shape(name, site, rows, L, fn, plain, nbytes, main=None):
+        got, want = fn(), plain()
+        note(name, zip(got, want))
+        ms, pms = kernel_ms(fn), plain_ms(plain)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shapes[name].append({
+            "site": site, "B": rows, "L": L, "bytes": nbytes, "ms": ms,
+            "plain_ms": pms, "bound_ms": bound_ms,
+            "share_of_bound": bound_ms / ms})
+        if main is not None:
+            stats[name]["times"][main] = (ms, pms)
+            moved[name] = nbytes
+        return want
+
+    level = None
+    for L in (MAIN_L, 24576, 40960):
+        codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
+        codes[rng.random((B, L)) < 0.001] = 4
+        lens = rng.integers(int(0.8 * L), L + 1, B).astype(np.int32)
+        c, ln, rd = on_card(codes, lens, np.arange(B, dtype=np.int64))
+        site = "contig batch" if L == 40960 else "read bucket"
+        main = MAIN_L if L == MAIN_L else None
+        x, y, li, keep = shape(
+            "wide_stream", site, B, L,
+            lambda: kn.wide_stream(c, ln, rd, k=K_WIDE),
+            lambda: kn.wide_stream_plain(c, ln, rd, K_WIDE),
+            22 * B * L + 12 * B, main)
+        (sx, sy, sl), n = kn.compact_planes_plain(keep, (x, y, li),
+                                                  (-1, -1, 0))
+        emit, = shape(
+            "wide_emit", site, B, L,
+            lambda: (kn.wide_emit(sx, sl, n, w=W, k=K_WIDE),),
+            lambda: (kn.wide_emit_plain(sx, sl, n, W, K_WIDE),),
+            12 * int(n.sum()) + B * L + 4 * B, main)
+        if L == MAIN_L:
+            (ox, oy), cnt = kn.compact_planes_plain(emit, (sx, sy), (-1, -1))
+            level = (ox, oy, cnt)
+
+    def reduce_bytes(n, C):
+        return 16 * int(n.clamp(0, C).sum()) + 16 * n.numel() * C + 8 * n.numel()
+
+    ox, oy, cnt = level
+    capped = (ox[:, :CAP].contiguous(), oy[:, :CAP].contiguous(),
+              cnt.clamp(max=CAP))
+    LONG = 131072
+    xl = rng.integers(0, 2**64, (1, LONG), dtype=np.uint64)
+    yl = np.sort(rng.integers(0, 2**31, (1, LONG)), axis=1).astype(np.uint64)
+    long_row = tuple(on_card(xl.view(np.int64), (yl << np.uint64(1)).view(
+        np.int64), np.array([LONG], np.int32)))
+    for site, (x, y, n), main in (
+            ("level 1, capped", capped, None),
+            ("level 1, uncapped", level, WIDE_LEVEL),
+            ("contig level", long_row, None)):
+        C = x.shape[1]
+        want = shape("reduce_wide", site, x.shape[0], C,
+                     lambda: kn.reduce_wide(x, y, n, r=R),
+                     lambda: kn.reduce_wide_plain(x, y, n, R),
+                     reduce_bytes(n, C), main)
+        if site != "contig level":  # level 2 reads level 1's output
+            x2, y2, n2 = want
+            shape("reduce_wide", site.replace("1", "2"), B, C,
+                  lambda: kn.reduce_wide(x2, y2, n2, r=R),
+                  lambda: kn.reduce_wide_plain(x2, y2, n2, R),
+                  reduce_bytes(n2, C))
+
+    # rows that put lengths, runs, placeholders, final windows, counts and
+    # window winners on the chunk boundaries
+    for L in (kn.CHUNK - 1, kn.CHUNK + 1, MAIN_L):
+        for k in (17, K_WIDE):
+            codes, lens = kernel_cases.wide_stream_codes(rng, B, L, k,
+                                                         kn.CHUNK)
+            c, ln, rd = on_card(codes, lens, rng.integers(
+                0, 2**40, B).astype(np.int64))
+            note("wide_stream", zip(kn.wide_stream(c, ln, rd, k=k),
+                                    kn.wide_stream_plain(c, ln, rd, k)))
+        for w in (1, 5, W, 255):
+            for ties in (False, True):
+                sx, sl, n = kernel_cases.wide_emit_stream(
+                    rng, B, L, w, K_WIDE, kn.CHUNK, ties)
+                sx, sl, n = on_card(sx.view(np.int64), sl, n)
+                note("wide_emit", [(kn.wide_emit(sx, sl, n, w=w, k=K_WIDE),
+                                    kn.wide_emit_plain(sx, sl, n, w,
+                                                       K_WIDE))])
+    WC = kn.REDUCE_WIDE_CHUNK
+    for L in (WC - 1, WC + 1, 5000):
+        for r in (2, R, 255):
+            for ties in (False, True):
+                x, y, n = kernel_cases.wide_reduce_rows(rng, B, L, r, WC,
+                                                        ties)
+                x, y, n = on_card(x.view(np.int64), y.view(np.int64), n)
+                note("reduce_wide", zip(kn.reduce_wide(x, y, n, r=r),
+                                        kn.reduce_wide_plain(x, y, n, r)))
+    torch.cuda.synchronize()
+    check(not any(bool(pair[0].any()) for pair in kn._status_pairs.values()),
+          "the next chunked launch's look-back status is not zeroed")
+    for name, rows in shapes.items():
+        results[name]["shapes"] = rows
+        for sh in rows:
+            say(f"kernel {name} {sh['site']} B={sh['B']} L={sh['L']}: "
+                f"{sh['bytes']} bytes, bound {sh['bound_ms'] * 1e3:.3f} us, "
+                f"kernel {sh['ms'] * 1e3:.3f} us, {sh['share_of_bound']:.4f} "
+                f"of the bound, plain {sh['plain_ms']:.4f} ms")
+    say(f"kernel checks: wide_stream on the chunk-boundary rows at L "
+        f"{kn.CHUNK - 1}/{kn.CHUNK + 1}/{MAIN_L}, k 17/{K_WIDE}; wide_emit "
+        f"at w 1/5/{W}/255 with and without ties; reduce_wide at L "
+        f"{WC - 1}/{WC + 1}/5000, r 2/{R}/255 with and without ties")
 
 
 def align_shapes(kernel_cases):
@@ -686,6 +836,11 @@ def plain_kernels():
         "emit_mask": lambda h, p, n, *, w, k: kn.emit_mask_plain(h, p, n, w, k),
         "reduce_step": lambda h, p, n, *, r: kn.reduce_step_plain(h, p, n, r),
         "compact_planes": kn.compact_planes_plain,
+        "wide_stream": lambda c, ln, rd, *, k: kn.wide_stream_plain(c, ln, rd,
+                                                                    k),
+        "wide_emit": lambda sx, sl, n, *, w, k: kn.wide_emit_plain(sx, sl, n,
+                                                                   w, k),
+        "reduce_wide": lambda x, y, c, *, r: kn.reduce_wide_plain(x, y, c, r),
     }
     saved = [(m, name, getattr(m, name)) for m in (index, reduce, sketch)
              for name in plain if hasattr(m, name)]
@@ -791,11 +946,11 @@ def phase_index_profile(reads, k: int) -> None:
         + f"; other kernels {other:.2f}; copies and memsets {copies:.2f}; "
         f"{sum(count.values())} device intervals, {fills} of them fill "
         "kernels")
-    for key, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
+    for key, ms in sorted(per.items(), key=lambda kv: -kv[1])[:24]:
         say(f"    {ms:9.3f} ms {count[key]:6d}x  {key[:100]}")
     # each kernel's launches by template instance and grid, which tell its
     # shapes apart (compact_planes: <8, 8, 4> the sketch's stream, <8, 8, 0>
-    # its output and the reduction levels)
+    # its output)
     by_grid: dict = {}
     for e in dev:
         name = next((n for n in REPLACES if f"{n}_kernel" in e["name"]), None)
@@ -1129,9 +1284,10 @@ def phase_consensus(lst: str, genome, wd: str, results: dict,
         lst, out, flags, "consensus path",
         ("seqdb", "index", "overlap", "layout", "ctg_index", "mapping",
          "consensus"))
-    check(launches["compact_planes"] > 0,
-          "kernel compact_planes was not launched by the consensus path")
-    results["compact_planes"]["launches"] = launches["compact_planes"]
+    for name in ("compact_planes",) + WIDE:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the consensus path")
+        results[name]["launches"] = launches[name]
     n = {lv: len(formats.read_mmlist(os.path.join(
         out, "1-index", f"shmr-L{lv}-01-of-01.dat"))[0]) for lv in (0, 2)}
     with open(os.path.join(out, "4-cns", "read_map.txt"), "rb") as f:
@@ -1506,7 +1662,7 @@ def phase_mesh(lst: str, wd: str, calls) -> dict:
     sub = np.arange(SUBSET)
     pad = -(-int(db.lengths[sub].max()) // 8192) * 8192
     codes, lens = db.padded_code_batch(sub, pad)
-    for k, kernels in ((K, packed4), (K_WIDE, ("compact_planes",))):
+    for k, kernels in ((K, packed4), (K_WIDE, ("compact_planes",) + WIDE)):
         cfg = AsmConfig(k=k)
         got, walls[f"index_mesh_k{k}"], launches[f"index_mesh_k{k}"] = \
             _counted(f"{label}: build_index_mesh k={k}",
@@ -1706,8 +1862,9 @@ def phase_spill(lst: str, wd: str, db_bytes: int) -> dict:
                         + SPILL_STAGES)
             finally:
                 prun._spill_free_bytes = free_bytes
-            check(launches["compact_planes"] > 0,
-                  f"{label}: kernel compact_planes was not launched")
+            for kernel in ("compact_planes",) + WIDE:
+                check(launches[kernel] > 0,
+                      f"{label}: kernel {kernel} was not launched")
             check(os.path.isdir(os.path.join(out, "spill")),
                   f"{label}: auto-spill made no {out}/spill")
             said = [m for m in messages
@@ -1730,7 +1887,8 @@ def phase_spill(lst: str, wd: str, db_bytes: int) -> dict:
                 "p_ctg_cns.fa as phase 6 (unspilled)")
             res[name] = {"walls": {s: walls[s] for s in SPILL_STAGES},
                          "asm_s": total,
-                         "compact_planes": launches["compact_planes"]}
+                         "launches": {kernel: launches[kernel] for kernel
+                                      in ("compact_planes",) + WIDE}}
     finally:
         if budget is None:
             os.environ.pop("PG_MEM_BUDGET", None)

@@ -611,11 +611,11 @@ move_plane_kernel(const int32_t* __restrict__ dest,
 // value at staged column i = threadIdx.x + q * kChunkThreads (i < E),
 // takes in src[i + d] (src is padded with the identity on the side that
 // d reaches).  The barrier after the reads lets the caller overwrite src.
-template <bool kIsMax>
-__device__ __forceinline__ void combine(uint32_t (&v)[kExtPer],
-                                        const uint32_t* src, int E, int d) {
+template <bool kIsMax, typename T, int kN>
+__device__ __forceinline__ void combine(T (&v)[kN], const T* src, int E,
+                                        int d) {
 #pragma unroll
-  for (int q = 0; q < kExtPer; ++q) {
+  for (int q = 0; q < kN; ++q) {
     const int i = threadIdx.x + q * kChunkThreads;
     if (i < E) v[q] = kIsMax ? max(v[q], src[i + d]) : min(v[q], src[i + d]);
   }
@@ -624,10 +624,10 @@ __device__ __forceinline__ void combine(uint32_t (&v)[kExtPer],
 
 // Write the registers' values to their staged columns of dst, then a
 // barrier.
-__device__ __forceinline__ void publish(uint32_t* dst,
-                                        const uint32_t (&v)[kExtPer], int E) {
+template <typename T, int kN>
+__device__ __forceinline__ void publish(T* dst, const T (&v)[kN], int E) {
 #pragma unroll
-  for (int q = 0; q < kExtPer; ++q) {
+  for (int q = 0; q < kN; ++q) {
     const int i = threadIdx.x + q * kChunkThreads;
     if (i < E) dst[i] = v[q];
   }
@@ -639,13 +639,14 @@ __device__ __forceinline__ void publish(uint32_t* dst,
 // q * kChunkWarps + w run in column order.
 constexpr int kSegs = kExtPer * kChunkWarps;
 
-// Exclusive prefix, in place, of one int per segment (kN of them) under
-// op (identity id); called by warp 0, which gets the total.
-template <int kN = kSegs, typename Op>
-__device__ int segment_scan(int* seg, int id, Op op) {
+// Exclusive prefix, in place, of one value per segment (kN of them, an
+// int or a Stream) under op (identity id); called by warp 0, which gets
+// the total.
+template <int kN = kSegs, typename T, typename Op>
+__device__ T segment_scan(T* seg, T id, Op op) {
   constexpr int kEach = (kN + 31) / 32;
   const int lane = threadIdx.x & 31;
-  int own[kEach], acc = id;
+  T own[kEach], acc = id;
 #pragma unroll
   for (int e = 0; e < kEach; ++e) {
     const int x = lane * kEach + e;
@@ -654,11 +655,11 @@ __device__ int segment_scan(int* seg, int id, Op op) {
   }
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const int n = __shfl_up_sync(0xFFFFFFFFu, acc, off);
+    const T n = shfl_up(acc, off);
     if (lane >= off) acc = op(n, acc);
   }
-  const int total = __shfl_sync(0xFFFFFFFFu, acc, 31);
-  int before = __shfl_up_sync(0xFFFFFFFFu, acc, 1);
+  const T total = shfl_from(acc, 31);
+  T before = shfl_up(acc, 1);
   if (lane == 0) before = id;
 #pragma unroll
   for (int e = 0; e < kEach; ++e) {
@@ -1167,6 +1168,499 @@ compact_planes_kernel(const uint8_t* __restrict__ keep, Planes pl,
   }
 }
 
+// --- the wide route (k > 16) ------------------------------------------------
+//
+// Three kernels for the code the JAX package leaves to XLA on the wide
+// route (peregrine_tpu/ops/sketch.py:_sketch_impl_wide, reduce.py:
+// reduce_impl), where a record x = hash << 8 | span needs all 64 bits:
+// wide_stream and wide_emit run before and between the sketch's two
+// compact_planes calls, reduce_wide is a whole reduction level.  Records
+// are unsigned long long (the wrappers hand over int64 tensors holding
+// the same bits) and every comparison is unsigned.
+
+constexpr int kMaxWideK = 28;  // 56-bit hashes
+// wide_stream: kChunk columns of one row per block of kChunkThreads
+// threads, column x of the chunk in thread x % kChunkThreads, register
+// x / kChunkThreads.  The chunk's codes and a k - 1 halo are packed two
+// bits a column into kWPacked 16-bit words (8 columns each) from column
+// c0 - kWLead, so that any column's 2k-bit window is one funnel shift of
+// two 64-bit words.
+constexpr int kWPer = kChunk / kChunkThreads;
+constexpr int kWSegs = kWPer * kChunkWarps;  // 32-column segments
+constexpr int kWLead = 32;
+constexpr int kWPacked = (kWLead + kChunk + 64) / 8;
+// wide_emit stages the columns [c0 - (w - 1), c0 + kChunk + w - 1) of a
+// chunk at c0, plus one word of 16-byte alignment slack.
+constexpr int kWExt = (kChunk + 2 * (kMaxW - 1) + 1 + 15) / 16 * 16;
+constexpr int kWExtPer = (kWExt + kChunkThreads - 1) / kChunkThreads;
+// reduce_wide: kWRChunk columns of one row per block of kChunkThreads
+// threads (as stage_async strides), column x of the chunk in thread
+// x % kChunkThreads, register x / kChunkThreads; a block stages the
+// columns [c0 - r, c0 + kWRChunk) of x and y, plus one word of slack.
+// REDUCE_WIDE_CHUNK in ops/kernels.py must equal kWRChunk.
+constexpr int kWRChunk = 2048;
+constexpr int kWRPer = kWRChunk / kChunkThreads;
+constexpr int kWRSegs = kWRPer * kChunkWarps;
+constexpr int kWRExt = (kWRChunk + kMaxR + 1 + 1) / 2 * 2;
+
+static_assert(kWPacked % 4 == 0, "whole 64-bit words of packed codes");
+static_assert(kWLead >= kMaxWideK - 1, "the packed lead covers the halo");
+static_assert(kWExtPer <= 32 && kWPer <= 32, "per-thread bit masks");
+static_assert(kMaxR < kWRChunk && kWRChunk % kChunkThreads == 0, "chunks");
+static_assert(kWSegs <= 32 * 32 && kWRSegs <= 32 * 32, "segments");
+
+// Invertible minimizer hash (peregrine_tpu/ops/sketch.py:hash64) on
+// 64-bit lanes under a mask of at most 56 bits.
+__device__ __forceinline__ unsigned long long hash64(unsigned long long key,
+                                                     unsigned long long mask) {
+  key = (~key + (key << 21)) & mask;
+  key = key ^ (key >> 24);
+  key = (key + (key << 3) + (key << 8)) & mask;
+  key = key ^ (key >> 14);
+  key = (key + (key << 2) + (key << 4)) & mask;
+  key = key ^ (key >> 28);
+  key = (key + (key << 31)) & mask;
+  return key;
+}
+
+// The 32 two-bit groups of v in reverse order (group g moves to 31 - g).
+__device__ __forceinline__ unsigned long long reverse_pairs(
+    unsigned long long v) {
+  v = __brevll(v);
+  return ((v >> 1) & 0x5555555555555555ull) |
+         ((v & 0x5555555555555555ull) << 1);
+}
+
+// Lanes 0 .. lane of a warp.
+__device__ __forceinline__ uint32_t lanes_upto(int lane) {
+  return 0xFFFFFFFFu >> (31 - lane);
+}
+
+// The wide buffer stream (replaces the XLA code of _sketch_impl_wide,
+// peregrine_tpu/ops/sketch.py:383-423, up to its stream compaction).  Per
+// column t of a read: the forward and reverse-complement k-mers ending at
+// t from the codes c[t-k+1..t] & 3, the complement taken before the shift
+// (src/mm_sketch.c:102), so an ambiguous base gives 0 bits to fwd and 3
+// to rev and only columns before the row's start give 0 to both; the
+// canonical k-mer, its strand (a tie goes to 1) and its 56-bit hash; the
+// run length l, the valid non-symmetric entries since the last ambiguous
+// base (a row prefix); and the records: x = hash << 8 | k and y = rid <<
+// 32 | (t << 1 & 0xFFFFFFFE) | strand where the entry is valid,
+// non-symmetric and l >= k, all ones elsewhere, li = l on valid
+// non-symmetric entries (0 elsewhere) and keep = valid non-symmetric or
+// ambiguous: compact_planes' inputs, written at every column.
+//
+// Bound: 1 byte read and 21 written per column (codes in; x, y, li, keep
+// out): 23.1 MB, 6.9 us at B=64, L=16,384 on 3.35 TB/s.  Design: one
+// block per chunk of a row (B x ceil(L / kChunk) blocks), the chunk's
+// codes and a k - 1 halo staged in shared memory by cp.async and packed
+// two bits a column; a column's window is a funnel shift of two packed
+// 64-bit words (the reverse complement is it xor the mask; the forward
+// k-mer its two-bit groups reversed), so no column walks k codes; the
+// columns run in the layout of compact_planes, a warp's 32 consecutive
+// columns per register, so the run length comes from ballots of the
+// valid non-symmetric and the ambiguous columns, one warp's prefix over
+// the 32-column segments and, across chunks, build_stream's decoupled
+// look-back over (valid non-symmetric count, that count at the last
+// ambiguous base): an ATAT... run at even k is all symmetric k-mers of
+// any length, so no bounded halo could carry it; the hashes are computed
+// while warp 0 waits on the look-back, and every store is a warp's 32
+// consecutive columns.  A row of one chunk takes no ticket and publishes
+// nothing; a chunk past the read's length writes its constants and
+// publishes nothing, since only chunks past it could wait on it.
+__global__ void __launch_bounds__(kChunkThreads)
+wide_stream_kernel(const uint8_t* __restrict__ codes,
+                   const int32_t* __restrict__ lengths,
+                   const long long* __restrict__ rids,
+                   int* __restrict__ status, int* __restrict__ stale,
+                   int stale_words, unsigned long long* __restrict__ xo,
+                   unsigned long long* __restrict__ yo,
+                   int32_t* __restrict__ lio, uint8_t* __restrict__ keep,
+                   int L, int k, int chunks) {
+  __shared__ __align__(16) uint8_t cs[kChunk + 48];
+  __shared__ __align__(8) uint16_t pk[kWPacked];
+  __shared__ Stream seg[kWSegs];
+  __shared__ int ticket;
+  __shared__ Stream carried;
+
+  const int tile =
+      chunks == 1 ? (int)blockIdx.x : take_ticket(status, &ticket);
+  clear_stale(stale, stale_words);
+  const int row = tile / chunks, j = tile - row * chunks;
+  const int c0 = j * kChunk, ncols = min(kChunk, L - c0);
+  const size_t base = (size_t)row * L;
+  const int len = lengths[row];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (c0 >= len) {  // block-uniform: past the read, nothing is kept
+    for (int x = threadIdx.x; x < ncols; x += kChunkThreads) {
+      xo[base + c0 + x] = ~0ull;
+      yo[base + c0 + x] = ~0ull;
+      lio[base + c0 + x] = 0;
+      keep[base + c0 + x] = 0;
+    }
+    return;
+  }
+  const int g0 = max(0, c0 - (k - 1));
+  const int off = stage_async(cs, codes + base + g0, c0 + ncols - g0);
+  cp_async_wait_all();
+  __syncthreads();
+  // pk entry e: columns s0 + 8e .. s0 + 8e + 7, two bits each from bit 0;
+  // 0 where not staged (columns before the row's start among them)
+  const int s0 = c0 - kWLead;
+  for (int e = threadIdx.x; e < kWPacked; e += kChunkThreads) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int t = s0 + 8 * e + q;
+      if (t >= g0 && t < c0 + ncols) v |= (cs[off + t - g0] & 3u) << (2 * q);
+    }
+    pk[e] = (uint16_t)v;
+  }
+  __syncthreads();
+  const unsigned long long* pw = reinterpret_cast<const unsigned long long*>(pk);
+
+  const unsigned long long mask = (1ull << (2 * k)) - 1ull;
+  unsigned long long hv[kWPer];  // the canonical k-mer, then its hash
+  uint32_t vb[kWPer], ab[kWPer];  // ballots: valid non-symmetric, ambiguous
+  uint32_t strand = 0;            // bit q: column q's strand
+#pragma unroll
+  for (int q = 0; q < kWPer; ++q) {
+    const int x = threadIdx.x + q * kChunkThreads, t = c0 + x;
+    bool vns = false, amb = false;
+    hv[q] = 0;
+    if (x < ncols) {
+      const uint32_t ct = cs[off + t - g0];
+      const int bit = 2 * (x + kWLead - (k - 1));  // column t - k + 1
+      const int wi = bit >> 6, sh = bit & 63;
+      unsigned long long m = pw[wi] >> sh;
+      if (sh) m |= pw[wi + 1] << (64 - sh);
+      m &= mask;
+      const unsigned long long fwd = reverse_pairs(m) >> (64 - 2 * k);
+      unsigned long long rev = m ^ mask;
+      if (t < k - 1) rev &= ~((1ull << (2 * (k - 1 - t))) - 1ull);
+      const bool inlen = t < len;
+      amb = inlen && ct >= 4;
+      vns = inlen && ct < 4 && fwd != rev;
+      if (fwd >= rev) strand |= 1u << q;
+      hv[q] = min(fwd, rev);
+    }
+    vb[q] = __ballot_sync(0xFFFFFFFFu, vns);
+    ab[q] = __ballot_sync(0xFFFFFFFFu, amb);
+    if (lane == 0) {
+      const int last = 31 - __clz(ab[q]);  // the segment's last amb lane
+      seg[q * kChunkWarps + warp] =
+          Stream{__popc(vb[q]), 0,
+                 ab[q] ? __popc(vb[q] & lanes_upto(last)) : -1};
+    }
+  }
+  __syncthreads();
+  const Stream id = {0, 0, -1};
+  if (warp == 0) {  // the segments' prefixes, then the row's
+    const Stream agg = segment_scan<kWSegs>(seg, id, StreamOp());
+    const Stream c =
+        chunks == 1 ? id : look_back(status, tile, j, agg, id, StreamOp());
+    if (lane == 0) carried = c;
+  }
+#pragma unroll
+  for (int q = 0; q < kWPer; ++q) hv[q] = hash64(hv[q], mask);
+  __syncthreads();
+
+  const unsigned long long rid = (unsigned long long)rids[row] << 32;
+  const uint32_t upto = lanes_upto(lane);
+#pragma unroll
+  for (int q = 0; q < kWPer; ++q) {
+    const int x = threadIdx.x + q * kChunkThreads, t = c0 + x;
+    if (x < ncols) {
+      const Stream pre = StreamOp()(carried, seg[q * kChunkWarps + warp]);
+      const bool vns = vb[q] >> lane & 1u, amb = ab[q] >> lane & 1u;
+      const int cv = pre.vns + __popc(vb[q] & upto);
+      const uint32_t la = ab[q] & upto;
+      const int at = la ? pre.vns + __popc(vb[q] & (0xFFFFFFFFu >> __clz(la)))
+                        : max(pre.amb, 0);
+      const int run = cv - at;
+      const bool defined = vns && run >= k;
+      xo[base + t] = defined ? hv[q] << 8 | (unsigned long long)k : ~0ull;
+      yo[base + t] = defined ? rid | ((unsigned long long)t << 1 &
+                                      0xFFFFFFFEull) |
+                                   (strand >> q & 1u)
+                             : ~0ull;
+      lio[base + t] = vns ? run : 0;
+      keep[base + t] = vns || amb;
+    }
+  }
+}
+
+// The wide emission set (replaces the XLA code of _sketch_impl_wide,
+// peregrine_tpu/ops/sketch.py:425-441) over the compacted stream (sx,
+// sl, n): W = the trailing minimum of sx over w, in unsigned order, all
+// ones before column 0; Ap = W where sl >= w + k - 1 (the window is
+// complete) and 0 elsewhere; M = the leading maximum of Ap over w, 0 past
+// n; an entry t < n is emitted where sx[t] is not all ones and M equals
+// it, or where it is the newest minimum of the final window
+// [max(0, n - w), n) unless that minimum is all ones.  Columns at or past
+// n are not emitted and never read (compact_planes fills them with all
+// ones and 0, which emit nothing).
+//
+// Bound: 12 bytes per column below n (sx, sl in) and 1 per column (the
+// mask out): 13.6 MB, 4.1 us at B=64, L=16,384 with full rows on 3.35
+// TB/s.  Design: emit_mask's, on 64-bit keys and without its ranks: one
+// block per chunk of a row, no row prefix, so no ticket and no status;
+// the chunk's sx with a halo of w - 1 columns before and after, clipped
+// to [0, n), staged in shared memory by cp.async (40 KB: each column's
+// raw key stays in a register); the final window, which lies inside the
+// staged columns of every chunk it meets, is reduced first, while the
+// staged keys are whole; the trailing minimum and the leading maximum
+// are log-step sparse tables over one shared buffer, about 2 log2(w)
+// steps of one shared load a column; each warp stores its 32 columns of
+// the mask at once.
+__global__ void __launch_bounds__(kChunkThreads)
+wide_emit_kernel(const unsigned long long* __restrict__ sx,
+                 const int32_t* __restrict__ sl,
+                 const int32_t* __restrict__ n_in, uint8_t* __restrict__ emit,
+                 int L, int w, int k, int chunks) {
+  __shared__ __align__(16) unsigned long long As[kPad + kWExt + kPad];
+  __shared__ unsigned long long red[kChunkWarps];
+
+  const int row = blockIdx.x / chunks, j = blockIdx.x - row * chunks;
+  const int c0 = j * kChunk, ncols = min(kChunk, L - c0);
+  const size_t base = (size_t)row * L;
+  const int n = max(0, min(n_in[row], L));  // a count: never past the row
+  if (c0 >= n) {  // block-uniform: nothing below n
+    for (int x = threadIdx.x; x < ncols; x += kChunkThreads)
+      emit[base + c0 + x] = 0;
+    return;
+  }
+  const int g0 = max(0, c0 - (w - 1));
+  const int E = min(n, c0 + ncols + w - 1) - g0;
+  const int off = stage_async((uint8_t*)(As + kPad),
+                              (const uint8_t*)(sx + base + g0), 8 * E);
+  unsigned long long* as = As + kPad + off / 8;  // as[i]: column g0 + i
+  for (int i = threadIdx.x; i < kPad + off / 8; i += kChunkThreads)
+    As[i] = ~0ull;  // the minimum's identity before the staged columns
+  for (int i = threadIdx.x; i < kPad; i += kChunkThreads)
+    as[E + i] = 0;  // the maximum's after them
+  unsigned long long v[kWExtPer], h[kWExtPer];
+  uint32_t complete = 0;  // bit q: that column's window is complete
+#pragma unroll
+  for (int q = 0; q < kWExtPer; ++q) {
+    const int i = threadIdx.x + q * kChunkThreads;
+    if (i < E && sl[base + g0 + i] >= w + k - 1) complete |= 1u << q;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kWExtPer; ++q) {
+    const int i = threadIdx.x + q * kChunkThreads;
+    v[q] = h[q] = i < E ? as[i] : ~0ull;
+  }
+
+  // the final window's minimum and its newest column, in the chunks it
+  // meets
+  bool has_final = false;
+  int t_f = -1;
+  const int lo_f = max(0, n - w);
+  if (c0 + ncols > lo_f) {  // block-uniform
+    const int t = lo_f + (int)threadIdx.x;
+    const unsigned long long key = t < n ? as[t - g0] : ~0ull;
+    const unsigned long long m = block_min_u64(key, red);
+    const unsigned long long newest = block_min_u64(
+        t < n && key == m ? (unsigned long long)(kInf - (uint32_t)t) : ~0ull,
+        red);
+    has_final = m != ~0ull;
+    t_f = (int)(kInf - (uint32_t)newest);
+  }
+
+  // W, the trailing minimum over w: doublings cover jj columns, and a
+  // last step overlaps two of them to cover w (as holds the raw keys for
+  // the first)
+  int jj = 1;
+  for (; 2 * jj <= w; jj *= 2) {
+    if (jj > 1) publish(as, v, E);
+    combine<false>(v, as, E, -jj);
+  }
+  if (w > jj) {
+    publish(as, v, E);
+    combine<false>(v, as, E, jj - w);
+  }
+  // Ap = W where complete, else 0; M, the leading maximum of Ap over w
+#pragma unroll
+  for (int q = 0; q < kWExtPer; ++q)
+    if (!(complete >> q & 1u)) v[q] = 0;
+  publish(as, v, E);
+  for (jj = 1; 2 * jj <= w; jj *= 2) {
+    if (jj > 1) publish(as, v, E);
+    combine<true>(v, as, E, jj);
+  }
+  if (w > jj) {
+    if (jj > 1) publish(as, v, E);
+    combine<true>(v, as, E, w - jj);
+  }
+
+#pragma unroll
+  for (int q = 0; q < kWExtPer; ++q) {
+    const int i = threadIdx.x + q * kChunkThreads, t = g0 + i;
+    if (t >= c0 && t < c0 + ncols)
+      emit[base + t] = i < E && ((h[q] != ~0ull && v[q] == h[q]) ||
+                                 (has_final && t == t_f));
+  }
+}
+
+// The winner of the r-wide trailing window at column col, whose record
+// is xs[i]: the least key (x & ~0xFF) | (column % r) in unsigned order,
+// ring slots being distinct in a window.  Returns its index into xs.
+__device__ __forceinline__ int window_winner64(const unsigned long long* xs,
+                                               int i, int col, int r) {
+  const int s0 = col % r;
+  unsigned long long best = (xs[i] & ~0xFFull) | (unsigned)s0;
+  int at = i;
+  for (int d = 1; d < r; ++d) {
+    const int s = d > s0 ? s0 - d + r : s0 - d;
+    const unsigned long long key = (xs[i - d] & ~0xFFull) | (unsigned)s;
+    if (key < best) {
+      best = key;
+      at = i - d;
+    }
+  }
+  return at;
+}
+
+// One reduction level on record rows, compacted (replaces the XLA code of
+// reduce_impl, peregrine_tpu/ops/reduce.py:26-61, with its compaction):
+// the winner of the r-wide trailing window at each column r - 1 <= col <
+// n, emitted where col == r - 1 or its y differs from the previous
+// column's winner's; the emitted winners' x and y go to ox, oy at their
+// rank in the row, every column from the count to C gets all ones, and
+// count gets their number.  n is clamped to [0, C]; the values of x, y at
+// or past it are never read.
+//
+// Bound: 16 bytes per column below n (x, y in) and 16 per column of the
+// output (the emitted winners and the fills): 16.9 MB, 5.0 us at a
+// --with-L0-index level (B=64, C=16,384, n ~ 370), where the fills are
+// nearly all of it.  Design: reduce_step's, on 64-bit records and with
+// the fills: chunks of kWRChunk columns, one block each (a row of one
+// chunk takes no ticket and publishes nothing); the chunk's columns below
+// n and an r-column halo staged in shared memory by cp.async; each
+// column's winner is found once (r shared loads), the previous column's
+// comes from the neighbouring lane by a shuffle; ranks come from ballots,
+// popcounts, one warp's prefix over the 32-column segments and, across
+// chunks, a decoupled look-back; a dropped column t < n with d = t -
+// (emitted columns before t) writes all ones at column n - 1 - d, which
+// puts the fills on [count, n) exactly once, and a column at or past n
+// writes them at its own column (count <= n), so no store waits on the
+// row's count; a chunk at or past n reads nothing and publishes nothing.
+__global__ void __launch_bounds__(kChunkThreads)
+reduce_wide_kernel(const unsigned long long* __restrict__ X,
+                   const unsigned long long* __restrict__ Y,
+                   const int32_t* __restrict__ n_in, int* __restrict__ status,
+                   int* __restrict__ stale, int stale_words,
+                   unsigned long long* __restrict__ oX,
+                   unsigned long long* __restrict__ oY,
+                   int32_t* __restrict__ count, int C, int r, int chunks) {
+  __shared__ __align__(16) unsigned long long Xs[kWRExt];
+  __shared__ __align__(16) unsigned long long Ys[kWRExt];
+  __shared__ int seg[kWRSegs];
+  __shared__ unsigned long long edge[kWRSegs];  // each segment's last y
+  __shared__ int shared_int;
+
+  // rows of one chunk need no look-back, and so no ticket
+  const int tile =
+      chunks == 1 ? (int)blockIdx.x : take_ticket(status, &shared_int);
+  clear_stale(stale, stale_words);
+  const int row = tile / chunks, j = tile - row * chunks;
+  const int c0 = j * kWRChunk, ncols = min(kWRChunk, C - c0);
+  const size_t base = (size_t)row * C;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = max(0, min(n_in[row], C));  // a count: never past the row
+  // the chunk's columns at or past n: all ones at their own column
+  for (int t = max(c0, n) + threadIdx.x; t < c0 + ncols; t += kChunkThreads) {
+    oX[base + t] = ~0ull;
+    oY[base + t] = ~0ull;
+  }
+  if (c0 >= n) {  // block-uniform: nothing below n, nothing to publish
+    if (j == 0 && threadIdx.x == 0) count[row] = 0;
+    return;
+  }
+  const int nb = min(kWRChunk, n - c0);  // the chunk's columns below n
+  const int g0 = max(0, c0 - r);
+  const int E = c0 + nb - g0;
+  const int offX = stage_async((uint8_t*)Xs, (const uint8_t*)(X + base + g0),
+                               8 * E);
+  const int offY = stage_async((uint8_t*)Ys, (const uint8_t*)(Y + base + g0),
+                               8 * E);
+  const unsigned long long* xs = Xs + offX / 8;  // xs[i], ys[i]: column g0+i
+  const unsigned long long* ys = Ys + offY / 8;
+  // the registers that hold a column below n (block-uniform)
+  const int nq = (nb + kChunkThreads - 1) / kChunkThreads;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // each column's winner, where its window is whole
+  unsigned long long wx[kWRPer], wy[kWRPer];
+  bool full[kWRPer];
+#pragma unroll
+  for (int q = 0; q < kWRPer; ++q) {
+    const int x = threadIdx.x + q * kChunkThreads, col = c0 + x;
+    full[q] = x < nb && col >= r - 1;
+    wx[q] = wy[q] = 0;
+    if (full[q]) {
+      const int b = window_winner64(xs, col - g0, col, r);
+      wx[q] = xs[b];
+      wy[q] = ys[b];
+    }
+    if (q < nq && lane == 31) edge[q * kChunkWarps + warp] = wy[q];
+  }
+  // column c0 - 1's winner, the previous one of the chunk's first column
+  unsigned long long before = 0;
+  if (threadIdx.x == 0 && c0 >= r)
+    before = ys[window_winner64(xs, c0 - 1 - g0, c0 - 1, r)];
+  __syncthreads();
+
+  // emitted columns by ballots in segments q * kChunkWarps + warp, which
+  // run in column order
+  uint32_t em[kWRPer];
+#pragma unroll
+  for (int q = 0; q < kWRPer; ++q) {
+    const int e = q * kChunkWarps + warp;
+    em[q] = 0;
+    if (q < nq) {
+      unsigned long long prev = __shfl_up_sync(0xFFFFFFFFu, wy[q], 1);
+      if (lane == 0) prev = e > 0 ? edge[e - 1] : before;
+      const int col = c0 + threadIdx.x + q * kChunkThreads;
+      em[q] = __ballot_sync(0xFFFFFFFFu,
+                            full[q] && (col == r - 1 || wy[q] != prev));
+    }
+    if (lane == 0) seg[e] = __popc(em[q]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int agg = segment_scan<kWRSegs>(seg, 0, Sum());
+    const int c = chunks == 1 ? 0 : look_back(status, tile, j, agg, 0, Sum());
+    if (lane == 0) {
+      shared_int = c;
+      if (c0 + nb == n) count[row] = c + agg;  // the chunk of column n-1
+    }
+  }
+  __syncthreads();
+  const int pre = shared_int;
+#pragma unroll
+  for (int q = 0; q < kWRPer; ++q) {
+    const int x = threadIdx.x + q * kChunkThreads;
+    if (x < nb) {
+      // emitted columns of the row before this one
+      const int at = pre + seg[q * kChunkWarps + warp] +
+                     __popc(em[q] & ((1u << lane) - 1u));
+      if (em[q] >> lane & 1u) {
+        oX[base + at] = wx[q];
+        oY[base + at] = wy[q];
+      } else {
+        const size_t fill = base + n - 1 - (c0 + x - at);
+        oX[fill] = ~0ull;
+        oY[fill] = ~0ull;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1250,6 +1744,45 @@ int pg_compact_planes(const void* keep, const void* in0, const void* in1,
   kernel<<<B * chunks, kCThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)keep, pl, (int*)status, (int*)stale, stale_words,
       (int32_t*)count, L, chunks);
+  return (int)cudaGetLastError();
+}
+
+int pg_wide_stream(const void* codes, const void* lengths, const void* rids,
+                   void* status, void* stale, int stale_words, void* x,
+                   void* y, void* li, void* keep, int B, int L, int k,
+                   void* stream) {
+  if (k < 1 || k > kMaxWideK || stale_words % kSlot)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (L + kChunk - 1) / kChunk;
+  wide_stream_kernel<<<B * chunks, kChunkThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (const int32_t*)lengths, (const long long*)rids,
+      (int*)status, (int*)stale, stale_words, (unsigned long long*)x,
+      (unsigned long long*)y, (int32_t*)li, (uint8_t*)keep, L, k, chunks);
+  return (int)cudaGetLastError();
+}
+
+int pg_wide_emit(const void* sx, const void* sl, const void* n_in, void* emit,
+                 int B, int L, int w, int k, void* stream) {
+  if (w < 1 || w > kMaxW || k < 1 || k > kMaxWideK)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (L + kChunk - 1) / kChunk;
+  wide_emit_kernel<<<B * chunks, kChunkThreads, 0, (cudaStream_t)stream>>>(
+      (const unsigned long long*)sx, (const int32_t*)sl, (const int32_t*)n_in,
+      (uint8_t*)emit, L, w, k, chunks);
+  return (int)cudaGetLastError();
+}
+
+int pg_reduce_wide(const void* x, const void* y, const void* n_in,
+                   void* status, void* stale, int stale_words, void* ox,
+                   void* oy, void* count, int B, int C, int r, void* stream) {
+  if (r < 1 || r > kMaxR || stale_words % kSlot)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (C + kWRChunk - 1) / kWRChunk;
+  reduce_wide_kernel<<<B * chunks, kChunkThreads, 0, (cudaStream_t)stream>>>(
+      (const unsigned long long*)x, (const unsigned long long*)y,
+      (const int32_t*)n_in, (int*)status, (int*)stale, stale_words,
+      (unsigned long long*)ox, (unsigned long long*)oy, (int32_t*)count, C, r,
+      chunks);
   return (int)cudaGetLastError();
 }
 

@@ -78,11 +78,13 @@ def gather_offsets(off: np.ndarray, lens: np.ndarray, strand: np.ndarray,
 
 
 def gather_codes(pdb: PackedSeqDB, goff: torch.Tensor, lens: torch.Tensor,
-                 strand: torch.Tensor, L: int, fill: int) -> torch.Tensor:
+                 strand: torch.Tensor | None, L: int,
+                 fill: int) -> torch.Tensor:
     """[B] windows -> [B, L] uint8 2-bit codes (ambiguous/padding = fill).
 
     goff is the GATHER start from gather_offsets (mirror-adjusted for
     strand 1); strand-1 windows come out flipped and complemented.
+    strand None: every window on strand 0, as the index builds read them.
     """
     assert L % 8 == 0 and L <= GUARD_BASES
     dev = pdb.fw.device
@@ -92,9 +94,10 @@ def gather_codes(pdb: PackedSeqDB, goff: torch.Tensor, lens: torch.Tensor,
     ab = pdb.amb.reshape(-1)
     code = (fw[(q >> 2).clamp(0, fw.numel() - 1)] >> (2 * (q & 3))) & 3
     amb = (ab[(q >> 3).clamp(0, ab.numel() - 1)] >> (q & 7)) & 1
-    rev = strand.to(dev)[:, None] == 1
-    code = torch.where(rev, torch.flip(code, dims=[1]) ^ 3, code)
-    amb = torch.where(rev, torch.flip(amb, dims=[1]), amb)
+    if strand is not None:
+        rev = strand.to(dev)[:, None] == 1
+        code = torch.where(rev, torch.flip(code, dims=[1]) ^ 3, code)
+        amb = torch.where(rev, torch.flip(amb, dims=[1]), amb)
     inlen = (torch.arange(L, device=dev)[None, :]
              < lens.to(dev, torch.int64)[:, None])
     out = torch.where((amb == 1) | ~inlen, fill, code)

@@ -143,17 +143,15 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().view(np.uint64)
 
 
-def _drain(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor,
+def _drain(x: torch.Tensor, y: torch.Tensor, c: np.ndarray,
            part: np.ndarray, xs: dict, ys: dict) -> None:
-    """Per-read record slices [:c] of a batch's rows, fetched as one
-    valid prefix per row in (row, slot) order."""
-    valid = torch.arange(x.shape[1], device=x.device)[None, :] < c[:, None]
-    xf, yf = _to_host(x[valid]), _to_host(y[valid])
-    offs = np.zeros(len(part) + 1, np.int64)
-    np.cumsum(c.cpu().numpy(), out=offs[1:])
+    """Per-read record slices [:c] of a batch's rows (c: the counts, on
+    the host): the first max(c) columns of each plane fetched at once."""
+    m = int(c.max()) if len(c) else 0
+    xf, yf = _to_host(x[:, :m]), _to_host(y[:, :m])
     for b, rid in enumerate(part):
-        xs[rid] = xf[offs[b]:offs[b + 1]]
-        ys[rid] = yf[offs[b]:offs[b + 1]]
+        xs[rid] = xf[b, :c[b]]
+        ys[rid] = yf[b, :c[b]]
 
 
 def _index_of(xs: dict, ys: dict) -> ShimmerIndex:
@@ -258,7 +256,7 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
             torch.from_numpy(codes).to(device),
             torch.from_numpy(lens.astype(np.int32)).to(device),
             torch.from_numpy(part.astype(np.int64)).to(device), cap=0, **step)
-        _drain(xl, yl, cl, part, xs, ys)
+        _drain(xl, yl, cl.cpu().numpy(), part, xs, ys)
 
     # long sequences (contigs/references) take the fixed-shape segmented
     # route: pad classes above sketch_pad_len are not index batch shapes
@@ -293,18 +291,20 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
             offs = torch.from_numpy(db.offsets[part].astype(np.int64)
                                     - win_lo)
             lens = torch.from_numpy(db.lengths[part].astype(np.int32))
-            codes = gather_codes(packed, offs, lens, torch.zeros_like(lens),
-                                 pad, fill=4)
+            codes = gather_codes(packed, offs, lens, None, pad, fill=4)
             xl, yl, cl, c0, *l0 = index_step(
                 codes, lens.to(device),
                 torch.from_numpy(part.astype(np.int64)).to(device),
                 cap=cap, keep_l0=keep_l0, **step)
+            # one fetch of the batch's counts, which the overflow check
+            # and the drains read on the host
+            c0h, clh = torch.stack([c0, cl]).cpu().numpy()
             if keep_l0:
-                _drain(*l0, c0, part, l0xs, l0ys)
-            elif ((c0 > cap) | (cl > xl.shape[1])).any().item():
+                _drain(*l0, c0h, part, l0xs, l0ys)
+            elif (c0h > cap).any() or (clh > xl.shape[1]).any():
                 _retry_exact(part, pad)
                 continue
-            _drain(xl, yl, cl, part, xs, ys)
+            _drain(xl, yl, clh, part, xs, ys)
 
     idx = _index_of(xs, ys)
     return (idx, _index_of(l0xs, l0ys)) if keep_l0 else idx

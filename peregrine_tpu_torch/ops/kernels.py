@@ -1,6 +1,6 @@
-"""The five SHIMMER index kernels: CUDA wrappers beside plain PyTorch.
+"""The SHIMMER index kernels: CUDA wrappers beside plain PyTorch.
 
-Each public function here replaces one Pallas kernel of
+Five public functions here replace one Pallas kernel each of
 peregrine_tpu/ops/compact_pallas.py:
 
   build_stream    <- build_stream   :230 (pallas_call :243)
@@ -10,32 +10,45 @@ peregrine_tpu/ops/compact_pallas.py:
                      move_plane on its two planes
   compact_planes  <- compact_planes :365 (pallas_call :391)
 
+and three replace the XLA code of the wide (k > 16) route, which the JAX
+package leaves to XLA between its compactions:
+
+  wide_stream     <- peregrine_tpu/ops/sketch.py:_sketch_impl_wide,
+                     :383-423 up to the stream compaction
+  wide_emit       <- the same, :425-441 (window extrema, emission set)
+  reduce_wide     <- peregrine_tpu/ops/reduce.py:reduce_impl, :26-61
+                     (the shifted winners, the dedup and the compaction)
+
 On a CUDA tensor a function launches its kernel from
 csrc/shimmer_kernels.cu (built with nvcc for sm_90a on first use, bound
 through a plain C interface with ctypes) and counts the launch in its
 `launches` attribute; on a CPU tensor it runs the plain version
 (`*_plain`), which is the same function written in PyTorch and is what the
-CPU tests hold against the Pallas kernels.  Any other device raises.
+CPU tests hold against the Pallas kernels and the JAX package.  Any other
+device raises.
 
 What bounds the kernels on an H100: device-memory bytes (each reads and
 writes a few bytes per column once).  build_stream, emit_mask,
-reduce_step and compact_planes split rows into chunks (CHUNK columns,
-REDUCE_CHUNK for reduce_step, COMPACT_CHUNK for compact_planes), one
-block each, and carry row prefixes across chunks by a decoupled
-look-back over a zeroed status buffer; each launch zeroes the one the
-launch before it used, so the wrappers alternate two (`_call_chunked`).
-See the source note in the .cu file.
+reduce_step, compact_planes, wide_stream and reduce_wide split rows into
+chunks (CHUNK columns, REDUCE_CHUNK for reduce_step, COMPACT_CHUNK for
+compact_planes, REDUCE_WIDE_CHUNK for reduce_wide), one block each, and
+carry row prefixes across chunks by a decoupled look-back over a zeroed
+status buffer; each launch zeroes the one the launch before it used, so
+the wrappers alternate two (`_call_chunked`).  wide_emit needs no row
+prefix.  See the source note in the .cu file.
 
 Conventions: torch has no usable uint32 (no shifts, compares or minimum),
 so the u32 planes ride in int32 tensors holding the same bits; the plain
-versions widen to int64 & 0xFFFFFFFF before any compare.  Where the TPU
+versions widen to int64 & 0xFFFFFFFF before any compare.  Wide records
+are int64 tensors holding the uint64 bits (INF, all ones, is -1); x ^ SIGN
+orders as signed int64 exactly as x does as uint64.  Where the TPU
 kernels returned shift distances r, build_stream and emit_mask return a
 destination column (`dest`, the rank among kept entries, -1 where
 dropped): dest = col - r on kept entries; reduce_step returns its winners
 compacted.  Positions of a plane compacted by move_plane or reduce_step
 at or past its count are stale, as on the TPU; every consumer masks by
-count.  compact_planes instead fills them with each plane's fill value,
-which the wide sketch reads.
+count.  compact_planes and reduce_wide instead fill them (INF for
+records), which the wide sketch reads.
 """
 
 from __future__ import annotations
@@ -47,6 +60,8 @@ import torch
 
 from .._build import load_cuda
 
+INF = -1  # uint64 0xFFFF_FFFF_FFFF_FFFF as int64
+SIGN = -(1 << 63)  # x ^ SIGN: unsigned order as signed order
 _CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "csrc", "shimmer_kernels.cu")
 _U32 = 0xFFFFFFFF
@@ -62,15 +77,19 @@ SIGNATURES = {
     "pg_reduce_step": [_VP] * 5 + [_INT] + [_VP] * 3 + [_INT] * 3 + [_VP],
     "pg_compact_planes": [_VP] * 6 + [_INT] + [_VP] * 4 + [_I64] * 3
     + [_INT] * 5 + [_VP],
+    "pg_wide_stream": [_VP] * 5 + [_INT] + [_VP] * 4 + [_INT] * 3 + [_VP],
+    "pg_wide_emit": [_VP] * 4 + [_INT] * 4 + [_VP],
+    "pg_reduce_wide": [_VP] * 5 + [_INT] + [_VP] * 3 + [_INT] * 3 + [_VP],
 }
-# The chunked kernels' layout (kChunk, kRChunk, kCChunk and kSlot in the
-# .cu file; tests check they agree): columns per block of build_stream and
-# emit_mask, of reduce_step, of compact_planes, and int32 words per
-# look-back status slot (slot 0 holds the ticket counter, then one per
-# chunk).
+# The chunked kernels' layout (kChunk, kRChunk, kCChunk, kWRChunk and
+# kSlot in the .cu file; tests check they agree): columns per block of
+# build_stream, emit_mask, wide_stream and wide_emit, of reduce_step, of
+# compact_planes, of reduce_wide, and int32 words per look-back status
+# slot (slot 0 holds the ticket counter, then one per chunk).
 CHUNK = 4096
 REDUCE_CHUNK = 3072
 COMPACT_CHUNK = 4096
+REDUCE_WIDE_CHUNK = 2048
 STATUS_SLOT = 8
 _lib = None
 # (device, stream) -> [status of the next launch, status of the last, the
@@ -485,7 +504,240 @@ def compact_planes(keep: torch.Tensor, planes, fills):
 
 compact_planes.launches = 0
 
-KERNELS = (build_stream, move_plane, emit_mask, reduce_step, compact_planes)
+
+# --- the wide route (k > 16): wide_stream, wide_emit, reduce_wide --------
+
+MAX_K = 28  # 56-bit hashes: x = hash << 8 | span fills 64 bits
+
+
+def wide_stream_plain(codes: torch.Tensor, lengths: torch.Tensor,
+                      rids: torch.Tensor, k: int):
+    """Plain version of wide_stream (the XLA code of
+    peregrine_tpu/ops/sketch.py:_sketch_impl_wide, :383-423): rolling
+    k-mers on raw positions (zero padding mirrors the zeroed rolling
+    registers, and the complement is taken before the shift,
+    src/mm_sketch.c:102), the 56-bit hash, the run length and the
+    records."""
+    B, L = codes.shape
+    mask = (1 << (2 * k)) - 1
+    pos = torch.arange(L, device=codes.device)[None, :]
+    c = codes.to(torch.int64)
+    inlen = pos < lengths.to(torch.int64)[:, None]
+    valid = (c < 4) & inlen
+    amb = (c >= 4) & inlen
+    cb = c & 3
+    fwd = torch.zeros_like(c)
+    rev = torch.zeros_like(c)
+    for d in range(k):
+        fwd |= _shift_right(cb, d, 0) << (2 * d)
+        rev |= _shift_right(cb ^ 3, d, 0) << (2 * (k - 1 - d))
+    fwd &= mask
+    sym = (fwd == rev) & valid
+    strand = (fwd >= rev).to(torch.int64)
+    hsh = hash64(torch.minimum(fwd, rev), mask)
+    vns = valid & ~sym
+    cvns = torch.cumsum(vns.to(torch.int32), dim=1, dtype=torch.int32)
+    at_amb = torch.cummax(torch.where(amb, cvns, 0), dim=1).values
+    run = cvns - at_amb  # valid non-symmetric entries since the last amb
+    defined = vns & (run >= k)
+    x = torch.where(defined, (hsh << 8) | k, INF)
+    y = torch.where(defined, (rids.to(torch.int64)[:, None] << 32)
+                    | ((pos << 1) & 0xFFFFFFFE) | strand, INF)
+    return x, y, torch.where(vns, run, 0), vns | amb
+
+
+def wide_stream(codes: torch.Tensor, lengths: torch.Tensor,
+                rids: torch.Tensor, *, k: int):
+    """[B, L] uint8 codes (>= 4 ambiguous), [B] int32 lengths and [B]
+    int64 read ids -> the wide buffer stream at every raw column: x, y
+    (int64 records, INF where no k-mer is defined), the run length li
+    (int32, valid non-symmetric entries since the last ambiguous base, 0
+    elsewhere) and keep (bool: valid non-symmetric entries and ambiguous
+    placeholders), for compact_planes."""
+    B, L = codes.shape
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"wide_stream: k={k} outside 1..{MAX_K}")
+    _check(codes, torch.uint8, (B, L), "codes")
+    _check(lengths, torch.int32, (B,), "lengths")
+    _check(rids, torch.int64, (B,), "rids")
+    if _route(codes, lengths, rids) == "cpu":
+        return wide_stream_plain(codes, lengths, rids, k)
+    x = torch.empty((B, L), dtype=torch.int64, device=codes.device)
+    y = torch.empty_like(x)
+    li = torch.empty((B, L), dtype=torch.int32, device=codes.device)
+    keep = torch.empty((B, L), dtype=torch.bool, device=codes.device)
+    if B and L:
+        _call_chunked(library().pg_wide_stream, B, L, codes.device,
+                      (codes, lengths, rids), (x, y, li, keep), B, L, k)
+        wide_stream.launches += 1
+    return x, y, li, keep
+
+
+wide_stream.launches = 0
+
+
+def _shift_left(a: torch.Tensor, d: int, fill: int) -> torch.Tensor:
+    """a[:, i + d], with fill where i + d >= L."""
+    if d == 0:
+        return a
+    out = torch.full_like(a, fill)
+    if d < a.shape[1]:
+        out[:, :-d] = a[:, d:]
+    return out
+
+
+def _blocks(a: torch.Tensor, w: int, fill: int):
+    """Pad [B, L] to whole blocks of w columns: a [B, nb, w] view."""
+    B, L = a.shape
+    P = -(-L // w) * w
+    ap = torch.full((B, P), fill, dtype=a.dtype, device=a.device)
+    ap[:, :L] = a
+    return ap.view(B, P // w, w)
+
+
+def _sliding_min_trailing(a: torch.Tensor, w: int, fill: int) -> torch.Tensor:
+    """W[t] = min(a[t-w+1 .. t]) in unsigned order, fill out of range:
+    per-block prefix and suffix minima combined by one static shift."""
+    B, L = a.shape
+    s, f = a ^ SIGN, fill ^ SIGN
+    blocks = _blocks(s, w, f)
+    pref = torch.cummin(blocks, dim=2).values.reshape(B, -1)
+    suf = torch.cummin(blocks.flip(2), dim=2).values.flip(2).reshape(B, -1)
+    left = _shift_right(suf, w - 1, f)[:, :L]
+    return torch.minimum(left, pref[:, :L]) ^ SIGN
+
+
+def _sliding_max_leading(a: torch.Tensor, w: int, fill: int) -> torch.Tensor:
+    """M[t] = max(a[t .. t+w-1]) in unsigned order, fill out of range."""
+    B, L = a.shape
+    s, f = a ^ SIGN, fill ^ SIGN
+    blocks = _blocks(s, w, f)
+    pref = torch.cummax(blocks, dim=2).values.reshape(B, -1)
+    suf = torch.cummax(blocks.flip(2), dim=2).values.flip(2).reshape(B, -1)
+    right = _shift_left(pref, w - 1, f)[:, :L]
+    return torch.maximum(suf[:, :L], right) ^ SIGN
+
+
+def wide_emit_plain(sx: torch.Tensor, sl: torch.Tensor, n: torch.Tensor,
+                    w: int, k: int) -> torch.Tensor:
+    """Plain version of wide_emit (the XLA code of
+    peregrine_tpu/ops/sketch.py:_sketch_impl_wide, :425-441), restricted
+    to the columns below n, which is all it emits where the columns past
+    n hold compact_planes' fills."""
+    B, L = sx.shape
+    col = torch.arange(L, device=sx.device)[None, :]
+    nn = n.to(torch.int64)[:, None]
+    in_n = col < nn
+    if not sx.numel():
+        return in_n
+    # window minima and the emission set; Ap's sentinel 0 lies below
+    # every finite x (x >= span > 0) and never equals one
+    W = _sliding_min_trailing(sx, w, INF)
+    Ap = torch.where((sl >= w + k - 1) & in_n, W, 0)
+    M = _sliding_max_leading(Ap, w, 0)
+    emit = (sx != INF) & (M == sx)
+    # the final held minimum: min of the last window, the newest tie wins
+    in_final = (col >= nn - w) & in_n
+    xm = torch.where(in_final, sx, INF)
+    fmin = ((xm ^ SIGN).min(dim=1, keepdim=True).values) ^ SIGN
+    t_f = torch.where((xm == fmin) & in_final, col, -1).max(
+        dim=1, keepdim=True).values
+    emit |= (col == t_f) & (fmin != INF) & (t_f >= 0)
+    return emit & in_n
+
+
+def wide_emit(sx: torch.Tensor, sl: torch.Tensor, n: torch.Tensor, *,
+              w: int, k: int) -> torch.Tensor:
+    """The emission set over the compacted wide stream (sx int64 records,
+    sl int32 run lengths, n [B] int32 counts): [B, L] bool, the entries
+    that are the unsigned minimum of a complete window (run length
+    >= w + k - 1 at its end) or the newest minimum of the final window.
+    Only the columns below n are read."""
+    B, L = sx.shape
+    if not 0 < w < 256 or not 0 < k <= MAX_K:
+        raise ValueError(f"wide_emit: w={w} outside 1..255 or k={k} "
+                         f"outside 1..{MAX_K}")
+    _check(sx, torch.int64, (B, L), "sx")
+    _check(sl, torch.int32, (B, L), "sl")
+    _check(n, torch.int32, (B,), "n")
+    if _route(sx, sl, n) == "cpu":
+        return wide_emit_plain(sx, sl, n, w, k)
+    emit = torch.empty((B, L), dtype=torch.bool, device=sx.device)
+    if B and L:
+        _call(library().pg_wide_emit, sx, sl, n, emit, B, L, w, k)
+        wide_emit.launches += 1
+    return emit
+
+
+wide_emit.launches = 0
+
+
+def reduce_wide_columns_plain(x: torch.Tensor, y: torch.Tensor,
+                              count: torch.Tensor, r: int):
+    """One wide reduction level per column (peregrine_tpu/ops/reduce.py:
+    reduce_impl before its compaction): the r-step shift tournament on
+    the composite key and the dedup.  Returns the winners' (x, y) at every
+    column and the emitted columns."""
+    C = x.shape[1]
+    col = torch.arange(C, device=x.device)[None, :]
+    key = ((x & ~0xFF) | (col % r)) ^ SIGN
+    best_k, best_x, best_y = key, x, y
+    for d in range(1, r):
+        kd = _shift_right(key, d, INF ^ SIGN)
+        win = kd < best_k
+        best_k = torch.where(win, kd, best_k)
+        best_x = torch.where(win, _shift_right(x, d, INF), best_x)
+        best_y = torch.where(win, _shift_right(y, d, INF), best_y)
+    valid = (col >= r - 1) & (col < count.to(torch.int64)[:, None])
+    emit = valid & ((best_y != _shift_right(best_y, 1, INF))
+                    | ~_shift_right(valid, 1, False))
+    return best_x, best_y, emit
+
+
+def reduce_wide_plain(x: torch.Tensor, y: torch.Tensor, count: torch.Tensor,
+                      r: int):
+    """Plain version of reduce_wide (peregrine_tpu/ops/reduce.py:
+    reduce_impl): the per-column level, then the compaction of the
+    emitted winners with INF fills."""
+    best_x, best_y, emit = reduce_wide_columns_plain(x, y, count, r)
+    (ox, oy), ocount = compact_planes_plain(emit, (best_x, best_y),
+                                            (INF, INF))
+    return ox, oy, ocount
+
+
+def reduce_wide(x: torch.Tensor, y: torch.Tensor, count: torch.Tensor, *,
+                r: int):
+    """One reduction level on int64 record rows (x, y, count), in one
+    launch: the window winner at each column j < count minimizes the key
+    (x & ~0xFF) | (j % r) over its r trailing columns in unsigned order;
+    winners are deduplicated against the previous column and compacted.
+    Returns (x', y', count'), INF at and past count'; the values of x, y
+    at or past count are never read."""
+    B, C = x.shape
+    if not 0 < r < 256:
+        raise ValueError(f"reduce_wide: r={r} outside 1..255")
+    _check(x, torch.int64, (B, C), "x")
+    _check(y, torch.int64, (B, C), "y")
+    _check(count, torch.int32, (B,), "count")
+    if _route(x, y, count) == "cpu":
+        return reduce_wide_plain(x, y, count, r)
+    ox = torch.empty_like(x)
+    oy = torch.empty_like(y)
+    ocount = torch.empty(B, dtype=torch.int32, device=x.device)
+    if B and C:  # the chunk of each row's column count - 1 writes ocount
+        _call_chunked(library().pg_reduce_wide, B, C, x.device,
+                      (x, y, count), (ox, oy, ocount), B, C, r,
+                      chunk=REDUCE_WIDE_CHUNK)
+        reduce_wide.launches += 1
+    else:
+        ocount.zero_()
+    return ox, oy, ocount
+
+
+reduce_wide.launches = 0
+
+KERNELS = (build_stream, move_plane, emit_mask, reduce_step, compact_planes,
+           wide_stream, wide_emit, reduce_wide)
 
 
 def reset_launches() -> None:

@@ -5,7 +5,7 @@ reduction on int64 records: the window winner at column j minimizes the
 composite key (x & ~0xFF) | (j % r) (hash in the high 56 bits, the ring
 slot in place of the span byte) over the r trailing columns, in unsigned
 order; winners are deduplicated against the previous column and
-compacted by the compact_planes kernel.  The reference's ring buffer
+compacted, all in the one reduce_wide kernel.  The reference's ring buffer
 scans slots in array order with a strict '<', so hash ties go to the
 lowest slot (src/shmr_reduce.c:53-90); slots within a window are
 distinct, so the key has no ties.
@@ -25,35 +25,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels import _shift_right, compact_planes, reduce_step
-from .sketch import INF, SIGN
+from .kernels import reduce_step, reduce_wide
 
 
 def reduce_impl(x: torch.Tensor, y: torch.Tensor, count: torch.Tensor, *,
                 r: int):
-    """Reduce per-read rows of records by a factor of ~r.
+    """Reduce per-read rows of records by a factor of ~r: one reduce_wide
+    launch (the window winners, the dedup and the compaction).
 
     x, y: [B, C] int64 records compacted per row (INF padding); count: [B]
     int32 valid entries per row.  Returns (x', y', count') in the same
     layout."""
-    if not 0 < r < 256:
-        raise ValueError(f"reduce_impl: r={r} outside 1..255")
-    B, C = x.shape
-    col = torch.arange(C, device=x.device)[None, :]
-    key = ((x & ~0xFF) | (col % r)) ^ SIGN
-    best_k, best_x, best_y = key, x, y
-    for d in range(1, r):
-        kd = _shift_right(key, d, INF ^ SIGN)
-        win = kd < best_k
-        best_k = torch.where(win, kd, best_k)
-        best_x = torch.where(win, _shift_right(x, d, INF), best_x)
-        best_y = torch.where(win, _shift_right(y, d, INF), best_y)
-    valid = (col >= r - 1) & (col < count.to(torch.int64)[:, None])
-    emit = valid & ((best_y != _shift_right(best_y, 1, INF))
-                    | ~_shift_right(valid, 1, False))
-    # compact_planes reads only the kept columns and fills the rest
-    (ox, oy), ocount = compact_planes(emit, (best_x, best_y), (INF, INF))
-    return ox, oy, ocount
+    return reduce_wide(x, y, count, r=r)
 
 
 def _rows(x: np.ndarray, y: np.ndarray):

@@ -8,17 +8,16 @@ build_stream -> move_plane -> emit_mask -> move_plane, each move taking
 both planes (ops.kernels: CUDA kernels on the card, plain PyTorch on the
 CPU), and
 records are assembled only at the end.  For k > 16 the hash needs up to
-56 bits, so sketch_wide works on the records themselves; its two stable
-compactions are the compact_planes kernel and the rest is elementwise
-PyTorch, as the JAX package leaves it to XLA.
+56 bits, so sketch_wide works on the records themselves:
+wide_stream -> compact_planes -> wide_emit -> compact_planes, where the
+JAX package runs XLA fusions between its two compactions.
 
     x = hash << 8 | k                       (span == k)
     y = rid << 32 | pos << 1 | strand
 
 Records are int64 tensors holding the uint64 bits; INF (all ones) is -1.
-At k > 16, x uses all 64 bits, so the wide path compares records in
-unsigned order: x ^ SIGN orders as signed int64 exactly as x does as
-uint64.
+At k > 16, x uses all 64 bits, so the wide kernels compare records in
+unsigned order.
 """
 
 from __future__ import annotations
@@ -26,12 +25,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels import (_shift_right, build_stream, compact_planes, emit_mask,
-                      hash64, move_plane)
-
-INF = -1  # uint64 0xFFFF_FFFF_FFFF_FFFF as int64
-SIGN = -(1 << 63)  # x ^ SIGN: unsigned order as signed order
-MAX_K = 28  # 56-bit hashes: x = hash << 8 | span fills 64 bits
+# the window extrema of wide_emit's plain version, which tests read here
+from .kernels import (INF, MAX_K, _sliding_max_leading,  # noqa: F401
+                      _sliding_min_trailing, build_stream, compact_planes,
+                      emit_mask, move_plane, wide_emit, wide_stream)
 
 
 def sketch_planes(codes: torch.Tensor, lengths: torch.Tensor, *, w: int,
@@ -59,112 +56,17 @@ def assemble_records(oH: torch.Tensor, oP: torch.Tensor, count: torch.Tensor,
     return x, y
 
 
-def _shift_left(a: torch.Tensor, d: int, fill: int) -> torch.Tensor:
-    """a[:, i + d], with fill where i + d >= L."""
-    if d == 0:
-        return a
-    out = torch.full_like(a, fill)
-    if d < a.shape[1]:
-        out[:, :-d] = a[:, d:]
-    return out
-
-
-def _blocks(a: torch.Tensor, w: int, fill: int):
-    """Pad [B, L] to whole blocks of w columns: a [B, nb, w] view."""
-    B, L = a.shape
-    P = -(-L // w) * w
-    ap = torch.full((B, P), fill, dtype=a.dtype, device=a.device)
-    ap[:, :L] = a
-    return ap.view(B, P // w, w)
-
-
-def _sliding_min_trailing(a: torch.Tensor, w: int, fill: int) -> torch.Tensor:
-    """W[t] = min(a[t-w+1 .. t]) in unsigned order, fill out of range:
-    per-block prefix and suffix minima combined by one static shift."""
-    B, L = a.shape
-    s, f = a ^ SIGN, fill ^ SIGN
-    blocks = _blocks(s, w, f)
-    pref = torch.cummin(blocks, dim=2).values.reshape(B, -1)
-    suf = torch.cummin(blocks.flip(2), dim=2).values.flip(2).reshape(B, -1)
-    left = _shift_right(suf, w - 1, f)[:, :L]
-    return torch.minimum(left, pref[:, :L]) ^ SIGN
-
-
-def _sliding_max_leading(a: torch.Tensor, w: int, fill: int) -> torch.Tensor:
-    """M[t] = max(a[t .. t+w-1]) in unsigned order, fill out of range."""
-    B, L = a.shape
-    s, f = a ^ SIGN, fill ^ SIGN
-    blocks = _blocks(s, w, f)
-    pref = torch.cummax(blocks, dim=2).values.reshape(B, -1)
-    suf = torch.cummax(blocks.flip(2), dim=2).values.flip(2).reshape(B, -1)
-    right = _shift_left(pref, w - 1, f)[:, :L]
-    return torch.maximum(suf[:, :L], right) ^ SIGN
-
-
 def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor,
                 rids: torch.Tensor, *, w: int, k: int):
     """The wide sketch (peregrine_tpu/ops/sketch.py:_sketch_impl_wide) on
-    int64 records: rolling k-mers on raw positions, the 56-bit hash, the
-    stream compaction (x, y, run length) by compact_planes, window
-    extrema in unsigned order, the emission set and the output
-    compaction.  Returns (x, y, count) with INF past the counts."""
-    B, L = codes.shape
-    dev = codes.device
-    if L == 0:
-        empty = torch.empty((B, 0), dtype=torch.int64, device=dev)
-        return empty, empty.clone(), torch.zeros(B, dtype=torch.int32,
-                                                 device=dev)
-    mask = (1 << (2 * k)) - 1
-    pos = torch.arange(L, device=dev)[None, :]
-    c = codes.to(torch.int64)
-    inlen = pos < lengths.to(torch.int64)[:, None]
-    valid = (c < 4) & inlen
-    amb = (c >= 4) & inlen
-
-    # rolling k-mers; zero padding mirrors the zeroed rolling registers,
-    # and the complement is taken before the shift (src/mm_sketch.c:102)
-    cb = c & 3
-    fwd = torch.zeros_like(c)
-    rev = torch.zeros_like(c)
-    for d in range(k):
-        fwd |= _shift_right(cb, d, 0) << (2 * d)
-        rev |= _shift_right(cb ^ 3, d, 0) << (2 * (k - 1 - d))
-    fwd &= mask
-    sym = (fwd == rev) & valid
-    strand = (fwd >= rev).to(torch.int64)
-    hsh = hash64(torch.minimum(fwd, rev), mask)
-
-    vns = valid & ~sym
-    cvns = torch.cumsum(vns.to(torch.int32), dim=1, dtype=torch.int32)
-    at_amb = torch.cummax(torch.where(amb, cvns, 0), dim=1).values
-    run = cvns - at_amb  # valid non-symmetric entries since the last amb
-    defined = vns & (run >= k)
-    x = torch.where(defined, (hsh << 8) | k, INF)
-    y = torch.where(defined, (rids.to(torch.int64)[:, None] << 32)
-                    | ((pos << 1) & 0xFFFFFFFE) | strand, INF)
-
-    # the buffer stream: valid non-symmetric entries and amb placeholders
-    (sx, sy, sl), n = compact_planes(
-        vns | amb, (x, y, torch.where(vns, run, 0)), (INF, INF, 0))
-
-    # window minima and the emission set; Ap's sentinel 0 lies below
-    # every finite x (x >= span > 0) and never equals one
-    col = pos
-    nn = n.to(torch.int64)[:, None]
-    W = _sliding_min_trailing(sx, w, INF)
-    Ap = torch.where((sl >= w + k - 1) & (col < nn), W, 0)
-    M = _sliding_max_leading(Ap, w, 0)
-    emit = (sx != INF) & (M == sx)
-
-    # the final held minimum: min of the last window, the newest tie wins
-    in_final = (col >= nn - w) & (col < nn)
-    xm = torch.where(in_final, sx, INF)
-    fmin = ((xm ^ SIGN).min(dim=1, keepdim=True).values) ^ SIGN
-    t_f = torch.where((xm == fmin) & in_final, col, -1).max(
-        dim=1, keepdim=True).values
-    emit |= (col == t_f) & (fmin != INF) & (t_f >= 0)
-
-    # compact_planes reads only the kept columns and fills the rest
+    int64 records: wide_stream (rolling k-mers on raw positions, the
+    56-bit hash, the run length and the records), the stream compaction
+    (x, y, run length) by compact_planes, wide_emit (window extrema in
+    unsigned order and the emission set) and the output compaction.
+    Returns (x, y, count) with INF past the counts."""
+    x, y, li, keep = wide_stream(codes, lengths, rids, k=k)
+    (sx, sy, sl), n = compact_planes(keep, (x, y, li), (INF, INF, 0))
+    emit = wide_emit(sx, sl, n, w=w, k=k)
     (ox, oy), count = compact_planes(emit, (sx, sy), (INF, INF))
     return ox, oy, count
 

@@ -1,6 +1,7 @@
 """The SHIMMER kernels on a CUDA card: each equals its plain version and
-writes nothing outside its outputs; the int64 scans the wide sketch rests
-on agree with the CPU.  Skipped without a card.
+writes nothing outside its outputs (the wide route's wide_stream,
+wide_emit and reduce_wide among them); the int64 scans the wide plain
+versions rest on agree with the CPU.  Skipped without a card.
 
 This file imports no jax (the card's machine has none), so it also runs
 there on its own:
@@ -473,6 +474,220 @@ def test_compact_planes_repeated_launches_are_identical():
             assert torch.equal(got, ref)
 
 
+# --- the wide route: wide_stream, wide_emit, reduce_wide ------------------
+
+WC = kn.REDUCE_WIDE_CHUNK
+WIDE_REDUCE_L = [WC - 1, WC, WC + 1, 5000, 16384, 40960]
+
+
+def _guarded_bytes(rows, L):
+    """A bool [rows, L] output inside canary margins of bytes 0x5A, and the
+    uint8 buffer that holds it."""
+    buf = torch.full((rows * L + 2 * GUARD,), 0x5A, dtype=torch.uint8,
+                     device="cuda")
+    return buf, buf[GUARD:GUARD + rows * L].view(torch.bool).view(rows, L)
+
+
+def _bytes_untouched(buf):
+    assert (buf[:GUARD] == 0x5A).all() and (buf[-GUARD:] == 0x5A).all()
+
+
+def _wide_inputs(rng, L, k):
+    codes, lens = kernel_cases.wide_stream_codes(rng, B, L, k, C)
+    rids = rng.integers(0, 2**40, B).astype(np.int64)
+    return (torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda(),
+            torch.from_numpy(rids).cuda())
+
+
+def _wide_stream(codes, lens, rids, k, statuses=None):
+    """One guarded wide_stream launch, on a zeroed status and a junk
+    earlier status, or on `statuses`, checked against its plain version on
+    whole rows and its status (the valid non-symmetric entries a chunk,
+    published by the chunks that start inside the read), and the earlier
+    status checked zeroed; returns the outputs."""
+    rows, L = codes.shape
+    guarded = [_guarded(rows, L, dtype=torch.int64),
+               _guarded(rows, L, dtype=torch.int64), _guarded(rows, L)]
+    kbuf, keep = _guarded_bytes(rows, L)
+    bufs = [g[0] for g in guarded]
+    outs = [g[1] for g in guarded] + [keep]
+    (sbuf, status), (xbuf, stale) = statuses or (_status(L), _status(L, -1))
+    _launch("pg_wide_stream", bufs + [sbuf, xbuf], codes, lens, rids, status,
+            stale, stale.numel(), *outs, rows, L, k)
+    _bytes_untouched(kbuf)
+    for got, ref in zip(outs, kn.wide_stream_plain(codes, lens, rids, k)):
+        assert torch.equal(got, ref)
+    if L > C:
+        vns = outs[2] > 0  # the run length is >= 1 on exactly these
+        _check_status(status, L, 0, _chunk_counts(vns.int() - 1, L),
+                      vns.sum(1, dtype=torch.int32), C,
+                      -(-lens.clamp(0, L) // C))
+    else:  # rows of one chunk take no ticket and publish nothing
+        assert not status.any()
+    assert not stale.any()
+    return outs
+
+
+@pytest.mark.parametrize("L", CHUNKED_L)
+@pytest.mark.parametrize("k", [17, 24, 28])
+def test_wide_stream_across_chunks(L, k):
+    """kernel_cases.wide_stream_codes: rows of length 0, 1, k - 1, L, on a
+    boundary and one either side; an all-ambiguous row; ambiguous runs
+    ending at each boundary; (AT)* runs, all strand-symmetric at even k,
+    from column 0 and from just before a boundary to the end of the row;
+    rids past 2^32."""
+    _wide_stream(*_wide_inputs(np.random.default_rng(L + k), L, k), k)
+
+
+def _wide_emit(sx, sl, n, w, k):
+    """One guarded wide_emit launch checked against its plain version."""
+    rows, L = sx.shape
+    ebuf, emit = _guarded_bytes(rows, L)
+    _launch("pg_wide_emit", [], sx, sl, n, emit, rows, L, w, k)
+    _bytes_untouched(ebuf)
+    assert torch.equal(emit, kn.wide_emit_plain(sx, sl, n, w, k))
+    return emit
+
+
+def _emit_inputs(L, w, ties, seed, junk=False):
+    rng = np.random.default_rng(seed)
+    sx, sl, n = kernel_cases.wide_emit_stream(rng, B, L, w, 28, C, ties)
+    if junk:  # random records and run lengths past n, where fills were
+        past = np.arange(L)[None, :] >= n[:, None]
+        sx[past] = rng.integers(0, 2**64, int(past.sum()), dtype=np.uint64)
+        sl[past] = rng.integers(0, 2**31, int(past.sum()))
+    return (torch.from_numpy(sx.view(np.int64)).cuda(),
+            torch.from_numpy(sl).cuda(), torch.from_numpy(n).cuda())
+
+
+@pytest.mark.parametrize("L", CHUNKED_L)
+@pytest.mark.parametrize("w", [1, 5, 80, 255])
+@pytest.mark.parametrize("ties", [False, True])
+def test_wide_emit_across_chunks(L, w, ties):
+    """kernel_cases.wide_emit_stream at k = 28: n = 0, L, on a boundary, a
+    final window across a boundary, a final window of one repeated record,
+    run lengths of w + k - 2 and w + k - 1 with the least record at each
+    boundary, placeholders on the boundaries; records at and above 2^63;
+    few distinct records when `ties`."""
+    _wide_emit(*_emit_inputs(L, w, ties, L + w + 7 * ties), w, 28)
+
+
+@pytest.mark.parametrize("L", [C + 1, 16384])
+@pytest.mark.parametrize("w", [5, 80])
+def test_wide_emit_reads_nothing_past_n(L, w):
+    """Random records and run lengths past n instead of compact_planes'
+    fills: the mask is the same, so the kernel read none of them."""
+    _wide_emit(*_emit_inputs(L, w, False, L + w, junk=True), w, 28)
+
+
+def _reduce_wide(x, y, n, r, statuses=None):
+    """One guarded reduce_wide launch, on a zeroed status and a junk
+    earlier status, or on `statuses`, checked against its plain version on
+    whole rows (the winners, the fills and the count) and its status, and
+    the earlier status checked zeroed; returns the outputs."""
+    rows, L = x.shape
+    bufs, outs = _outputs((rows, L), (rows, L), dtype=torch.int64)
+    cbuf, count = _guarded(rows)
+    (sbuf, status), (xbuf, stale) = statuses or (
+        _status(L, chunk=WC, rows=rows), _status(L, -1, chunk=WC, rows=rows))
+    _launch("pg_reduce_wide", bufs + [cbuf, sbuf, xbuf], x, y, n, status,
+            stale, stale.numel(), *outs, count, rows, L, r)
+    *want, wc = kn.reduce_wide_plain(x, y, n, r)
+    assert torch.equal(count, wc)
+    for got, ref in zip(outs, want):
+        assert torch.equal(got, ref)
+    if L > WC:
+        emit = kn.reduce_wide_columns_plain(x, y, n, r)[2]
+        _check_status(status, L, 0, _chunk_counts(emit.int() - 1, L, WC),
+                      count, WC, -(-n.clamp(0, L) // WC))
+    else:  # rows of one chunk take no ticket and publish nothing
+        assert not status.any()
+    assert not stale.any()
+    return outs + [count]
+
+
+@pytest.mark.parametrize("L", WIDE_REDUCE_L)
+@pytest.mark.parametrize("r", [2, R, 255])
+@pytest.mark.parametrize("ties", [False, True])
+def test_reduce_wide_across_chunks(L, r, ties):
+    """kernel_cases.wide_reduce_rows: counts 0, r - 2, r - 1, L, on a
+    REDUCE_WIDE_CHUNK boundary and one either side; the least hash on the
+    column before each boundary; equal records; equal y; hashes >= 2^55;
+    random values past the counts, which must not be read."""
+    x, y, n = kernel_cases.wide_reduce_rows(np.random.default_rng(L + r), B,
+                                            L, r, WC, ties)
+    _reduce_wide(torch.from_numpy(x.view(np.int64)).cuda(),
+                 torch.from_numpy(y.view(np.int64)).cuda(),
+                 torch.from_numpy(n).cuda(), r)
+
+
+@pytest.mark.parametrize("n", [131072, 131069, 1000])
+def test_reduce_wide_one_long_row(n):
+    """One row of 131,072 columns (64 chunks carried by the look-back), as
+    stage 4's contig index gives its reduction levels at k > 16, in full
+    and cut short."""
+    L = 131072
+    x, y, _ = kernel_cases.wide_reduce_rows(np.random.default_rng(n), 1, L,
+                                            R, WC, False)
+    _reduce_wide(torch.from_numpy(x.view(np.int64)).cuda(),
+                 torch.from_numpy(y.view(np.int64)).cuda(),
+                 torch.tensor([n], dtype=torch.int32, device="cuda"), R)
+
+
+def test_wide_repeated_launches_are_identical():
+    """Twenty launches of wide_stream and of reduce_wide on the same inputs
+    at L = 40960, on two status buffers in turn as the wrappers use them:
+    a race in the look-back or in the fill placement, or a status not
+    zeroed for the launch after, would show as a difference."""
+    L = 40960
+    codes, lens, rids = _wide_inputs(np.random.default_rng(13), L, 28)
+    a, b = _status(L), _status(L, -1)
+    turns = [(a, b), (b, a)]
+    first = _wide_stream(codes, lens, rids, 28, turns[0])
+    for i in range(1, 20):
+        for got, ref in zip(_wide_stream(codes, lens, rids, 28,
+                                         turns[i % 2]), first):
+            assert torch.equal(got, ref)
+    x, y, n = kernel_cases.wide_reduce_rows(np.random.default_rng(17), B, L,
+                                            R, WC, False)
+    x, y, n = (torch.from_numpy(v).cuda()
+               for v in (x.view(np.int64), y.view(np.int64), n))
+    a, b = _status(L, chunk=WC), _status(L, -1, chunk=WC)
+    turns = [(a, b), (b, a)]
+    first = _reduce_wide(x, y, n, R, turns[0])
+    for i in range(1, 20):
+        for got, ref in zip(_reduce_wide(x, y, n, R, turns[i % 2]), first):
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("L", [16384, 24576])
+def test_wide_sketch_and_levels_on_the_card_match_the_cpu(L):
+    """sketch_wide and two reduce_impl levels through the wrappers at the
+    main path's B=64, k=28, w=80, r=6 (every launch on the card's own
+    stream, the status pairs as the index build uses them) equal the
+    cpu's, and launch each wide kernel."""
+    from peregrine_tpu_torch.ops import reduce, sketch
+
+    rng = np.random.default_rng(L)
+    codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    codes[rng.random((B, L)) < 0.001] = 4
+    lens = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    rids = np.arange(B, dtype=np.int64)
+    kn.reset_launches()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        c, ln, rd = (torch.from_numpy(a).to(dev) for a in (codes, lens, rids))
+        x, y, n = sketch.sketch_wide(c, ln, rd, w=W, k=28)
+        levels = [(x, y, n)]
+        for _ in range(2):
+            levels.append(reduce.reduce_impl(*levels[-1], r=R))
+        out[dev] = [t.cpu() for lv in levels for t in lv]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    assert (kn.wide_stream.launches, kn.wide_emit.launches,
+            kn.reduce_wide.launches, kn.compact_planes.launches) == (1, 1, 2, 2)
+
+
 def test_int64_cummin_cummax_match_the_cpu():
     """The wide sketch's window extrema rest on torch.cummin / cummax of
     int64 along the last axis, forwards and flipped, with values across
@@ -719,7 +934,8 @@ def test_mesh_on_the_card_matches_the_cpu_mesh(k, cards):
     kn.reset_launches()
     idx = {dev: build_index_mesh(db, cfg, m) for dev, m in meshes.items()}
     launched = [fn.__name__ for fn in kn.KERNELS if fn.launches]
-    assert launched == (["compact_planes"] if k > 16 else
+    assert launched == (["compact_planes", "wide_stream", "wide_emit",
+                         "reduce_wide"] if k > 16 else
                         ["build_stream", "move_plane", "emit_mask",
                          "reduce_step"])
     for f in ("x", "y", "mc_hash", "mc_count"):

@@ -11,8 +11,12 @@ of chip_smoke.py (which loads this file by its path) and the CPU tests
 against the Pallas kernels (with a small `chunk`, where the boundaries
 only place the features) use them.
 Rows 0-7 (0-9 for reduce_step, 0-13 for compact_planes) are the crafted
-ones; any further rows are random.  The banded Myers aligner's requests
-(myers_lanes, myers_requests) come with the sequences they read.
+ones; any further rows are random.  The wide route's kernels
+(wide_stream, wide_emit, reduce_wide: wide_stream_codes, wide_emit_stream,
+wide_reduce_rows) take int64 records whose hashes reach 2^55 and more, so
+records at and above 2^63 are ordered as unsigned.  The banded Myers
+aligner's requests (myers_lanes, myers_requests) come with the sequences
+they read.
 """
 
 from __future__ import annotations
@@ -170,6 +174,130 @@ def compact_rows(rng: np.random.Generator, B: int, L: int, chunk: int):
     crafted[13, 0] = True
     keep[:min(B, 14)] = crafted[:B]
     return keep
+
+
+# --- the wide route (wide_stream, wide_emit, reduce_wide) -----------------
+
+_INF64 = np.uint64(2**64 - 1)
+
+
+def wide_stream_codes(rng: np.random.Generator, B: int, L: int, k: int,
+                      chunk: int):
+    """[B, L] uint8 codes and [B] int32 lengths for wide_stream:
+    stream_codes' rows 0-7 (empty and full rows, all ambiguous, an (AT)*
+    run after an ambiguous base, lengths on and beside a boundary,
+    ambiguous runs ending at every boundary), then a row shorter than k
+    (row 8), a row of one base (row 9), an (AT)* run with no ambiguous base
+    from column 0 to the end, every k-mer from column k - 1 on
+    strand-symmetric at even k, so the run length stays at the k - 1 of
+    the row's start across every boundary (row 10), and a random prefix up
+    to k columns before the first boundary followed by (AT)* to the end
+    (row 11).  Ambiguous codes are 4 to 7 (their low two bits
+    enter the k-mers)."""
+    codes, lens = stream_codes(rng, B, L, k, chunk)
+    codes[codes == 4] += rng.integers(0, 4, int((codes == 4).sum()),
+                                      dtype=np.uint8)
+    at = np.resize(np.array([0, 3], np.uint8), L)
+    rows = {8: max(0, k - 1), 9: min(L, 1), 10: L, 11: L}
+    for b, n in rows.items():
+        if b < B:
+            lens[b] = min(n, L)
+    if B > 10:
+        codes[10] = at
+    if B > 11:
+        start = max(0, _boundaries(L, chunk)[0] - k)
+        codes[11, start:] = at[:L - start]
+    return codes, lens
+
+
+def _wide_records(rng, shape, k: int, ties: bool):
+    """uint64 records hash << 8 | k with hashes of 56 bits (about half of
+    them >= 2^55, so records >= 2^63), or from a pool of 8 hashes, half of
+    them >= 2^55, when `ties`."""
+    if ties:
+        pool = np.concatenate([rng.integers(1, 2**20, 4, dtype=np.uint64),
+                               rng.integers(2**55, 2**56, 4,
+                                            dtype=np.uint64)])
+        h = pool[rng.integers(0, len(pool), shape)]
+    else:
+        h = rng.integers(0, 2**56, shape, dtype=np.uint64)
+    return (h << np.uint64(8)) | np.uint64(k)
+
+
+def wide_emit_stream(rng: np.random.Generator, B: int, L: int, w: int,
+                     k: int, chunk: int, ties: bool):
+    """(sx, sl, n) for wide_emit, as compact_planes leaves the wide
+    stream: [B, L] uint64 records (all ones at ambiguous placeholders and
+    while the run is shorter than k), [B, L] int32 run lengths (0 at the
+    placeholders, which come at 1%), [B] int32 counts, and the fills past
+    n (all ones, 0).  n = 0 (row 0) and L (row 1); n on a boundary (row
+    2); a final window across a boundary (row 3); one repeated record in
+    the whole final window, so its newest column must win (row 4); a run
+    length of w + k - 2, then w + k - 1, at each boundary, the least
+    record there (rows 5, 6); a placeholder on each boundary (row 7)."""
+    sx = _wide_records(rng, (B, L), k, ties)
+    n = rng.integers(0, L + 1, B).astype(np.int32)
+    crafted = (0, L, min(L, chunk), min(L, chunk + w // 2), L, L, L, L)
+    for b, v in enumerate(crafted[:B]):
+        n[b] = v
+    amb = rng.random((B, L)) < 0.01
+    if B > 7:
+        amb[7, list(_boundaries(L, chunk))] = True
+    sl = np.zeros((B, L), np.int32)
+    for b in range(B):
+        run = int(rng.integers(0, 3 * (w + k)))
+        for t in range(L):
+            run = 0 if amb[b, t] else run + 1
+            sl[b, t] = run
+    for b in (5, 6):
+        if b < B:
+            for c in _boundaries(L, chunk):
+                lo = max(0, c - (w + k - 2 + (b - 5)) + 1)
+                sl[b, lo:c + 1] = np.arange(c + 1 - lo) + (w + k - 2 + (b - 5)
+                                                           - (c - lo))
+                sx[b, c] = np.uint64(k)  # hash 0: the least record
+    sx[(sl < k) | amb] = _INF64
+    sl[amb] = 0
+    if B > 4 and L:
+        lo = max(0, L - w)
+        sx[4, lo:] = _wide_records(rng, (1,), k, ties)[0]
+        sl[4, lo:] = k + np.arange(L - lo)
+    past = np.arange(L)[None, :] >= n[:, None]
+    sx[past] = _INF64
+    sl[past] = 0
+    return sx, sl, n
+
+
+def wide_reduce_rows(rng: np.random.Generator, B: int, L: int, r: int,
+                     chunk: int, ties: bool):
+    """(x, y, count) for reduce_wide: [B, L] uint64 records (hashes of 56
+    bits, or from a pool of 8 when `ties`, so the ring slot decides),
+    y = rid << 32 | pos << 1 | strand with increasing positions, [B]
+    int32 counts; columns at or past the count hold random values that
+    nothing may read.  count = 0 (row 0) and L (row 1); r - 2, short of
+    the first whole window, and r - 1, which holds exactly one (rows 2,
+    3); on a boundary and one either side (rows 4-6); the least hash on
+    the column before each boundary, so the first columns of the next
+    chunk keep its winner and must not emit it again (row 7); every
+    record equal, so the least ring slot decides (row 8); every y equal,
+    so only column r - 1 is emitted (row 9)."""
+    x = _wide_records(rng, (B, L), 28, ties)
+    pos = np.sort(rng.integers(0, 2**30, (B, L)), axis=1).astype(np.uint64)
+    y = ((np.arange(B, dtype=np.uint64)[:, None] << np.uint64(32))
+         | (pos << np.uint64(1)) | rng.integers(0, 2, (B, L), dtype=np.uint64))
+    count = rng.integers(0, L + 1, B).astype(np.int32)
+    crafted = (0, L, max(0, r - 2), max(0, r - 1), chunk, chunk + 1,
+               chunk - 1, L, L, L)
+    for b, v in enumerate(crafted[:B]):
+        count[b] = min(L, v)
+    if B > 7:
+        for c in _boundaries(L, chunk):
+            x[7, c - 1] = np.uint64(28)  # hash 0
+    if B > 8:
+        x[8] = x[8, 0]
+    if B > 9:
+        y[9] = y[9, 0]
+    return x, y, count
 
 
 # --- the banded Myers aligner (pg_myers_align) ----------------------------
