@@ -5,6 +5,9 @@
     python3 chip_smoke.py --kernels-only  # phases 1-3: build + kernel checks
     python3 chip_smoke.py --index-profile # phases 1-2, then stage 1 profiled
     python3 chip_smoke.py --index-profile --profile-k 28   # the same at k=28
+    python3 chip_smoke.py --index-profile --abba wd-parent [--log-dir D]
+                                          # parent, change, change, parent,
+                                          # each in its tree; logs in D
     python3 chip_smoke.py --aligner-sass  # phases 1-2, then the aligner's
                                           # SASS loops, registers, spills
     python3 chip_smoke.py --cli-only      # phases 1-2, 5, 6 and 9
@@ -13,7 +16,7 @@ Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the SHIMMER kernels and the banded Myers aligner (nvcc, sm_90a)
      and the native host library, the three at once;
-  3. each of the eight SHIMMER kernels against its plain PyTorch version
+  3. each of the ten SHIMMER kernels against its plain PyTorch version
      on the card, exactly, at the main paths' shapes (B=64, L in 8192/16384/
      24576/32768/40960, 16384 being the draft's main bucket; move_plane
      moving both stream planes in one launch; reduce_step on the draft's
@@ -39,7 +42,17 @@ Phases, in order; any failure raises and exits non-zero:
      rows (wide_stream at L = CHUNK - 1, CHUNK + 1, 16384 and k = 17, 28;
      wide_emit there at w = 1, 5, 80, 255 with and without ties;
      reduce_wide at L = REDUCE_WIDE_CHUNK - 1, REDUCE_WIDE_CHUNK + 1, 5000
-     and r = 2, 6, 255); and
+     and r = 2, 6, 255); stage 1's batch step's two: gather_codes on 64
+     E. coli-class reads at L = 8192, 16384 (the main shape) and 24576,
+     as the index (strand 0, fill 4) and the sharded overlap (random
+     strands, fill 7) read them, and on the test windows (every residue
+     mod 16, lengths 0, 1, L - 1, L) on planes cut to the data with junk
+     after them; drain_records on the final level of 64 reads simulated
+     as phase 5's (1% error) at L=16384 (the main shape and load: cap
+     2048, two levels, out_cap columns),
+     on random codes' level 2 three times through one cursor, and on the
+     test batches at k=16 and 28 (counts 0, the width and past it;
+     streams cut short); and
      pg_myers_align on 1,024 E. coli-class read pairs, on the crafted
      lanes of tests/torch_kernel_cases.py (windows at every word offset)
      and on its plane-end lanes (planes cut to the data and followed by
@@ -51,8 +64,14 @@ Phases, in order; any failure raises and exits non-zero:
      kept and emitted entries);
   4. build_index of 512 simulated reads (k=16), of 256 at k=28 with and
      without the level-0 index (uncapped and capped), and of 64 at k=28,
-     w=8 (cap overflow, exact retry); sketch_long_np of a 200 kb genome
-     slice at k=16 and k=28 and two reduce_flat_np levels of it (one long
+     w=8 (cap overflow, exact retry); in fetch groups of three batches of
+     four reads (tests/torch_kernel_cases.py's stage1_reads, two pad
+     buckets) at k=16, at k=28 w=8 with the second batch of a group
+     overflowing and retried, and at k=28 with the level-0 index, with
+     the replays, group fetches and retries counted and each kernel's
+     launch count held to its launches in a profiler trace of the build
+     (the replays must have run what the graphs hold); sketch_long_np of
+     a 200 kb genome slice at k=16 and k=28 and two reduce_flat_np levels of it (one long
      row each, as stage 4's contig index runs them): cuda equals cpu; on
      the phase-5 reads, build_index_segmented on the card in at least 9
      segments equals one build, and build_pairs_device on the card equals
@@ -60,8 +79,10 @@ Phases, in order; any failure raises and exits non-zero:
   5. the draft path: `pg-tpu-torch asm` (cli.main, k=16) on a simulated
      E. coli-class set (4.6 Mb circular genome, 30x of 15 kb reads, 1%
      error, 40 kb wrap, seed 42), with stage walls, kernel launch counts
-     (each of its four kernels must be > 0, and move_plane must run twice
-     per build_stream: the reduction levels move nothing), peak device
+     (each of its four kernels, gather_codes and drain_records must be
+     > 0, move_plane must run twice per build_stream, the reduction
+     levels moving nothing, and gather_codes and drain_records once: one
+     batch step a sketch), peak device
      memory, and a
      check of the draft: the longest contig covers >= 0.9 of the genome
      and >= 0.7 of its 21-mers occur in the genome or its reverse
@@ -137,14 +158,22 @@ JSON line and, last, the device JSON line.
 There is no CPU path: without a CUDA device it exits non-zero at once.
 
 --index-profile measures stage 1 alone (at --profile-k, default 16) on
-the E. coli-class set instead of phases 3-6: build_index walls with the
-kernels and with their plain versions on the card (one warm-up each, then
-six of each in ABBA order; median, min and max), then one kernel-route
-build under torch.profiler, whose trace gives the device's busy time (the
-union of its kernel, copy and memset intervals), the device time of
-each kernel, in all and by template instance and launch grid (which tell
-its shapes apart),
-and the number of device intervals (fill kernels counted apart).
+the E. coli-class set instead of phases 3-6: upload_seqdb's host pack and
+upload apart, build_index walls on the card with the kernels and with
+their plain versions (plain_kernels(): the batch step then runs eagerly;
+one warm-up each, then six of each in ABBA order; median, min and max;
+every build's records equal), the host's split of one build
+(ops/index.py STATS: metas staging, replays, group fetches, per-read
+slicing, _index_of, captures; replays and group fetches counted; the
+captured graphs' pool bytes), then one build under torch.profiler,
+whose trace gives the device's busy time (the union of its kernel, copy
+and memset intervals), the device time of each kernel, in all and by
+template instance and launch grid (which tell its shapes apart), and
+the number of device intervals (fill kernels counted apart); each
+kernel's launch count must equal its launches in the trace.  With
+--abba PARENT it runs `chip_smoke.py --index-profile` of the checkout
+PARENT and of this one in turns (parent, change, change, parent), each
+in its own process, and prints each run's summary.
 """
 
 from __future__ import annotations
@@ -175,8 +204,12 @@ REPLACES = {
     "wide_stream": "peregrine_tpu/ops/sketch.py:383",
     "wide_emit": "peregrine_tpu/ops/sketch.py:425",
     "reduce_wide": "peregrine_tpu/ops/reduce.py:26",
+    # stage 1's batch step around the kernels
+    "gather_codes": "peregrine_tpu/ops/dbgather.py:233",
+    "drain_records": "peregrine_tpu/ops/index.py:66",
 }
 WIDE = ("wide_stream", "wide_emit", "reduce_wide")
+STAGE1 = ("gather_codes", "drain_records")
 # the kernel the port adds where the JAX package used XLA: the banded
 # Myers aligner's fused loop (_myers_core, as myers_batch_db_packed calls it)
 ALIGN_SOURCE = "peregrine_tpu_torch/csrc/myers_align.cu"
@@ -488,6 +521,8 @@ def phase_kernels(results: dict) -> None:
         f"and on one row of {LONG}")
     phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
                        results)
+    phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
+                         results, got2)
     torch.cuda.synchronize()
 
     for name, st in stats.items():
@@ -501,7 +536,8 @@ def phase_kernels(results: dict) -> None:
               f"(max_abs_err {st['err']})")
         main = {"reduce_step": CAP,  # level 1
                 "compact_planes": (MAIN_L, 0.98),
-                "reduce_wide": WIDE_LEVEL}.get(name, MAIN_L)
+                "reduce_wide": WIDE_LEVEL,
+                "drain_records": DRAIN_MAIN}.get(name, MAIN_L)
         ms, pms = st["times"][main]
         bound_ms = moved[name] / HBM_BYTES_PER_S * 1e3
         results[name].update(
@@ -515,6 +551,169 @@ def phase_kernels(results: dict) -> None:
             f" {bound_ms / ms:.4f} of the bound")
 
 WIDE_LEVEL = f"B=64 L={MAIN_L} uncapped, level 1"  # reduce_wide's main shape
+OUT_CAP = max(64, CAP // int((R / 2) ** 2))  # the draft's final columns
+DRAIN_MAIN = (f"B=64 reads at L={MAIN_L}: (H, P) level 2 of cap {CAP}, "
+              f"out_cap {OUT_CAP}")
+
+
+def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
+                         results, level2) -> None:
+    """Phase 3's two kernels of stage 1's batch step, each held to its
+    plain version exactly: gather_codes on 64 E. coli-class reads (15 kb
+    +- 1.5 kb, 1% N) at L = 8,192, 16,384 (the main shape) and 24,576,
+    strand 0, fill 4, as the index reads them, and with random strands
+    and fill 7 as the sharded overlap reads them; then
+    tests/torch_kernel_cases.py's windows (every residue mod 16, lengths
+    0, 1, L - 1, L, both strands) on planes cut to the data at a byte
+    offset with junk after them.  drain_records on the final level of 64
+    reads simulated as the main path's (1% error) at L=16,384
+    (index_planes, cap 2,048, two levels, out_cap columns: the main shape
+    and load, and the one timed), on
+    random codes' level 2 three times through one cursor, and on the test
+    cases' batches at k=16 and k=28 (counts 0, the width and past it).  Each timed shape
+    has its bytes, bound and plain ms; results[name]["shapes"] lists
+    them."""
+    import torch
+
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops import dbgather, index, kernels as kn
+    from peregrine_tpu_torch.simdata import random_genome, simulate_reads
+
+    B = 64
+    shapes = {name: [] for name in STAGE1}
+
+    def shape(name, site, fn, plain, nbytes, key=None):
+        ms, pms = kernel_ms(fn), plain_ms(plain)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shapes[name].append({"site": site, "bytes": nbytes, "ms": ms,
+                             "plain_ms": pms, "bound_ms": bound_ms,
+                             "share_of_bound": bound_ms / ms})
+        if key is not None:
+            stats[name]["times"][key] = (ms, pms)
+            moved[name] = nbytes
+
+    lens = np.maximum(1000, rng.normal(READ_LEN, 1500, B)).astype(np.int64)
+    seqs = []
+    for n in lens:
+        a = np.frombuffer(random_genome(rng, int(n)), np.uint8).copy()
+        a[rng.random(len(a)) < 0.01] = ord("N")
+        seqs.append(a.tobytes())
+    db = SeqDB.from_reads([(str(i), q) for i, q in enumerate(seqs)])
+    pdb = dbgather.upload_seqdb(db.data, "cuda")
+    off = torch.from_numpy(db.offsets.astype(np.int64)).cuda()
+    for L in (8192, MAIN_L, 24576):
+        ln = torch.from_numpy(np.minimum(lens, L)).cuda()
+        got = dbgather.gather_codes(pdb, off, ln, None, L, 4)
+        note("gather_codes", [(got, dbgather.gather_codes_plain(
+            pdb, off, ln, None, L, 4))])
+        nbytes = B * L + B * L * 3 // 8 + 16 * B
+        shape("gather_codes", f"index batch B={B} L={L}",
+              lambda: dbgather.gather_codes(pdb, off, ln, None, L, 4),
+              lambda: dbgather.gather_codes_plain(pdb, off, ln, None, L, 4),
+              nbytes, L if L == MAIN_L else None)
+        st = torch.from_numpy(rng.integers(0, 2, B).astype(np.int32)).cuda()
+        goff = torch.where(st == 1, off + ln - L, off)
+        note("gather_codes", [(
+            dbgather.gather_codes(pdb, goff, ln, st, L, 7),
+            dbgather.gather_codes_plain(pdb, goff, ln, st, L, 7))])
+    cases = kernel_cases.gather_seqs()
+    cdb = SeqDB.from_reads([(str(i), q) for i, q in enumerate(cases)])
+    fw, amb, nf, na = kernel_cases.plane_end_planes(cases, junk=64, seed=3)
+
+    def view(a, n):
+        return torch.from_numpy(np.concatenate([[0xA5], a]).astype(
+            np.uint8)).cuda()[1:1 + n]
+    cut = dbgather.PackedSeqDB(fw=view(fw, nf), amb=view(amb, na))
+    for L in (264, 256):
+        for strand in (0, 1):
+            goff, ln, st = on_card(*kernel_cases.gather_windows(
+                cdb.offsets, cdb.lengths, strand, L))
+            for fill in (4, 7):
+                note("gather_codes", [(
+                    dbgather.gather_codes(cut, goff, ln, st, L, fill),
+                    dbgather.gather_codes_plain(cut, goff, ln, st, L, fill))])
+
+    def streams(n_rec, slots):
+        return (torch.full((n_rec, 2), 7, dtype=torch.int64, device="cuda"),
+                torch.full((slots, 2, B), -5, dtype=torch.int32,
+                           device="cuda"),
+                torch.zeros(3, dtype=torch.int64, device="cuda"))
+
+    # exact: the random codes' level 2 (B=64, L=2,048), three batches
+    # through one cursor
+    H, P, c = level2
+    rids = torch.arange(B, dtype=torch.int64, device="cuda") * 7919
+    c0 = c + 1000
+    n = int(c.clamp(0, OUT_CAP).sum())
+    got, want = streams(3 * n, 4), streams(3 * n, 4)
+    for _ in range(3):
+        kn.drain_records(H, P, rids, c, c0, got[2], got[0], got[1], k=K,
+                         width=OUT_CAP)
+        kn.drain_records_plain(H, P, rids, c, c0, want[2], want[0], want[1],
+                               k=K, width=OUT_CAP)
+    note("drain_records", list(zip(got, want)))
+    check(got[2].tolist() == [3 * n, 3, 0], "drain_records' cursor")
+    # timed at the main path's load: the final level (index_planes, cap
+    # CAP, two levels) of 64 reads simulated as the main path's are (1%
+    # error, no N: an N cuts the sketch's k-mers) in its L=16,384 bucket
+    sim, _ = simulate_reads(rng, random_genome(rng, 1_500_000),
+                            read_len=READ_LEN, coverage=1.0, len_sd=1500,
+                            error=0.01)
+    sim = [q for _, q in sim if MAIN_L // 2 < len(q) <= MAIN_L][:B]
+    check(len(sim) == B, f"{len(sim)} simulated reads in the main bucket")
+    sdb = SeqDB.from_reads([(str(i), q) for i, q in enumerate(sim)])
+    ln = torch.from_numpy(sdb.lengths.astype(np.int64)).cuda()
+    H, P, c, c0 = index.index_planes(
+        dbgather.gather_codes(dbgather.upload_seqdb(sdb.data, "cuda"),
+                              torch.from_numpy(sdb.offsets.astype(
+                                  np.int64)).cuda(), ln, None, MAIN_L, 4),
+        ln.to(torch.int32), rids, w=W, k=K, r=R, levels=2, cap=CAP)
+    n = int(c.clamp(0, OUT_CAP).sum())
+    got, want = streams(n, 4), streams(n, 4)
+    kn.drain_records(H, P, rids, c, c0, got[2], got[0], got[1], k=K,
+                     width=OUT_CAP)
+    kn.drain_records_plain(H, P, rids, c, c0, want[2], want[0], want[1],
+                           k=K, width=OUT_CAP)
+    note("drain_records", list(zip(got, want)))
+    say(f"kernel drain_records: the reads' final level holds {n} records, "
+        f"{n / B:.1f} a row")
+    # kernel_ms' launches (at most 301) append to one stream; the count
+    # slots past 4 are not written
+    timed, ptimed = streams(320 * n, 4), streams(n, 4)
+    shape("drain_records", DRAIN_MAIN,
+          lambda: kn.drain_records(H, P, rids, c, c0, timed[2], timed[0],
+                                   timed[1], k=K, width=OUT_CAP),
+          lambda: (ptimed[2].zero_(), kn.drain_records_plain(
+              H, P, rids, c, c0, ptimed[2], ptimed[0], ptimed[1], k=K,
+              width=OUT_CAP)),
+          24 * n + 16 * B + 8 * B, DRAIN_MAIN)
+    for k in (K, K_WIDE):
+        Cw = 300
+        dt = np.int32 if k <= 16 else np.int64
+        batches = kernel_cases.drain_batches(k, 3, B, Cw)
+        total = sum(int(np.minimum(bt[2], Cw).sum()) for bt in batches)
+        for size in (total + 40, total - 37):
+            got, want = streams(size, 4), streams(size, 4)
+            for a, b, cc, cc0, rd in batches:
+                args = (*on_card(a.view(dt), b.view(dt), rd, cc, cc0),)
+                kn.drain_records(*args, got[2], got[0], got[1], k=k,
+                                 width=Cw)
+                kn.drain_records_plain(*args, want[2], want[0], want[1], k=k,
+                                       width=Cw)
+            note("drain_records", list(zip(got, want)))
+    for name in STAGE1:
+        results[name]["shapes"] = shapes[name]
+        for sh in shapes[name]:
+            say(f"kernel {name} {sh['site']}: {sh['bytes']} bytes, bound "
+                f"{sh['bound_ms'] * 1e3:.3f} us, kernel {sh['ms'] * 1e3:.3f}"
+                f" us, {sh['share_of_bound']:.4f} of the bound, plain "
+                f"{sh['plain_ms']:.4f} ms")
+    say("kernel checks: gather_codes on E. coli-class reads at L 8192/"
+        f"{MAIN_L}/24576 (strand 0 fill 4, random strands fill 7) and on "
+        "the test windows on cut planes with junk after them; "
+        "drain_records on the reads' final level, on random codes' level 2 "
+        "three times through one cursor and on the test batches at k 16/28, "
+        "streams cut short")
 
 
 def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
@@ -754,6 +953,50 @@ def phase_index(reads, genome) -> None:
             f"{' with the level-0 index' if keep_l0 else ''}, {n_rec} "
             f"SHIMMERs, cuda == cpu ({t1 - t0:.2f} s on the card, "
             f"{t2 - t1:.2f} s cpu)")
+    # fetch groups of three batches of four reads: at k=28, w=8 the
+    # second batch of the first group (and both of the second bucket)
+    # overflow their caps and are retried, the others are sliced from the
+    # group's stream; each build's launch counts are held to its trace
+    from torch.profiler import ProfilerActivity, profile
+
+    from peregrine_tpu_torch.ops import index, kernels as kn
+    small = SeqDB.from_reads(load_kernel_cases().stage1_reads())
+    group = index.FETCH_GROUP
+    index.FETCH_GROUP = 3
+    try:
+        for k, w, keep_l0 in ((K, 24, False), (K_WIDE, 8, False),
+                              (K_WIDE, 24, True)):
+            cfg = AsmConfig(k=k, w=w, r=4, levels=2, sketch_pad_len=8192,
+                            sketch_batch=4)
+            index.reset_stats()
+            kn.reset_launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                on_card = build_index(small, cfg, "cuda", keep_l0=keep_l0)
+                torch.cuda.synchronize()
+            stats = dict(index.STATS)
+            check_traced_launches(
+                device_trace(prof),
+                {fn.__name__: fn.launches for fn in kn.KERNELS},
+                f"grouped build_index k={k} w={w}"
+                f"{' with the level-0 index' if keep_l0 else ''}")
+            on_host = build_index(small, cfg, "cpu", keep_l0=keep_l0)
+            pairs = (zip(on_card, on_host) if keep_l0
+                     else [(on_card, on_host)])
+            for a, b in pairs:
+                for f in ("x", "y", "mc_hash", "mc_count"):
+                    check(np.array_equal(getattr(a, f), getattr(b, f)),
+                          f"grouped build_index k={k} w={w} cuda != cpu on "
+                          f".{f}")
+            check(stats["replays"] == 6 and stats["group_fetches"] == 3
+                  and stats["retried_batches"] == (3 if w == 8 else 0),
+                  f"grouped build_index k={k} w={w}: {stats}")
+            say(f"index check: build_index k={k} w={w}"
+                f"{' with the level-0 index' if keep_l0 else ''} of 22 "
+                f"reads in fetch groups of 3 batches of 4: {stats['replays']}"
+                f" replays, {stats['group_fetches']} group fetches, "
+                f"{stats['retried_batches']} batches retried, cuda == cpu")
+    finally:
+        index.FETCH_GROUP = group
     codes = seq_to_codes(genome[:200_000])
     for k in (K, K_WIDE):
         xg, yg = sketch_long_np(codes, 3, W, k, "cuda")
@@ -828,7 +1071,11 @@ def smi(fields: str) -> str:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the index modules' kernel calls to the plain PyTorch versions
-    (on the card's tensors) for as long as the block runs."""
+    (on the card's tensors) for as long as the block runs.  Stage 1's batch
+    step then runs eagerly, as it runs on the CPU: the plain versions sync
+    the host, which a CUDA graph's capture forbids."""
+    import torch
+
     from peregrine_tpu_torch.ops import index, kernels as kn, reduce, sketch
     plain = {
         "build_stream": lambda c, ln, *, k: kn.build_stream_plain(c, ln, k),
@@ -841,16 +1088,58 @@ def plain_kernels():
         "wide_emit": lambda sx, sl, n, *, w, k: kn.wide_emit_plain(sx, sl, n,
                                                                    w, k),
         "reduce_wide": lambda x, y, c, *, r: kn.reduce_wide_plain(x, y, c, r),
+        "gather_codes": kn.gather_codes_plain,
+        "drain_records": kn.drain_records_plain,
     }
     saved = [(m, name, getattr(m, name)) for m in (index, reduce, sketch)
              for name in plain if hasattr(m, name)]
+    step_run = index._Stage1Step.run
+
+    def eager_run(step, meta, part):
+        # run()'s branch for a step off the card: _body on the batch's rows
+        device, step.device = step.device, torch.device("cpu")
+        try:
+            return step_run(step, meta, part)
+        finally:
+            step.device = device
     for m, name, _ in saved:
         setattr(m, name, plain[name])
+    index._Stage1Step.run = eager_run
     try:
         yield
     finally:
         for m, name, fn in saved:
             setattr(m, name, fn)
+        index._Stage1Step.run = step_run
+
+
+def device_trace(prof) -> list:
+    """The device intervals (kernels, copies, memsets) of a profiler run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(any(e["cat"] == "kernel" for e in dev),
+          "the profiler trace holds no device kernel")
+    return dev
+
+
+def check_traced_launches(dev, launches: dict, label: str) -> None:
+    """Hold the wrappers' launch counts to the device: each SHIMMER
+    kernel must appear in the trace `dev` as often as its wrapper counted.
+    A captured stage-1 step adds the launches its graph holds on each
+    replay, so this shows that the replays ran them."""
+    traced = {name: sum(1 for e in dev if e["cat"] == "kernel"
+                        and f"{name}_kernel" in e["name"])
+              for name in REPLACES}
+    counted = {name: launches[name] for name in REPLACES}
+    check(traced == counted, f"{label}: the wrappers counted {counted}, the "
+          f"trace holds {traced}")
+    say(f"launch check: {label}: each kernel's count equals its launches in "
+        f"the trace ({sum(traced.values())} launches)")
 
 
 def busy_ms(events) -> float:
@@ -870,18 +1159,26 @@ def phase_index_profile(reads, k: int) -> None:
 
     from peregrine_tpu_torch.config import AsmConfig
     from peregrine_tpu_torch.io.seqdb import SeqDB
-    from peregrine_tpu_torch.ops import kernels as kn
-    from peregrine_tpu_torch.ops.dbgather import upload_seqdb
+    from peregrine_tpu_torch.ops import index, kernels as kn
+    from peregrine_tpu_torch.ops.dbgather import (_pad_rows, pack_db_np,
+                                                  packed_from_numpy)
     from peregrine_tpu_torch.ops.index import build_index
 
     torch.set_num_threads(os.cpu_count() or 1)
     db = SeqDB.from_reads(reads)
     cfg = AsmConfig(k=k)
     say(f"index profile: k={k}")
+    # upload_seqdb's two parts, apart: the host pack and the upload
     t0 = time.perf_counter()
-    packed = upload_seqdb(db.data, "cuda")
+    fw, amb = pack_db_np(db.data)
+    t1 = time.perf_counter()
+    packed = packed_from_numpy(_pad_rows(fw, 1 << 19), _pad_rows(amb, 1 << 17),
+                               "cuda")
     torch.cuda.synchronize()
-    say(f"index profile: seqdb pack + upload {time.perf_counter() - t0:.4f} s")
+    t2 = time.perf_counter()
+    pack_s, upload_s = t1 - t0, t2 - t1
+    say(f"index profile: seqdb pack {pack_s:.4f} s, upload {upload_s:.4f} s "
+        f"({packed.fw.numel() + packed.amb.numel()} bytes)")
 
     def run():
         torch.cuda.synchronize()
@@ -890,9 +1187,10 @@ def phase_index_profile(reads, k: int) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t, idx
 
-    # one warm-up build per route, then PROFILE_PAIRS pairs in ABBA order
+    # one warm-up build per route, then PROFILE_PAIRS pairs in ABBA order;
+    # every build's records equal the first's
     walls = {"kernel": [], "plain": []}
-    records = set()
+    first = None
     order = ["kernel", "plain"] + ["kernel", "plain", "plain", "kernel"] * (
         PROFILE_PAIRS // 2)
     for i, route in enumerate(order):
@@ -900,29 +1198,43 @@ def phase_index_profile(reads, k: int) -> None:
             wall, idx = run()
         if i >= 2:
             walls[route].append(wall)
-        records.add(len(idx.x))
+        if first is None:
+            first = idx
+        check(np.array_equal(idx.x, first.x) and np.array_equal(idx.y, first.y),
+              f"routes disagree on the records ({len(idx.x)} [{route}], "
+              f"{len(first.x)} [kernel])")
         say(f"index profile: build_index [{route}{'' if i >= 2 else ', warm-up'}]"
             f" {wall:.4f} s, {len(idx.x)} SHIMMERs | "
             f"{smi('name,power.limit,clocks.sm')}")
-    check(len(records) == 1, f"routes disagree on the record count {records}")
     for route, ws in walls.items():
         say(f"index profile: build_index [{route}] median {np.median(ws):.4f} s,"
             f" min {min(ws):.4f} s, max {max(ws):.4f} s over {len(ws)} runs")
+
+    # the host's split of one build
+    index.reset_stats()
+    split_wall, _ = run()
+    split = {key: (dict(v) if isinstance(v, dict) else
+                   list(v) if isinstance(v, list) else v)
+             for key, v in index.STATS.items()}
+    host = split["host_s"]
+    say(f"index profile: host split of one build ({split_wall:.4f} s): "
+        + ", ".join(f"{part} {sec * 1e3:.2f} ms" for part, sec in
+                    sorted(host.items(), key=lambda kv: -kv[1]))
+        + f"; rest {(split_wall - sum(host.values())) * 1e3:.2f} ms; "
+        f"{split['replays']} replays "
+        f"({host.get('replays', 0) / max(1, split['replays']) * 1e6:.1f} us "
+        f"each, metas {host.get('metas', 0) / max(1, split['replays']) * 1e6:.1f}"
+        f" us), {split['group_fetches']} group fetches, "
+        f"{split['retried_batches']} batches retried; graph pools "
+        f"{split['graph_pool_bytes']} bytes")
 
     kn.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall, _ = run()
     launches = {fn.__name__: fn.launches for fn in kn.KERNELS}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    dev = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    check(any(e["cat"] == "kernel" for e in dev),
-          "the profiler trace holds no device kernel")
+    dev = device_trace(prof)
+    check_traced_launches(dev, launches, f"the profiled k={k} build")
     per: dict = {}
     count: dict = {}
     for e in dev:
@@ -965,11 +1277,64 @@ def phase_index_profile(reads, k: int) -> None:
         say(f"index profile: {name} by grid: " + ", ".join(
             f"{grid} {n}x {us / n:.2f} us" for grid, (n, us) in grids.items()))
     say(json.dumps({"index_profile": {
-        "walls_s": walls, "records": records.pop(), "profiled_wall_ms":
+        "walls_s": walls, "records": len(first.x), "profiled_wall_ms":
         wall * 1000, "device_busy_ms": busy, "kernels_ms": ours,
         "other_kernels_ms": other, "copies_ms": copies,
         "device_intervals": sum(count.values()), "fill_launches": fills,
-        "launches": launches, "by_grid": by_grid}}))
+        "launches": launches, "by_grid": by_grid, "pack_s": pack_s,
+        "upload_s": upload_s, "split_wall_s": split_wall,
+        "host_split_s": host, "replays": split["replays"],
+        "group_fetches": split["group_fetches"],
+        "graph_pool_bytes": split["graph_pool_bytes"]}}))
+
+
+def index_profile_abba(parent: str, k: int, out_dir: str) -> None:
+    """`--index-profile` of the checkout `parent` and of this one in
+    turns, parent, change, change, parent, each in its own process from
+    its own tree (each builds its kernels); each run's output goes to
+    out_dir/index-profile-k{k}-{i}-{tree}.log and its summary is
+    printed, then one JSON line of the four."""
+    os.makedirs(out_dir, exist_ok=True)
+    runs = []
+    for i, (label, tree) in enumerate((("parent", parent), ("change", ROOT),
+                                       ("change", ROOT),
+                                       ("parent", parent))):
+        t = time.time()
+        r = subprocess.run([sys.executable, "chip_smoke.py",
+                            "--index-profile", "--profile-k", str(k)],
+                           cwd=os.path.abspath(tree), capture_output=True,
+                           text=True)
+        log = os.path.join(out_dir, f"index-profile-k{k}-{i}-{label}.log")
+        with open(log, "w") as f:
+            f.write(r.stdout + r.stderr)
+        check(r.returncode == 0, f"--index-profile of {tree} returned "
+              f"{r.returncode}; see {log}")
+        prof = _json_line(r.stdout, "index_profile")["index_profile"]
+        ws = prof["walls_s"]["kernel"]
+        run = {"tree": label, "k": k, "median_s": float(np.median(ws)),
+               "min_s": min(ws), "max_s": max(ws),
+               "plain_median_s": float(np.median(prof["walls_s"]["plain"])),
+               "device_busy_ms": prof["device_busy_ms"],
+               "device_intervals": prof["device_intervals"],
+               "fill_launches": prof["fill_launches"],
+               "idle_share": 1 - prof["device_busy_ms"]
+               / prof["profiled_wall_ms"],
+               "host_split_s": prof.get("host_split_s"),
+               "graph_pool_bytes": prof.get("graph_pool_bytes"),
+               "process_s": time.time() - t}
+        runs.append(run)
+        say(f"index profile abba k={k} [{i} {label}]: median "
+            f"{run['median_s']:.4f} s (min {run['min_s']:.4f}, max "
+            f"{run['max_s']:.4f}; plain {run['plain_median_s']:.4f}), device "
+            f"busy {run['device_busy_ms']:.2f} "
+            f"ms, {run['device_intervals']} device intervals "
+            f"({run['fill_launches']} fills), idle share "
+            f"{run['idle_share']:.4f}")
+        for line in r.stdout.splitlines():
+            if ("host split" in line or "seqdb pack" in line
+                    or "launch check" in line):
+                say("    " + line)
+    say(json.dumps({"index_profile_abba": runs}))
 
 
 def kmers21(seq: bytes) -> np.ndarray:
@@ -1077,10 +1442,17 @@ def phase_draft(lst: str, genome, wd: str, results: dict):
     out = os.path.join(wd, "asm")
     _, launches, _ = run_asm(lst, out, [], "draft path",
                              ("seqdb", "index", "overlap", "layout"))
-    for name in ("build_stream", "move_plane", "emit_mask", "reduce_step"):
+    for name in ("build_stream", "move_plane", "emit_mask", "reduce_step",
+                 "gather_codes", "drain_records"):
         check(launches[name] > 0,
               f"kernel {name} was not launched by the draft path")
         results[name]["launches"] = launches[name]
+    # one batch step a build_stream: one gather, one drain
+    check(launches["gather_codes"] == launches["drain_records"]
+          == launches["build_stream"],
+          f"draft path: {launches['gather_codes']} gathers and "
+          f"{launches['drain_records']} drains for "
+          f"{launches['build_stream']} sketches")
     # two-plane moves, two per sketch; the reduction levels move nothing
     check(launches["move_plane"] == 2 * launches["build_stream"],
           f"move_plane launched {launches['move_plane']} times for "
@@ -2089,8 +2461,16 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-k", type=int, default=K,
                     help="k of the --index-profile run (default %(default)s)")
     ap.add_argument("--index-profile", action="store_true",
-                    help="phases 1-2, then stage 1 alone: kernel and plain "
-                    "walls and a profiler trace (no other phase)")
+                    help="phases 1-2, then stage 1 alone: build walls, the "
+                    "host's split of a build and a profiler trace (no "
+                    "other phase)")
+    ap.add_argument("--abba", metavar="PARENT",
+                    help="with --index-profile: profile the checkout PARENT "
+                    "and this one in turns (parent, change, change, "
+                    "parent), each in its own process")
+    ap.add_argument("--log-dir", default=os.path.join(ROOT, "wd-profile-logs"),
+                    help="where --abba writes each run's whole output "
+                    "(default %(default)s)")
     ap.add_argument("--cli-only", action="store_true",
                     help="phases 1-2, the draft and the consensus path "
                     "(phases 5-6) and the rest of the CLI and the API "
@@ -2136,6 +2516,10 @@ def main(argv=None) -> int:
 
     if args.aligner_sass:
         say(json.dumps({"aligner_sass": aligner_sass(da.library()._name)}))
+        return 0
+
+    if args.index_profile and args.abba:
+        index_profile_abba(args.abba, args.profile_k, args.log_dir)
         return 0
 
     # phase 3: kernels against their plain versions

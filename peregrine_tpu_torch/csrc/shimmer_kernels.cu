@@ -8,6 +8,14 @@
 //                        followed by its two move_plane calls
 //   pg_compact_planes <- compact_planes (compact_pallas.py:365, call :391)
 //
+// and five replace XLA code of the JAX package: the wide (k > 16) route's
+// pg_wide_stream, pg_wide_emit and pg_reduce_wide (see their notes), and
+// stage 1's batch step around the kernels:
+//
+//   pg_gather_codes   <- peregrine_tpu/ops/dbgather.py:gather_codes (:233)
+//   pg_drain_records  <- peregrine_tpu/ops/index.py:_compact_drain (:66)
+//                        with ops/sketch.py:assemble_records folded in
+//
 // The first four run the packed k <= 16 path on [B, L] row-major uint32
 // planes (the wrappers in ops/kernels.py hand over int32 tensors holding
 // the same bits); compact_planes serves the wide k > 16 sketch and the
@@ -1661,6 +1669,182 @@ reduce_wide_kernel(const unsigned long long* __restrict__ X,
   }
 }
 
+
+// --- gather_codes: windows of the packed seqdb as 2-bit codes -------------
+//
+// Replaces the XLA code of peregrine_tpu/ops/dbgather.py:gather_codes
+// (:233, with _gather_bytes :215): [B] windows -> [B, L] uint8 codes, fill
+// where a base is ambiguous or past the window's length, strand 1 read
+// mirrored and complemented.  Bound: device-memory bytes, 3/8 of a byte
+// read and one written a base (1.4 MB, 0.42 us at B=64, L=16,384 on
+// 3.35 TB/s).  Design: one thread writes 16 output bases (one 16-byte
+// store) from two 32-bit fw words and two amb words funnel-shifted to its
+// first base; strand 1 reverses the 2-bit fields of its word.  A word
+// that is not whole inside its plane (or a plane that is not 4-byte
+// aligned) is put together a byte at a time, each byte index clamped to
+// the plane as the plain version clamps it, so a window past the plane's
+// end reads its last byte again and nothing after it.
+constexpr int kGatherThreads = 256;
+constexpr long long kGuardBases = 1 << 16;  // GUARD_BASES in ops/dbgather.py
+
+__device__ __forceinline__ uint32_t plane_word(const uint8_t* __restrict__ p,
+                                               long long n, long long wi,
+                                               bool aligned) {
+  const long long b0 = 4 * wi;
+  if (aligned && b0 >= 0 && b0 + 3 < n)
+    return __ldg(reinterpret_cast<const uint32_t*>(p) + wi);
+  uint32_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long b = min(max(b0 + i, 0LL), n - 1);
+    v |= (uint32_t)__ldg(p + b) << (8 * i);
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kGatherThreads)
+gather_codes_kernel(const uint8_t* __restrict__ fw, long long n_fw,
+                    const uint8_t* __restrict__ amb, long long n_amb,
+                    const long long* __restrict__ goff,
+                    const long long* __restrict__ lens,
+                    const int32_t* __restrict__ strand,
+                    uint8_t* __restrict__ out, int B, int L, int fill) {
+  const int groups = (L + 15) / 16;
+  const long long t = (long long)blockIdx.x * kGatherThreads + threadIdx.x;
+  if (t >= (long long)B * groups) return;
+  const int row = (int)(t / groups);
+  const int j0 = (int)(t % groups) * 16;
+  const bool rev = strand != nullptr && strand[row] == 1;
+  const long long len = lens[row];
+  // the 16 bases this thread reads: window columns j0..j0+15 on strand 0,
+  // L-16-j0..L-1-j0 (the mirror of its outputs) on strand 1
+  const long long q0 = goff[row] + kGuardBases;
+  const long long s = rev ? q0 + L - 16 - j0 : q0 + j0;
+  const bool fa = ((uintptr_t)fw & 3) == 0, aa = ((uintptr_t)amb & 3) == 0;
+  uint32_t c = __funnelshift_r(plane_word(fw, n_fw, s >> 4, fa),
+                               plane_word(fw, n_fw, (s >> 4) + 1, fa),
+                               2 * (int)(s & 15));
+  uint32_t a = __funnelshift_r(plane_word(amb, n_amb, s >> 5, aa),
+                               plane_word(amb, n_amb, (s >> 5) + 1, aa),
+                               (int)(s & 31)) & 0xFFFFu;
+  if (rev) {  // reverse the 16 fields, complement the codes
+    c = __brev(c);
+    c = ~(((c & 0x55555555u) << 1) | ((c >> 1) & 0x55555555u));
+    a = __brev(a) >> 16;
+  }
+  uint8_t v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    v[i] = ((a >> i & 1u) || j0 + i >= len) ? (uint8_t)fill
+                                            : (uint8_t)(c >> (2 * i) & 3u);
+  uint8_t* o = out + (size_t)row * L + j0;
+  if (j0 + 16 <= L && ((uintptr_t)o & 15) == 0) {
+    uint4 w;
+    uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      wp[i] = v[4 * i] | v[4 * i + 1] << 8 | v[4 * i + 2] << 16 |
+              (uint32_t)v[4 * i + 3] << 24;
+    *reinterpret_cast<uint4*>(o) = w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (j0 + i < L) o[i] = v[i];
+  }
+}
+
+// --- drain_records: padded rows -> one tight record stream ---------------
+//
+// Replaces the XLA code of peregrine_tpu/ops/index.py:_compact_drain (:66)
+// with assemble_records (peregrine_tpu/ops/sketch.py:257) folded in: the
+// valid prefix of each row of a batch's [B, C] planes (row stride ld),
+// min(count, C) entries, goes as (x, y) pairs to a tight stream at the
+// device cursor plus the exclusive scan of the clamped counts of the rows
+// before it, in (row, column) order.  kPacked: (H, P) uint32 planes, with
+// x = h << 8 | k and y = rid << 32 | pos << 1 | strand built on the way;
+// otherwise int64 (x, y) records, copied.  Writes at or past max_records
+// are dropped (the caller sizes the stream for its worst case).  The batch
+// also writes (c0, count) into count slot cursor[1] (of max_slots, rows
+// counts_ld apart) when counts_out is given; the last block to finish
+// advances cursor[0] by the batch's records and cursor[1] by one, so the
+// launch has fixed arguments and can be replayed from a CUDA graph.
+// cursor[2] counts the blocks done and returns to 0.  Bound: bytes, the
+// kept entries read once (8 or 16 bytes) and written once (16 bytes).
+constexpr int kDrainThreads = 256;
+
+__device__ __forceinline__ long long block_sum64(long long v,
+                                                 long long* scratch) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xFFFFFFFFu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  long long total = 0;
+  for (int i = 0; i < kDrainThreads / 32; ++i) total += scratch[i];
+  __syncthreads();
+  return total;
+}
+
+template <bool kPacked>
+__global__ void __launch_bounds__(kDrainThreads)
+drain_records_kernel(const void* __restrict__ pa, const void* __restrict__ pb,
+                     const long long* __restrict__ rids,
+                     const int32_t* __restrict__ count,
+                     const int32_t* __restrict__ c0,
+                     unsigned long long* cursor,
+                     ulonglong2* __restrict__ out,
+                     int32_t* __restrict__ counts_out, int B, int C, int ld,
+                     int k, long long max_records, int max_slots,
+                     int counts_ld) {
+  __shared__ long long scratch[kDrainThreads / 32];
+  __shared__ long long s_base;
+  const int row = blockIdx.x;
+  long long pre = 0;
+  for (int i = threadIdx.x; i < row; i += kDrainThreads)
+    pre += min(max(count[i], 0), C);
+  pre = block_sum64(pre, scratch);
+  if (threadIdx.x == 0)
+    s_base = (long long)*(volatile unsigned long long*)cursor + pre;
+  __syncthreads();
+  const long long base = s_base;
+  const int n = min(max(count[row], 0), C);
+  const size_t r0 = (size_t)row * ld;
+  const unsigned long long rid_hi =
+      kPacked ? (unsigned long long)rids[row] << 32 : 0;
+  for (int j = threadIdx.x; j < n && base + j < max_records;
+       j += kDrainThreads) {
+    ulonglong2 rec;
+    if (kPacked) {
+      const uint32_t h = static_cast<const uint32_t*>(pa)[r0 + j];
+      const uint32_t p = static_cast<const uint32_t*>(pb)[r0 + j];
+      rec.x = (unsigned long long)h << 8 | (unsigned)k;
+      rec.y = rid_hi | (unsigned long long)(p >> 2) << 1 | (p >> 1 & 1u);
+    } else {
+      rec.x = static_cast<const unsigned long long*>(pa)[r0 + j];
+      rec.y = static_cast<const unsigned long long*>(pb)[r0 + j];
+    }
+    out[base + j] = rec;
+  }
+  if (threadIdx.x == 0) {
+    const unsigned long long slot = *(volatile unsigned long long*)(cursor + 1);
+    if (counts_out != nullptr && slot < (unsigned long long)max_slots) {
+      counts_out[(2 * slot) * counts_ld + row] = c0[row];
+      counts_out[(2 * slot + 1) * counts_ld + row] = count[row];
+    }
+    // every block reads the cursor before it counts itself done, so the
+    // last one may move it
+    __threadfence();
+    if (atomicAdd(cursor + 2, 1ull) == gridDim.x - 1) {
+      long long total = 0;
+      for (int i = 0; i < B; ++i) total += min(max(count[i], 0), C);
+      cursor[0] += (unsigned long long)total;
+      cursor[1] = slot + 1;
+      cursor[2] = 0;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1783,6 +1967,39 @@ int pg_reduce_wide(const void* x, const void* y, const void* n_in,
       (const int32_t*)n_in, (int*)status, (int*)stale, stale_words,
       (unsigned long long*)ox, (unsigned long long*)oy, (int32_t*)count, C, r,
       chunks);
+  return (int)cudaGetLastError();
+}
+
+int pg_gather_codes(const void* fw, long long n_fw, const void* amb,
+                    long long n_amb, const void* goff, const void* lens,
+                    const void* strand, void* out, int B, int L, int fill,
+                    void* stream) {
+  if (n_fw < 1 || n_amb < 1 || L % 8 || L > kGuardBases)
+    return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)B * ((L + 15) / 16);
+  const unsigned blocks =
+      (unsigned)((threads + kGatherThreads - 1) / kGatherThreads);
+  gather_codes_kernel<<<blocks, kGatherThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)fw, n_fw, (const uint8_t*)amb, n_amb,
+      (const long long*)goff, (const long long*)lens, (const int32_t*)strand,
+      (uint8_t*)out, B, L, fill);
+  return (int)cudaGetLastError();
+}
+
+int pg_drain_records(const void* a, const void* b, const void* rids,
+                     const void* count, const void* c0, void* cursor,
+                     void* out, void* counts_out, int B, int C, int ld,
+                     int bytes, int k, long long max_records, int max_slots,
+                     int counts_ld, void* stream) {
+  if ((bytes != 4 && bytes != 8) || C > ld || (bytes == 4 && !rids) ||
+      (counts_out && counts_ld < B) || ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = bytes == 4 ? drain_records_kernel<true>
+                                 : drain_records_kernel<false>;
+  kernel<<<B, kDrainThreads, 0, (cudaStream_t)stream>>>(
+      a, b, (const long long*)rids, (const int32_t*)count,
+      (const int32_t*)c0, (unsigned long long*)cursor, (ulonglong2*)out,
+      (int32_t*)counts_out, B, C, ld, k, max_records, max_slots, counts_ld);
   return (int)cudaGetLastError();
 }
 

@@ -8,9 +8,11 @@ packed layout).  The seqdb lives on the device as two uint8 planes:
 
 both with GUARD_BASES of zeros before the first base, so mirrored
 strand-1 window starts stay in bounds.  The planes are byte-identical to
-the JAX package's.  gather_codes is plain tensor indexing: the TPU's
-whole-row gather with its shift-select ladder is a workaround for slow
-element gathers that a GPU does not need.
+the JAX package's.  gather_codes (ops/kernels.py, re-exported here)
+launches pg_gather_codes (csrc/shimmer_kernels.cu) on planes on a CUDA
+card, one thread per 16 output bases; on planes on the CPU it runs
+gather_codes_plain, plain tensor indexing.  The TPU's whole-row gather with its shift-select ladder
+is a workaround for slow element gathers that neither needs.
 """
 
 from __future__ import annotations
@@ -20,10 +22,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# guard (in bases) below the packed db start: a strand-1 window of true
-# length len padded to L gathers from  start + len - L >= -L, so any
-# L <= GUARD_BASES stays in bounds.  Multiple of 1024 (one amb row).
-GUARD_BASES = 1 << 16
+# GUARD_BASES: the guard (in bases) below the packed db start; the
+# gather's wrapper and plain version live with the other kernels
+from .kernels import GUARD_BASES, gather_codes, gather_codes_plain  # noqa: F401
 
 
 class PackedSeqDB(NamedTuple):
@@ -75,30 +76,3 @@ def gather_offsets(off: np.ndarray, lens: np.ndarray, strand: np.ndarray,
     """Host helper: gather start per request.  strand 0 -> window start;
     strand 1 -> mirrored start (windows must end at their read's end)."""
     return np.where(strand == 0, off, read_start + lens - L)
-
-
-def gather_codes(pdb: PackedSeqDB, goff: torch.Tensor, lens: torch.Tensor,
-                 strand: torch.Tensor | None, L: int,
-                 fill: int) -> torch.Tensor:
-    """[B] windows -> [B, L] uint8 2-bit codes (ambiguous/padding = fill).
-
-    goff is the GATHER start from gather_offsets (mirror-adjusted for
-    strand 1); strand-1 windows come out flipped and complemented.
-    strand None: every window on strand 0, as the index builds read them.
-    """
-    assert L % 8 == 0 and L <= GUARD_BASES
-    dev = pdb.fw.device
-    q = (goff.to(dev, torch.int64)[:, None] + GUARD_BASES
-         + torch.arange(L, device=dev)[None, :])
-    fw = pdb.fw.reshape(-1)
-    ab = pdb.amb.reshape(-1)
-    code = (fw[(q >> 2).clamp(0, fw.numel() - 1)] >> (2 * (q & 3))) & 3
-    amb = (ab[(q >> 3).clamp(0, ab.numel() - 1)] >> (q & 7)) & 1
-    if strand is not None:
-        rev = strand.to(dev)[:, None] == 1
-        code = torch.where(rev, torch.flip(code, dims=[1]) ^ 3, code)
-        amb = torch.where(rev, torch.flip(amb, dims=[1]), amb)
-    inlen = (torch.arange(L, device=dev)[None, :]
-             < lens.to(dev, torch.int64)[:, None])
-    out = torch.where((amb == 1) | ~inlen, fill, code)
-    return out.to(torch.uint8)

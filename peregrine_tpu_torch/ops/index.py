@@ -1,28 +1,42 @@
 """SHIMMER index build — batched device sketch/reduce + sorted-array counts.
 
 The port of peregrine_tpu/ops/index.py (see its docstring).  Reads are
-bucketed by padded length; per batch the code windows are gathered from
-the device-resident seqdb, sketched and reduced, and the valid prefix of
-each row drained to the host; records concatenate in rid order.  For
-k <= 16 a batch runs on the packed (H, P) planes (the first four kernels
-of ops.kernels) and records are assembled at the end; for k > 16 it runs
-the wide sketch and reduce_impl on int64 records (compact_planes).
-Sequences longer than sketch_pad_len take the segmented long route: the
-segments of all of them share sketch batches (sketch_long_many_np), and
-each reduction level runs once per length class of them
-(reduce_flat_np), where the JAX package runs one sequence a thread.
-keep_l0 (--with-L0-index) also returns the level-0 index.
+bucketed by padded length and run in batches of one shape a bucket; a
+batch is one device program, as the JAX package's index_step_db_meta is
+one jitted program: its (offset, length, rid) metas are copied in, the
+code windows gathered from the device-resident seqdb (gather_codes),
+sketched and reduced (index_planes), and the valid prefix of each row
+appended to a tight record stream on the device (drain_records, which
+replaces _compact_drain and assemble_records).  On a CUDA card the
+program is a CUDA graph captured once a shape (_Stage1Step), so a batch
+costs the host one copy of its metas and one replay and no sync; the
+counts and the records of up to FETCH_GROUP batches come back in two
+copies, as the JAX package's two-phase grouped fetch does, and a batch
+whose sketch overflowed its cap is recomputed exactly (_retry_exact).
+On the CPU the same loop runs the step eagerly on the plain versions.
+For k <= 16 a batch runs on the packed (H, P) planes (the first four
+kernels of ops.kernels); for k > 16 it runs the wide sketch and
+reduce_impl on int64 records.  Sequences longer than sketch_pad_len take
+the segmented long route: the segments of all of them share sketch
+batches (sketch_long_many_np), and each reduction level runs once per
+length class of them (reduce_flat_np), where the JAX package runs one
+sequence a thread.  keep_l0 (--with-L0-index) also returns the level-0
+index.
 
 build_index_segmented indexes a seqdb past the device budget in
 contiguous read groups, each uploading only its byte window.
 
-Not ported: index_step_db_meta/_scan (one-dispatch batching for a
-remote device link) and the segmented build's worker processes.
+Not ported: index_step_db_scan's G batches in one dispatch (a graph
+replay a batch is one launch already) and the segmented build's worker
+processes.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,11 +45,40 @@ import torch
 from ..config import AsmConfig
 from ..io import formats
 from ..io.seqdb import SeqDB
+from . import kernels as kn
 from .dbgather import PackedSeqDB, gather_codes, upload_seqdb
-from .kernels import reduce_step
+from .kernels import drain_records, reduce_step
 from .reduce import reduce_flat_np, reduce_impl
 from .sketch import (assemble_records, sketch_long_many_np, sketch_planes,
                      sketch_wide)
+
+log = logging.getLogger(__name__)
+
+FETCH_GROUP = 64        # batches whose counts and records one fetch brings
+# A group's record streams hold its worst case (every row's count at the
+# planes' width) in at most GROUP_BYTES, else the group has fewer
+# batches: ~15 MB for 64 capped batches of 64 reads at L=16,384, and
+# 32 batches a group with the uncapped level-0 stream of --with-L0-index.
+GROUP_BYTES = 1 << 30
+# stage 1's host seconds by part, and the captured graphs' pool bytes,
+# summed over builds until reset_stats()
+STATS: dict = {"host_s": {}, "graph_pool_bytes": [], "replays": 0,
+               "group_fetches": 0, "retried_batches": 0}
+
+
+def reset_stats() -> None:
+    STATS.update(host_s={}, graph_pool_bytes=[], replays=0, group_fetches=0,
+                 retried_batches=0)
+
+
+@contextlib.contextmanager
+def _timed(part: str):
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        host = STATS["host_s"]
+        host[part] = host.get(part, 0.0) + time.perf_counter() - t
 
 
 def _capped(a: torch.Tensor, b: torch.Tensor, cap: int):
@@ -43,6 +86,35 @@ def _capped(a: torch.Tensor, b: torch.Tensor, cap: int):
     if cap and cap < a.shape[1]:
         return a[:, :cap].contiguous(), b[:, :cap].contiguous()
     return a, b
+
+
+def _out_cap(cap: int, levels: int, r: int, tight_out: bool = True) -> int:
+    """Columns of the final level a capped batch keeps (0: all of them).
+    Each level shrinks the list ~(r/2)x in practice; the slice is
+    conservative, and the exact count c stays for the overflow check."""
+    if levels > 0 and cap and tight_out:
+        return max(64, cap // max(1, int((r / 2) ** levels)))
+    return 0
+
+
+def index_planes(codes: torch.Tensor, lengths: torch.Tensor,
+                 rids: torch.Tensor, *, w: int, k: int, r: int, levels: int,
+                 cap: int = 0, keep_l0: bool = False):
+    """index_step up to its final level's planes, whole: (a, b, c, c0),
+    with keep_l0 also the level-0 planes (a0, b0), whose counts are c0.
+    At k <= 16 the planes are (H, P) int32, above it (x, y) int64
+    records."""
+    if k <= 16:
+        a, b, c0 = sketch_planes(codes, lengths, w=w, k=k)
+    else:
+        a, b, c0 = sketch_wide(codes, lengths, rids, w=w, k=k)
+    l0 = (a, b) if keep_l0 else ()
+    a, b = _capped(a, b, cap)
+    c = torch.clamp(c0, max=a.shape[1])
+    for _ in range(levels):
+        a, b, c = (reduce_step(a, b, c, r=r) if k <= 16
+                   else reduce_impl(a, b, c, r=r))
+    return (a, b, c, c0) + l0
 
 
 def index_step(codes: torch.Tensor, lengths: torch.Tensor, rids: torch.Tensor,
@@ -58,28 +130,13 @@ def index_step(codes: torch.Tensor, lengths: torch.Tensor, rids: torch.Tensor,
     with keep_l0 also the uncapped level-0 records (x0, y0), whose counts
     are c0.
     """
-    out_cap = 0
-    if levels > 0 and cap and tight_out:
-        # each level shrinks the list ~(r/2)x in practice; slice
-        # conservatively (c stays exact for the overflow check)
-        out_cap = max(64, cap // max(1, int((r / 2) ** levels)))
+    a, b, c, c0, *l0 = index_planes(codes, lengths, rids, w=w, k=k, r=r,
+                                    levels=levels, cap=cap, keep_l0=keep_l0)
+    a, b = _capped(a, b, _out_cap(cap, levels, r, tight_out))
     if k <= 16:
-        H, P, c0 = sketch_planes(codes, lengths, w=w, k=k)
-        l0 = assemble_records(H, P, c0, rids, k) if keep_l0 else ()
-        H, P = _capped(H, P, cap)
-        c = torch.clamp(c0, max=H.shape[1])
-        for _ in range(levels):
-            H, P, c = reduce_step(H, P, c, r=r)
-        x, y = assemble_records(*_capped(H, P, out_cap), c, rids, k)
-    else:
-        x, y, c0 = sketch_wide(codes, lengths, rids, w=w, k=k)
-        l0 = (x, y) if keep_l0 else ()
-        x, y = _capped(x, y, cap)
-        c = torch.clamp(c0, max=x.shape[1])
-        for _ in range(levels):
-            x, y, c = reduce_impl(x, y, c, r=r)
-        x, y = _capped(x, y, out_cap)
-    return (x, y, c, c0) + tuple(l0)
+        a, b = assemble_records(a, b, c, rids, k)
+        l0 = assemble_records(*l0, c0, rids, k) if keep_l0 else ()
+    return (a, b, c, c0) + tuple(l0)
 
 
 @dataclass
@@ -139,19 +196,179 @@ def _length_buckets(lengths: np.ndarray, unit: int) -> dict[int, np.ndarray]:
     return out
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy().view(np.uint64)
+def _slices(rec: np.ndarray, n: np.ndarray, parts, xs: dict, ys: dict,
+            skip=()) -> None:
+    """Per-read record slices of a tight stream rec ([N, 2] uint64 (x, y)
+    pairs, as drain_records writes it): the rows of parts, in order, hold
+    n[i] records each; the batches whose index is in `skip` are passed
+    over (their records still take their places in the stream)."""
+    offs = np.zeros(len(n) + 1, np.int64)
+    np.cumsum(n, out=offs[1:])
+    x = np.ascontiguousarray(rec[:, 0])
+    y = np.ascontiguousarray(rec[:, 1])
+    i = 0
+    for j, part in enumerate(parts):
+        if j not in skip:
+            for b, rid in enumerate(part):
+                xs[rid] = x[offs[i + b]:offs[i + b + 1]]
+                ys[rid] = y[offs[i + b]:offs[i + b + 1]]
+        i += len(part)
 
 
-def _drain(x: torch.Tensor, y: torch.Tensor, c: np.ndarray,
-           part: np.ndarray, xs: dict, ys: dict) -> None:
-    """Per-read record slices [:c] of a batch's rows (c: the counts, on
-    the host): the first max(c) columns of each plane fetched at once."""
-    m = int(c.max()) if len(c) else 0
-    xf, yf = _to_host(x[:, :m]), _to_host(y[:, :m])
-    for b, rid in enumerate(part):
-        xs[rid] = xf[b, :c[b]]
-        ys[rid] = yf[b, :c[b]]
+def _fetch(rec: torch.Tensor, total: int) -> np.ndarray:
+    """The first `total` (x, y) pairs of a record stream, on the host."""
+    return rec[:total].cpu().numpy().view(np.uint64)
+
+
+class _Stage1Step:
+    """One stage-1 batch shape (pad L, rows B, cap, k, w, r, levels,
+    keep_l0) on one device, and the fetch group of its batches.
+
+    The step is the counterpart of the JAX package's index_step_db_meta:
+    the metas [3, B] (offset, length, rid) go in, gather_codes,
+    index_planes and drain_records run, and the records leave in a tight
+    stream with their counts in one slot a batch.  On a CUDA card it is
+    captured once as a CUDA graph (after an eager warm-up on its first
+    batch, whose output the first replay writes again), with its own
+    look-back status zeroed at its start, so a
+    batch is one metas copy from pinned memory and one replay, with no
+    host sync; a capture or replay error raises.  On the CPU the step runs
+    eagerly on its batch's rows alone.  fetch() brings the group's counts
+    and then its records back, one copy each (and one more for the
+    level-0 stream of keep_l0), slices them per read, and sends the
+    batches that overflowed the cap to `retry`."""
+
+    def __init__(self, packed: PackedSeqDB, device: torch.device, pad: int,
+                 rows: int, cap: int, keep_l0: bool, step: dict,
+                 batches: int):
+        self.packed, self.device, self.pad, self.rows = packed, device, pad, rows
+        self.cap, self.keep_l0, self.step = cap, keep_l0, step
+        width = min(cap, pad) if cap else pad
+        self.out_w = min(_out_cap(cap, step["levels"], step["r"]) or width,
+                         width)
+        batch_bytes = 16 * rows * (self.out_w + (pad if keep_l0 else 0))
+        self.group = max(1, min(FETCH_GROUP, batches,
+                                GROUP_BYTES // batch_bytes))
+
+        def empty(*shape, dtype=torch.int64):
+            return torch.empty(shape, dtype=dtype, device=device)
+        self.metas = torch.zeros((3, rows), dtype=torch.int64, device=device)
+        self.stage = torch.empty((self.group, 3, rows), dtype=torch.int64,
+                                 pin_memory=device.type == "cuda")
+        self.rec = empty(self.group * rows * self.out_w, 2)
+        self.counts = empty(self.group, 2, rows, dtype=torch.int32)
+        self.cursor = torch.zeros(3, dtype=torch.int64, device=device)
+        if keep_l0:
+            self.rec0 = empty(self.group * rows * pad, 2)
+            self.cursor0 = torch.zeros_like(self.cursor)
+        self.parts: list = []
+        self.graph = None
+        self.per_replay: dict = {}
+
+    def _body(self, rows: int) -> None:
+        goff, lens, rids = self.metas[:, :rows]
+        codes = gather_codes(self.packed, goff, lens, None, self.pad, fill=4)
+        a, b, c, c0, *l0 = index_planes(
+            codes, lens.to(torch.int32), rids, cap=self.cap,
+            keep_l0=self.keep_l0, **self.step)
+        k = self.step["k"]
+        drain_records(a, b, rids, c, c0, self.cursor, self.rec, self.counts,
+                      k=k, width=self.out_w)
+        if self.keep_l0:
+            drain_records(*l0, rids, c0, c0, self.cursor0, self.rec0, None,
+                          k=k, width=self.pad)
+
+    def _capture(self) -> None:
+        dev = self.device
+        kn.library()
+        self.status = torch.zeros(2 * kn.status_words(self.rows, self.pad),
+                                  dtype=torch.int32, device=dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            with kn.status_scope(self.status):
+                self._body(self.rows)  # the warm-up, on the first batch
+            self.cursor.zero_()
+            if self.keep_l0:
+                self.cursor0.zero_()
+            before = {fn: fn.launches for fn in kn.KERNELS}
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin()
+            try:
+                with kn.status_scope(self.status):
+                    self._body(self.rows)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        # a capture launches nothing: each replay counts its launches
+        self.per_replay = {fn: fn.launches - n for fn, n in before.items()
+                           if fn.launches > n}
+        for fn, n in before.items():
+            fn.launches = n
+        pool = torch.cuda.memory_reserved(dev) - reserved
+        STATS["graph_pool_bytes"].append(pool)
+        log.debug("stage 1: captured L=%d B=%d cap=%d keep_l0=%s, graph pool "
+                  "%d bytes", self.pad, self.rows, self.cap, self.keep_l0,
+                  pool)
+        self.graph = graph
+
+    def run(self, meta: np.ndarray, part: np.ndarray) -> bool:
+        """Queue one batch (meta: its [3, len(part)] metas); True when the
+        group is full and must be fetched."""
+        with _timed("metas"):
+            slot = self.stage[len(self.parts)]
+            slot.zero_()
+            slot[:, :len(part)] = torch.from_numpy(meta)
+            self.metas.copy_(slot, non_blocking=True)
+        self.parts.append(part)
+        if self.device.type != "cuda":
+            with _timed("eager"):
+                self._body(len(part))
+        else:
+            if self.graph is None:
+                with _timed("capture"):
+                    self._capture()
+            with _timed("replays"):
+                self.graph.replay()
+            for fn, n in self.per_replay.items():
+                fn.launches += n
+            STATS["replays"] += 1
+        return len(self.parts) == self.group
+
+    def fetch(self, xs: dict, ys: dict, l0xs: dict, l0ys: dict,
+              retry) -> None:
+        """The group's counts (the one sync), then its records; per-read
+        slices, the overflowed batches retried; both cursors reset."""
+        if not self.parts:
+            return
+        parts, m = self.parts, len(self.parts)
+        with _timed("fetches"):
+            counts = self.counts[:m].cpu().numpy()
+            c0 = [counts[i, 0, :len(p)] for i, p in enumerate(parts)]
+            c = [counts[i, 1, :len(p)] for i, p in enumerate(parts)]
+            n = np.minimum(np.concatenate(c), self.out_w)
+            rec = _fetch(self.rec, int(n.sum()))
+            if self.keep_l0:
+                n0 = np.minimum(np.concatenate(c0), self.pad)
+                rec0 = _fetch(self.rec0, int(n0.sum()))
+        STATS["group_fetches"] += 1
+        over = set()
+        if self.cap:
+            over = {i for i in range(m) if (c0[i] > self.cap).any()
+                    or (c[i] > self.out_w).any()}
+        with _timed("slicing"):
+            _slices(rec, n, parts, xs, ys, over)
+            if self.keep_l0:
+                _slices(rec0, n0, parts, l0xs, l0ys)
+        for i in sorted(over):
+            with _timed("retries"):
+                retry(parts[i], self.pad)
+            STATS["retried_batches"] += 1
+        self.cursor.zero_()
+        if self.keep_l0:
+            self.cursor0.zero_()
+        self.parts = []
 
 
 def _index_of(xs: dict, ys: dict) -> ShimmerIndex:
@@ -238,7 +455,7 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
     [lo, hi) of db_window=(lo, hi), which must hold every read of
     rid_filter (the reads to index; all of them by default).  With keep_l0
     returns (index, level-0 index), as the JAX package does."""
-    device = torch.device(device)
+    device = kn.require_device(device)
     rids_all = (np.arange(len(db)) if rid_filter is None
                 else np.asarray(rid_filter))
     lengths = db.lengths[rids_all].astype(np.int64)
@@ -250,13 +467,22 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
 
     def _retry_exact(part, pad):
         """Slow path for (rare) cap overflows: recompute the batch with no
-        cap and take exact per-read slices."""
+        cap and drain it whole."""
         codes, lens = db.padded_code_batch(part, pad)
-        xl, yl, cl, _ = index_step(
+        rids = torch.from_numpy(part.astype(np.int64)).to(device)
+        a, b, c, c0 = index_planes(
             torch.from_numpy(codes).to(device),
-            torch.from_numpy(lens.astype(np.int32)).to(device),
-            torch.from_numpy(part.astype(np.int64)).to(device), cap=0, **step)
-        _drain(xl, yl, cl.cpu().numpy(), part, xs, ys)
+            torch.from_numpy(lens.astype(np.int32)).to(device), rids, cap=0,
+            **step)
+        rec = torch.empty((len(part) * a.shape[1], 2), dtype=torch.int64,
+                          device=device)
+        counts = torch.empty((1, 2, len(part)), dtype=torch.int32,
+                             device=device)
+        drain_records(a, b, rids, c, c0,
+                      torch.zeros(3, dtype=torch.int64, device=device), rec,
+                      counts, k=cfg.k, width=a.shape[1])
+        n = np.minimum(counts[0, 1].cpu().numpy(), a.shape[1])
+        _slices(_fetch(rec, int(n.sum())), n, [part], xs, ys)
 
     # long sequences (contigs/references) take the fixed-shape segmented
     # route: pad classes above sketch_pad_len are not index batch shapes
@@ -268,14 +494,15 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
     lengths = lengths[~long_sel]
 
     win_lo = 0
-    if db_window is not None:
-        # gather offsets become window-relative
-        win_lo = int(db_window[0])
-        if len(rids_all) and packed is None:
-            packed = upload_seqdb(np.asarray(db.data[win_lo:int(db_window[1])]),
-                                  device)
-    elif len(rids_all) and packed is None:
-        packed = upload_seqdb(db.data, device)
+    with _timed("upload_seqdb"):
+        if db_window is not None:
+            # gather offsets become window-relative
+            win_lo = int(db_window[0])
+            if len(rids_all) and packed is None:
+                packed = upload_seqdb(
+                    np.asarray(db.data[win_lo:int(db_window[1])]), device)
+        elif len(rids_all) and packed is None:
+            packed = upload_seqdb(db.data, device)
 
     # bucket unit finer than the max pad: 15 kb reads at a 32k unit would
     # sketch at 2x their length; multiples of 8k keep batches tight
@@ -286,25 +513,19 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
                          (cfg.sketch_batch * cfg.sketch_pad_len) // pad))
         # the level-0 records leave uncapped, as in the JAX package
         cap = 0 if keep_l0 else max(256, pad // 8)
+        rows = min(bsz, len(batch_rids))
+        batch = _Stage1Step(packed, device, pad, rows, cap, keep_l0, step,
+                            -(-len(batch_rids) // bsz))
         for i in range(0, len(batch_rids), bsz):
             part = batch_rids[i:i + bsz]
-            offs = torch.from_numpy(db.offsets[part].astype(np.int64)
-                                    - win_lo)
-            lens = torch.from_numpy(db.lengths[part].astype(np.int32))
-            codes = gather_codes(packed, offs, lens, None, pad, fill=4)
-            xl, yl, cl, c0, *l0 = index_step(
-                codes, lens.to(device),
-                torch.from_numpy(part.astype(np.int64)).to(device),
-                cap=cap, keep_l0=keep_l0, **step)
-            # one fetch of the batch's counts, which the overflow check
-            # and the drains read on the host
-            c0h, clh = torch.stack([c0, cl]).cpu().numpy()
-            if keep_l0:
-                _drain(*l0, c0h, part, l0xs, l0ys)
-            elif (c0h > cap).any() or (clh > xl.shape[1]).any():
-                _retry_exact(part, pad)
-                continue
-            _drain(xl, yl, clh, part, xs, ys)
+            meta = np.stack([db.offsets[part].astype(np.int64) - win_lo,
+                             db.lengths[part].astype(np.int64),
+                             part.astype(np.int64)])
+            if batch.run(meta, part):
+                batch.fetch(xs, ys, l0xs, l0ys, _retry_exact)
+        batch.fetch(xs, ys, l0xs, l0ys, _retry_exact)
+        del batch  # its streams and graph, before the next bucket's
 
-    idx = _index_of(xs, ys)
-    return (idx, _index_of(l0xs, l0ys)) if keep_l0 else idx
+    with _timed("index_of"):
+        idx = _index_of(xs, ys)
+        return (idx, _index_of(l0xs, l0ys)) if keep_l0 else idx

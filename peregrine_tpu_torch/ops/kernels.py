@@ -19,6 +19,14 @@ package leaves to XLA between its compactions:
   reduce_wide     <- peregrine_tpu/ops/reduce.py:reduce_impl, :26-61
                      (the shifted winners, the dedup and the compaction)
 
+and stage 1's batch step (ops/index.py) adds two more for the JAX
+package's XLA code around the kernels:
+
+  drain_records   <- peregrine_tpu/ops/index.py:_compact_drain (:66), with
+                     assemble_records (peregrine_tpu/ops/sketch.py:257)
+  gather_codes    <- peregrine_tpu/ops/dbgather.py:gather_codes (:233),
+                     re-exported by ops/dbgather.py with GUARD_BASES
+
 On a CUDA tensor a function launches its kernel from
 csrc/shimmer_kernels.cu (built with nvcc for sm_90a on first use, bound
 through a plain C interface with ctypes) and counts the launch in its
@@ -53,12 +61,17 @@ records), which the wide sketch reads.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
+from typing import TYPE_CHECKING
 
 import torch
 
 from .._build import load_cuda
+
+if TYPE_CHECKING:
+    from .dbgather import PackedSeqDB
 
 INF = -1  # uint64 0xFFFF_FFFF_FFFF_FFFF as int64
 SIGN = -(1 << 63)  # x ^ SIGN: unsigned order as signed order
@@ -80,6 +93,9 @@ SIGNATURES = {
     "pg_wide_stream": [_VP] * 5 + [_INT] + [_VP] * 4 + [_INT] * 3 + [_VP],
     "pg_wide_emit": [_VP] * 4 + [_INT] * 4 + [_VP],
     "pg_reduce_wide": [_VP] * 5 + [_INT] + [_VP] * 3 + [_INT] * 3 + [_VP],
+    "pg_gather_codes": [_VP, _I64, _VP, _I64] + [_VP] * 4 + [_INT] * 3
+    + [_VP],
+    "pg_drain_records": [_VP] * 8 + [_INT] * 5 + [_I64] + [_INT] * 2 + [_VP],
 }
 # The chunked kernels' layout (kChunk, kRChunk, kCChunk, kWRChunk and
 # kSlot in the .cu file; tests check they agree): columns per block of
@@ -93,7 +109,7 @@ REDUCE_WIDE_CHUNK = 2048
 STATUS_SLOT = 8
 _lib = None
 # (device, stream) -> [status of the next launch, status of the last, the
-# words the last launch used]
+# words the last launch used, whether the pair is status_scope's]
 _status_pairs: dict = {}
 
 
@@ -166,11 +182,45 @@ def _call_chunked(fn, B: int, L: int, device, inputs, outputs, *tail,
            if device.type == "cuda" else None)
     pair = _status_pairs.get(key)
     if pair is None or pair[0].numel() < words:
+        if pair is not None and pair[3]:
+            raise RuntimeError(f"status_scope holds {pair[0].numel()} words "
+                               f"a launch, this launch needs {words}")
         pair = [torch.zeros(words, dtype=torch.int32, device=device)
-                for _ in range(2)] + [0]
-    status, stale, stale_words = pair
+                for _ in range(2)] + [0, False]
+    status, stale, stale_words, scoped = pair
     _call(fn, *inputs, status, stale, stale_words, *outputs, *tail)
-    _status_pairs[key] = [stale, status, words]
+    _status_pairs[key] = [stale, status, words, scoped]
+
+
+def status_words(rows: int, L: int) -> int:
+    """Look-back status words that any chunked launch on `rows` rows of
+    at most L columns takes."""
+    chunk = min(CHUNK, REDUCE_CHUNK, COMPACT_CHUNK, REDUCE_WIDE_CHUNK)
+    return STATUS_SLOT * (1 + rows * -(-L // chunk))
+
+
+@contextlib.contextmanager
+def status_scope(status: torch.Tensor):
+    """For as long as the block runs, the chunked launches on the current
+    stream of status's card take the two halves of `status` in turn, each
+    of at least status_words() words, after one zero_() of the whole: a
+    memset, which a CUDA graph captures with the launches.  A captured
+    step thus starts every replay on zeroed status, whatever number of
+    chunked launches it holds (each launch zeroes only the status of the
+    one before it), and shares no status with launches outside it."""
+    device = status.device
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    half = status.numel() // 2
+    status.zero_()
+    saved = _status_pairs.get(key)
+    _status_pairs[key] = [status[:half], status[half:], 0, True]
+    try:
+        yield
+    finally:
+        if saved is None:
+            del _status_pairs[key]
+        else:
+            _status_pairs[key] = saved
 
 
 def u32(t: torch.Tensor) -> torch.Tensor:
@@ -736,8 +786,168 @@ def reduce_wide(x: torch.Tensor, y: torch.Tensor, count: torch.Tensor, *,
 
 reduce_wide.launches = 0
 
+# --- gather_codes: stage 1's code windows --------------------------------
+
+# guard (in bases) below the packed db start: a strand-1 window of true
+# length len padded to L gathers from  start + len - L >= -L, so any
+# L <= GUARD_BASES stays in bounds.  Multiple of 1024 (one amb row).
+GUARD_BASES = 1 << 16
+
+
+def gather_codes(pdb: PackedSeqDB, goff: torch.Tensor, lens: torch.Tensor,
+                 strand: torch.Tensor | None, L: int,
+                 fill: int) -> torch.Tensor:
+    """[B] windows -> [B, L] uint8 2-bit codes (ambiguous/padding = fill).
+
+    pdb: a PackedSeqDB (ops/dbgather.py); goff is the GATHER start from
+    gather_offsets (mirror-adjusted for strand 1); strand-1 windows come out flipped and complemented.
+    strand None: every window on strand 0, as the index builds read them.
+    The windows run on the planes' device: on a CUDA card one
+    pg_gather_codes launch (counted in gather_codes.launches), on the CPU
+    gather_codes_plain.  A byte index past a plane's end reads its last
+    byte, and the planes may be views into larger buffers.
+    """
+    assert L % 8 == 0 and L <= GUARD_BASES
+    if _route(pdb.fw, pdb.amb) == "cpu":
+        return gather_codes_plain(pdb, goff, lens, strand, L, fill)
+    dev = pdb.fw.device
+    if not (pdb.fw.is_contiguous() and pdb.amb.is_contiguous()
+            and pdb.fw.dtype == pdb.amb.dtype == torch.uint8):
+        raise ValueError("gather_codes: contiguous uint8 planes")
+    if not 0 <= fill < 256:
+        raise ValueError(f"gather_codes: fill {fill} outside 0..255")
+    B = goff.shape[0]
+    goff = goff.to(dev, torch.int64).contiguous()
+    lens = lens.to(dev, torch.int64).contiguous()
+    if goff.shape != (B,) or lens.shape != (B,):
+        raise ValueError(f"gather_codes: [B] goff and lens, got "
+                         f"{tuple(goff.shape)} and {tuple(lens.shape)}")
+    st = 0 if strand is None else strand.to(dev, torch.int32).contiguous()
+    out = torch.empty((B, L), dtype=torch.uint8, device=dev)
+    if B and L:
+        _call(library().pg_gather_codes, pdb.fw, pdb.fw.numel(), pdb.amb,
+              pdb.amb.numel(), goff, lens, st, out, B, L, fill)
+        gather_codes.launches += 1
+    return out
+
+
+gather_codes.launches = 0
+
+
+def gather_codes_plain(pdb: PackedSeqDB, goff: torch.Tensor,
+                       lens: torch.Tensor, strand: torch.Tensor | None,
+                       L: int, fill: int) -> torch.Tensor:
+    """Plain version of gather_codes: tensor indexing, each byte index
+    clamped to its plane."""
+    assert L % 8 == 0 and L <= GUARD_BASES
+    dev = pdb.fw.device
+    q = (goff.to(dev, torch.int64)[:, None] + GUARD_BASES
+         + torch.arange(L, device=dev)[None, :])
+    fw = pdb.fw.reshape(-1)
+    ab = pdb.amb.reshape(-1)
+    code = (fw[(q >> 2).clamp(0, fw.numel() - 1)] >> (2 * (q & 3))) & 3
+    amb = (ab[(q >> 3).clamp(0, ab.numel() - 1)] >> (q & 7)) & 1
+    if strand is not None:
+        rev = strand.to(dev)[:, None] == 1
+        code = torch.where(rev, torch.flip(code, dims=[1]) ^ 3, code)
+        amb = torch.where(rev, torch.flip(amb, dims=[1]), amb)
+    inlen = (torch.arange(L, device=dev)[None, :]
+             < lens.to(dev, torch.int64)[:, None])
+    out = torch.where((amb == 1) | ~inlen, fill, code)
+    return out.to(torch.uint8)
+
+
+# --- drain_records: stage 1's tight record stream -----------------------
+
+def assemble_records(oH: torch.Tensor, oP: torch.Tensor, count: torch.Tensor,
+                     rids: torch.Tensor, k: int):
+    """(H, P) planes -> reference-encoded (x, y) int64 records, INF past
+    the counts (peregrine_tpu/ops/sketch.py:assemble_records)."""
+    L = oH.shape[1]
+    valid = torch.arange(L, device=oH.device)[None, :] < count[:, None]
+    h = oH.to(torch.int64) & _U32
+    p = oP.to(torch.int64) & _U32
+    x = torch.where(valid, (h << 8) | k, INF)
+    y = torch.where(valid, (rids.to(torch.int64)[:, None] << 32)
+                    | ((p >> 2) << 1) | ((p >> 1) & 1), INF)
+    return x, y
+
+
+def drain_records_plain(a, b, rids, count, c0, cursor, out, counts_out, *,
+                        k: int, width: int) -> None:
+    """Plain version of drain_records: the valid prefixes by a mask, the
+    records assembled from (H, P) by assemble_records."""
+    B = a.shape[0]
+    n = count.to(torch.int64).clamp(0, width)
+    a, b = a[:, :width], b[:, :width]
+    if a.dtype == torch.int32:
+        a, b = assemble_records(a, b, n, rids, k)
+    valid = torch.arange(width, device=a.device)[None, :] < n[:, None]
+    rec = torch.stack([a[valid], b[valid]], dim=1)
+    base, slot = int(cursor[0]), int(cursor[1])
+    m = max(0, min(len(rec), out.shape[0] - base))
+    out[base:base + m] = rec[:m]
+    if counts_out is not None and slot < counts_out.shape[0]:
+        counts_out[slot, 0, :B] = c0
+        counts_out[slot, 1, :B] = count
+    cursor[0] += len(rec)
+    cursor[1] += 1
+
+
+def drain_records(a: torch.Tensor, b: torch.Tensor, rids, count: torch.Tensor,
+                  c0: torch.Tensor, cursor: torch.Tensor, out: torch.Tensor,
+                  counts_out, *, k: int, width: int) -> None:
+    """Append a batch's records to a tight stream, in one launch.
+
+    a, b: [B, ld] planes, (H, P) int32 (records assembled with rids [B]
+    int64 and span k) or (x, y) int64 records; count [B] int32: each row's
+    valid entries, of which the first min(count, width) columns go out,
+    in (row, column) order; c0 [B] int32: the sketch counts.  cursor [3]
+    int64 on the device: the stream's length, the next count slot, and
+    the kernel's own counter (0 between launches).  out [N, 2] int64: the
+    (x, y) stream, written from cursor[0] on (nothing at or past N);
+    counts_out [S, 2, B'] int32 (B' >= B) or None: slot cursor[1] gets
+    (c0, count).  The launch advances both cursors, so its arguments do
+    not change from batch to batch."""
+    B, ld = a.shape
+    if a.dtype not in (torch.int32, torch.int64) or not 0 <= width <= ld:
+        raise ValueError(f"drain_records: int32 or int64 planes of at least "
+                         f"width {width} columns, got {a.dtype} [{B}, {ld}]")
+    _check(a, a.dtype, (B, ld), "a")
+    _check(b, a.dtype, (B, ld), "b")
+    packed = a.dtype == torch.int32
+    if packed:
+        _check(rids, torch.int64, (B,), "rids")
+    _check(count, torch.int32, (B,), "count")
+    _check(c0, torch.int32, (B,), "c0")
+    _check(cursor, torch.int64, (3,), "cursor")
+    _check(out, torch.int64, (out.shape[0], 2), "out")
+    extra = [rids] if packed else []
+    if counts_out is not None:
+        S, _, Bc = counts_out.shape
+        if Bc < B:
+            raise ValueError(f"counts_out: {Bc} counts a slot, {B} rows")
+        _check(counts_out, torch.int32, (S, 2, Bc), "counts_out")
+        extra.append(counts_out)
+    if _route(a, b, count, c0, cursor, out, *extra) == "cpu":
+        return drain_records_plain(a, b, rids, count, c0, cursor, out,
+                                   counts_out, k=k, width=width)
+    if not B:  # the plain version's empty batch: one more slot
+        cursor[1] += 1
+    else:
+        slots = 0 if counts_out is None else counts_out.shape[0]
+        _call(library().pg_drain_records, a, b, rids if packed else 0, count,
+              c0, cursor, out, 0 if counts_out is None else counts_out, B,
+              width, ld, a.element_size(), k, out.shape[0], slots,
+              0 if counts_out is None else counts_out.shape[2])
+        drain_records.launches += 1
+    return None
+
+
+drain_records.launches = 0
+
 KERNELS = (build_stream, move_plane, emit_mask, reduce_step, compact_planes,
-           wide_stream, wide_emit, reduce_wide)
+           wide_stream, wide_emit, reduce_wide, gather_codes, drain_records)
 
 
 def reset_launches() -> None:

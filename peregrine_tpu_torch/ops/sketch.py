@@ -26,9 +26,11 @@ import numpy as np
 import torch
 
 # the window extrema of wide_emit's plain version, which tests read here
+# assemble_records is drain_records' plain version's (ops.kernels)
 from .kernels import (INF, MAX_K, _sliding_max_leading,  # noqa: F401
-                      _sliding_min_trailing, build_stream, compact_planes,
-                      emit_mask, move_plane, wide_emit, wide_stream)
+                      _sliding_min_trailing, assemble_records, build_stream,
+                      compact_planes, emit_mask, move_plane, wide_emit,
+                      wide_stream)
 
 
 def sketch_planes(codes: torch.Tensor, lengths: torch.Tensor, *, w: int,
@@ -40,20 +42,6 @@ def sketch_planes(codes: torch.Tensor, lengths: torch.Tensor, *, w: int,
     sH, sP = move_plane(dest, H, P)
     dest2, count = emit_mask(sH, sP, n, w=w, k=k)
     return move_plane(dest2, sH, sP) + (count,)
-
-
-def assemble_records(oH: torch.Tensor, oP: torch.Tensor, count: torch.Tensor,
-                     rids: torch.Tensor, k: int):
-    """(H, P) planes -> reference-encoded (x, y) int64 records, INF past
-    the counts (peregrine_tpu/ops/sketch.py:assemble_records)."""
-    L = oH.shape[1]
-    valid = torch.arange(L, device=oH.device)[None, :] < count[:, None]
-    h = oH.to(torch.int64) & 0xFFFFFFFF
-    p = oP.to(torch.int64) & 0xFFFFFFFF
-    x = torch.where(valid, (h << 8) | k, INF)
-    y = torch.where(valid, (rids.to(torch.int64)[:, None] << 32)
-                    | ((p >> 2) << 1) | ((p >> 1) & 1), INF)
-    return x, y
 
 
 def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor,

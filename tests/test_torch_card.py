@@ -1095,3 +1095,214 @@ def test_spill_sharing_on_the_card_matches_the_cpu(tmp_path, monkeypatch):
               "3-asm/p_ctg.fa", "4-cns/read_map.txt", "4-cns/p_ctg_cns.fa"):
         assert filecmp.cmp(str(tmp_path / "cuda" / f),
                            str(tmp_path / "cpu" / f), shallow=False), f
+
+
+# --- stage 1's batch step: gather_codes, drain_records, captured steps ----
+
+def _byte_view(a, offset: int, n: int):
+    """numpy bytes a on the card as a view of n bytes starting `offset`
+    bytes into a larger buffer (whose bytes after the view are a's)."""
+    buf = torch.from_numpy(np.concatenate([
+        np.full(offset, 0xA5, np.uint8), a])).cuda()
+    return buf[offset:offset + n]
+
+
+def _gather(pdb, goff, lens, strand, L, fill, offset=0):
+    """One pg_gather_codes launch into an output at `offset` bytes past a
+    16-byte boundary inside margins of 0xA5, checked against
+    gather_codes_plain on the same tensors, margins untouched."""
+    from peregrine_tpu_torch.ops.dbgather import gather_codes_plain
+
+    n = len(goff) * L
+    buf = torch.full((n + 2 * GUARD,), 0xA5, dtype=torch.uint8, device="cuda")
+    out = buf[GUARD + offset:GUARD + offset + n].view(len(goff), L)
+    kn._call(kn.library().pg_gather_codes, pdb.fw, pdb.fw.numel(), pdb.amb,
+             pdb.amb.numel(), goff.long(), lens.long(),
+             0 if strand is None else strand.int(), out, len(goff), L, fill)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather_codes_plain(pdb, goff, lens, strand, L,
+                                               fill))
+    assert (buf[:GUARD + offset] == 0xA5).all()
+    assert (buf[GUARD + offset + n:] == 0xA5).all()
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_gather_codes_matches_plain(offset):
+    """pg_gather_codes equals gather_codes_plain exactly on the CPU tests'
+    windows (every residue of the start mod 16, lengths 0, 1, L - 1 and
+    L, strand 0, 1 and None, fill 4 and 7, L % 16 of 8 and 0), on padded
+    planes and on planes cut to the data at a byte offset into larger
+    buffers with junk after them (windows ending on the last base), its
+    output at an offset too; and the wrapper launches it once."""
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops import dbgather
+
+    seqs = kernel_cases.gather_seqs()
+    db = SeqDB.from_reads([(str(i), s) for i, s in enumerate(seqs)])
+    fw, amb, nf, na = kernel_cases.plane_end_planes(seqs, junk=64,
+                                                    seed=offset)
+    cut = dbgather.PackedSeqDB(fw=_byte_view(fw, offset, nf),
+                               amb=_byte_view(amb, offset, na))
+    for pdb in (dbgather.upload_seqdb(db.data, "cuda"), cut):
+        for L in (264, 256):
+            for strand in (0, 1):
+                goff, lens, st = (torch.from_numpy(a).cuda() for a in
+                                  kernel_cases.gather_windows(
+                                      db.offsets, db.lengths, strand, L))
+                for fill in (4, 7):
+                    for s in (st, None) if strand == 0 else (st,):
+                        _gather(pdb, goff, lens, s, L, fill, offset)
+    before = dbgather.gather_codes.launches
+    got = dbgather.gather_codes(pdb, goff.cpu(), lens.int(), st, L, 7)
+    assert dbgather.gather_codes.launches == before + 1
+    assert torch.equal(got, dbgather.gather_codes_plain(pdb, goff, lens, st,
+                                                        L, 7))
+
+
+def test_gather_codes_at_the_guard_length():
+    """B=64 windows of L = GUARD_BASES (65,536) over reads of 1 to 90,000
+    bases: strand-1 windows of short reads start up to L bases before the
+    data, in the guard; strand-0 windows run past the data's end."""
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops import dbgather
+    from peregrine_tpu_torch.simdata import random_genome
+
+    rng = np.random.default_rng(11)
+    lengths = [1, 15, 17, 1000, 65535, 65536, 65537, 90000]
+    db = SeqDB.from_reads([(str(i), random_genome(rng, n))
+                           for i, n in enumerate(lengths)])
+    pdb = dbgather.upload_seqdb(db.data, "cuda")
+    L = dbgather.GUARD_BASES
+    rid = np.arange(B) % len(lengths)
+    off = db.offsets[rid].astype(np.int64)
+    lens = np.minimum(db.lengths[rid], L).astype(np.int32)
+    st = (np.arange(B) // len(lengths) % 2).astype(np.int32)
+    goff = dbgather.gather_offsets(off, lens, st, off, L)
+    assert goff.min() == -L + 1
+    for fill in (4, 7):
+        _gather(pdb, *(torch.from_numpy(a).cuda() for a in (goff, lens, st)),
+                L, fill)
+
+
+@pytest.mark.parametrize("k", [16, 28])
+def test_drain_records_matches_plain(k):
+    """pg_drain_records equals drain_records_plain exactly: three batches
+    of 64 rows through one device cursor (counts 0, exactly the width,
+    past it, and random; rows wider than the width drained; at k=28
+    records with hashes >= 2^55), the stream and its untouched tail, the
+    count slots and the cursors; then a stream that ends before the
+    records, which keeps the ones that fit and counts them all."""
+    Cw = 300  # more columns than a block's threads
+    batches = kernel_cases.drain_batches(k, 3, B, Cw)
+    total = sum(int(np.minimum(bt[2], Cw).sum()) for bt in batches)
+    dt = np.int32 if k <= 16 else np.int64
+    for size, slots in ((total + 40, 4), (total - 37, None)):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            out = torch.full((size, 2), 7, dtype=torch.int64, device=dev)
+            counts = (None if slots is None else torch.full(
+                (slots, 2, B + 3), -5, dtype=torch.int32, device=dev))
+            cursor = torch.zeros(3, dtype=torch.int64, device=dev)
+            for a, b, c, c0, rids in batches:
+                kn.drain_records(
+                    *(torch.from_numpy(p.view(dt)).to(dev) for p in (a, b)),
+                    torch.from_numpy(rids).to(dev),
+                    torch.from_numpy(c).to(dev), torch.from_numpy(c0).to(dev),
+                    cursor, out, counts, k=k, width=Cw)
+            outs[dev] = (out, counts, cursor)
+        torch.cuda.synchronize()
+        for got, want in zip(outs["cuda"], outs["cpu"]):
+            if want is not None:
+                assert torch.equal(got.cpu(), want)
+        assert outs["cuda"][2].tolist() == [total, 3, 0]
+
+
+def _stage1_steps(dev, packed, batches):
+    """The two shapes the captured-step test alternates: k=16 at pad 2048
+    (capped) and k=28 at pad 4096 with the level-0 stream, four rows."""
+    from peregrine_tpu_torch.ops import index
+
+    return [index._Stage1Step(packed, torch.device(dev), 2048, 4, 256, False,
+                              dict(w=24, k=16, r=4, levels=2), batches),
+            index._Stage1Step(packed, torch.device(dev), 4096, 4, 0, True,
+                              dict(w=24, k=28, r=4, levels=2), batches)]
+
+
+def test_captured_steps_match_the_eager_steps():
+    """Two stage-1 shapes captured as CUDA graphs and replayed 20 times in
+    turn, on batches of torch_kernel_cases.stage1_reads, write the same
+    record streams, level-0 stream and count slots as the same steps run
+    eagerly on the CPU; each replay adds the launches its graph holds
+    (none counted at capture); the look-back status that eager launches
+    take next stays zeroed."""
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops.dbgather import upload_seqdb
+
+    db = SeqDB.from_reads(kernel_cases.stage1_reads())
+    groups = [np.arange(0, 16), np.arange(16, 22)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        steps = _stage1_steps(dev, upload_seqdb(db.data, dev), 10)
+        kn.reset_launches()
+        for i in range(20):
+            rids = groups[i % 2]
+            part = rids[(i // 2 * 4) % len(rids):][:4]
+            meta = np.stack([db.offsets[part].astype(np.int64),
+                             db.lengths[part].astype(np.int64),
+                             part.astype(np.int64)])
+            assert steps[i % 2].run(meta, part) == (i >= 18)
+        runs[dev] = steps
+        launches = {fn.__name__: fn.launches for fn in kn.KERNELS}
+    torch.cuda.synchronize()
+    for cpu, card in zip(runs["cpu"], runs["cuda"]):
+        n = int(cpu.cursor[0])
+        assert card.cursor.tolist() == cpu.cursor.tolist() == [n, 10, 0]
+        assert torch.equal(card.rec[:n].cpu(), cpu.rec[:n])
+        # the CPU step runs each batch's rows alone: a short batch's
+        # padded rows on the card counted 0 records
+        m = [len(p) for p in cpu.parts]
+        for i, rows in enumerate(m):
+            assert torch.equal(card.counts[i, :, :rows].cpu(),
+                               cpu.counts[i, :, :rows])
+            assert not card.counts[i, :, rows:].any()
+    n0 = int(runs["cpu"][1].cursor0[0])
+    assert torch.equal(runs["cuda"][1].rec0[:n0].cpu(), runs["cpu"][1].rec0[:n0])
+    names = {fn.__name__: n for fn, n in runs["cuda"][0].per_replay.items()}
+    assert names == {"gather_codes": 1, "build_stream": 1, "move_plane": 2,
+                     "emit_mask": 1, "reduce_step": 2, "drain_records": 1}
+    names = {fn.__name__: n for fn, n in runs["cuda"][1].per_replay.items()}
+    assert names == {"gather_codes": 1, "wide_stream": 1,
+                     "compact_planes": 2, "wide_emit": 1, "reduce_wide": 2,
+                     "drain_records": 2}
+    # ten replays of each graph and one eager warm-up of each shape
+    assert launches["build_stream"] == launches["wide_stream"] == 11
+    assert launches["gather_codes"] == 22 and launches["drain_records"] == 33
+    assert not any(bool(pair[0].any()) for pair in kn._status_pairs.values())
+
+
+def test_build_index_on_the_card_matches_the_cpu_across_groups(monkeypatch):
+    """build_index on cuda equals the CPU's in fetch groups of three
+    batches (four batches in the 2048 bucket, two in the 4096 one): at
+    k=16, at k=28 with w=8 (the second batch of the first group and both
+    of the second bucket overflow their caps and are retried) and at k=28
+    with the level-0 index; one replay a batch, one fetch a group."""
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops import index
+
+    monkeypatch.setattr(index, "FETCH_GROUP", 3)
+    db = SeqDB.from_reads(kernel_cases.stage1_reads())
+    for k, w, keep_l0 in ((16, 24, False), (28, 8, False), (28, 24, True)):
+        cfg = AsmConfig(k=k, w=w, r=4, levels=2, sketch_pad_len=8192,
+                        sketch_batch=4)
+        index.reset_stats()
+        on_card = index.build_index(db, cfg, "cuda", keep_l0=keep_l0)
+        stats = dict(index.STATS)
+        on_host = index.build_index(db, cfg, "cpu", keep_l0=keep_l0)
+        pairs = zip(on_card, on_host) if keep_l0 else [(on_card, on_host)]
+        for a, b in pairs:
+            for f in ("x", "y", "mc_hash", "mc_count"):
+                assert np.array_equal(getattr(a, f), getattr(b, f)), f
+        assert stats["replays"] == 6 and stats["group_fetches"] == 3
+        assert stats["retried_batches"] == (3 if w == 8 else 0)
+        assert len(stats["graph_pool_bytes"]) == 2

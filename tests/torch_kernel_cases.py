@@ -481,3 +481,82 @@ def myers_past_end_lanes(seqs: list[bytes]) -> np.ndarray:
     return np.array([[n - 200, n - 200, 200 + over, qs, n - 250, 250 + over, ts]
                      for qs, ts in ((0, 0), (1, 1), (0, 1), (1, 0))
                      for over in (1, 17, 300)], np.int64)
+
+
+# --- stage 1's batch step: gather_codes, drain_records, build_index --------
+
+def gather_seqs() -> list[bytes]:
+    """Twelve reads of 300-700 bases, one with N runs."""
+    rng = np.random.default_rng(5)
+    seqs = [random_genome(rng, int(n)) for n in rng.integers(300, 700, 12)]
+    seqs[4] = seqs[4][:50] + b"NNNN" + seqs[4][54:200] + b"N" + seqs[4][201:]
+    return seqs
+
+
+def gather_windows(offsets: np.ndarray, lengths: np.ndarray, strand: int,
+                   L: int):
+    """gather_codes windows inside the reads at (offsets, lengths): for
+    each residue of the gather start mod 16, lengths 0, 1, L - 1, L and
+    min(L, the read's rest); then the last read's tails of 1, 17 and 200
+    bases, which end on the data's last base (strand 0 reads on past it).
+    Reads must be longer than L + 31.  Returns (goff int64, lens int32,
+    strands int32)."""
+    rng = np.random.default_rng(strand)
+    off, lens = [], []
+    for res in range(16):
+        for want in (0, 1, L - 1, L, L + 1):
+            rid = int(rng.integers(0, len(offsets)))
+            ro, rl = int(offsets[rid]), int(lengths[rid])
+            ln = min(want, L)
+            # goff = o (strand 0) or o + ln - L (strand 1) at residue res
+            base = ro + 16 if strand == 0 else ro + 16 + ln - L
+            off.append(ro + 16 + (res - base) % 16)
+            lens.append(ln)
+    end = int(offsets[-1] + lengths[-1])
+    for ln in (1, 17, 200):
+        off.append(end - ln)
+        lens.append(ln)
+    off, lens = np.array(off, np.int64), np.array(lens, np.int32)
+    goff = np.where(strand == 0, off, off + lens - L)
+    return goff, lens, np.full(len(off), strand, np.int32)
+
+
+def drain_batches(k: int, G: int, B: int, C: int):
+    """G batches of drain_records input: [B, C + 3] planes (the step's
+    planes are wider than what it drains), uint32 (H, P) at k <= 16 and
+    uint64 (x, y) records with hashes >= 2^55 (x >= 2^63) above; counts
+    0, exactly C, past C and random; sketch counts c0 >= counts; rids."""
+    rng = np.random.default_rng(k)
+    out = []
+    for g in range(G):
+        c = rng.integers(0, C, B).astype(np.int32)
+        c[0], c[1], c[2] = 0, C, C + 7 + g
+        c0 = c + rng.integers(0, 50, B).astype(np.int32)
+        rids = rng.integers(0, 1 << 20, B).astype(np.int64)
+        if k <= 16:
+            a = rng.integers(0, 1 << 32, (B, C + 3),
+                             dtype=np.uint64).astype(np.uint32)
+            b = rng.integers(0, 1 << 31, (B, C + 3)).astype(np.uint32)
+        else:
+            a = ((rng.integers(1 << 55, 1 << 56, (B, C + 3), dtype=np.uint64)
+                  << np.uint64(8)) | np.uint64(k))
+            b = rng.integers(0, 1 << 63, (B, C + 3), dtype=np.uint64)
+        out.append((a, b, c, c0, rids))
+    return out
+
+
+def stage1_reads() -> list[tuple[str, bytes]]:
+    """22 reads in two pad buckets of a sketch_pad_len of 8192 (units of
+    2048): reads of ~800 bases, four of ~2000 as rids 4-7 (the second
+    batch of four; at k=28, w=8 a sketch of ~440 past the cap of 256),
+    and six of ~3000 (the 4096 bucket; rid 18 holds an N run)."""
+    rng = np.random.default_rng(13)
+    genome = random_genome(rng, 60000)
+    reads = []
+    for i, n in enumerate([800] * 4 + [2000] * 4 + [800] * 8 + [3000] * 6):
+        n = n + int(rng.integers(-40, 40))
+        s = int(rng.integers(0, len(genome) - n))
+        reads.append((f"r{i}", genome[s:s + n]))
+    s = reads[18][1]
+    reads[18] = ("r18", s[:700] + b"N" * 30 + s[730:])
+    return reads
