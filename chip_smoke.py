@@ -75,7 +75,10 @@ Phases, in order; any failure raises and exits non-zero:
      row each, as stage 4's contig index runs them): cuda equals cpu; on
      the phase-5 reads, build_index_segmented on the card in at least 9
      segments equals one build, and build_pairs_device on the card equals
-     the host build_pairs and bucket_stream;
+     the host build_pairs and bucket_stream; SeqDBUploader on the card,
+     fed the phase-5 seqdb in build_to_disk's chunks of 1 << 22 bases and
+     in chunks of 4,096 with a ragged tail, gives upload_seqdb's planes
+     (torch.equal), the amb plane elided (none of it copied) and zero;
   5. the draft path: `pg-tpu-torch asm` (cli.main, k=16) on a simulated
      E. coli-class set (4.6 Mb circular genome, 30x of 15 kb reads, 1%
      error, 40 kb wrap, seed 42), with stage walls, kernel launch counts
@@ -86,7 +89,11 @@ Phases, in order; any failure raises and exits non-zero:
      memory, and a
      check of the draft: the longest contig covers >= 0.9 of the genome
      and >= 0.7 of its 21-mers occur in the genome or its reverse
-     complement;
+     complement; stage 0 starts the seqdb uploader and stage 1 takes its
+     planes (the stage log says so, with finish()'s wait, printed beside
+     the seqdb and index walls), and 1-index/*.dat equal, byte for byte,
+     an index built on the same seqdb by build_index from upload_seqdb's
+     planes;
   6. the wide consensus path: `pg-tpu-torch asm --shimmer-k 28
      --with-L0-index --with-consensus` on the same set, with the stage
      walls of stages 0-4, launch counts (compact_planes, wide_stream,
@@ -158,8 +165,14 @@ JSON line and, last, the device JSON line.
 There is no CPU path: without a CUDA device it exits non-zero at once.
 
 --index-profile measures stage 1 alone (at --profile-k, default 16) on
-the E. coli-class set instead of phases 3-6: upload_seqdb's host pack and
-upload apart, build_index walls on the card with the kernels and with
+the E. coli-class set instead of phases 3-6: upload_seqdb's split (its
+first call, which meets the card first, and a second under
+torch.profiler: the pack, the staging copies, the waits, the worker's
+device set-up, where CUDA context creation lands, the planes'
+allocation, and the device time of the host-to-device copies and the
+memsets) beside the uploader's fed in build_to_disk's chunks (its time
+from the first feed to the end of finish(), and finish()'s wait),
+build_index walls on the card with the kernels and with
 their plain versions (plain_kernels(): the batch step then runs eagerly;
 one warm-up each, then six of each in ABBA order; median, min and max;
 every build's records equal), the host's split of one build
@@ -1062,6 +1075,49 @@ def phase_stage2_inputs(reads) -> None:
         f"{t2 - t1:.2f} s)")
 
 
+def upload_split(st: dict) -> str:
+    """An uploader's stats (ops/dbgather.py) as one line."""
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in st.items())
+
+
+def phase_uploader(reads) -> None:
+    """Phase 4, the stage-0 seqdb uploader on the card: fed the phase-5
+    seqdb in build_to_disk's chunks of 1 << 22 bases, and in chunks of
+    4,096 with a ragged tail, it gives upload_seqdb's planes; the reads
+    hold no ambiguous base, so the amb plane is elided and zero."""
+    import torch
+
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops import dbgather as dg
+
+    db = SeqDB.from_reads(reads)
+    data = np.asarray(db.data)
+    check(len(data) % 4096 != 0, "the seqdb has no ragged tail")
+    want = dg.upload_seqdb(data, "cuda")
+    torch.cuda.synchronize()
+    say(f"uploader check: upload_seqdb of {len(data)} bases: "
+        + upload_split(dg.LAST_STATS))
+    for chunk in (1 << 22, 4096):
+        t = time.perf_counter()
+        up = dg.SeqDBUploader("cuda", est_bases=len(data))
+        for i in range(0, len(data), chunk):
+            up.feed(data[i:i + chunk])
+        got = up.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        amb_bytes = -(-(dg.GUARD_BASES + len(data)) // 8)
+        check(torch.equal(got.fw, want.fw) and torch.equal(got.amb, want.amb),
+              f"uploader in chunks of {chunk} != upload_seqdb")
+        check(up.stats["elided_bytes"] == amb_bytes and not got.amb.any(),
+              f"uploader in chunks of {chunk}: the amb plane was not elided "
+              f"({up.stats['elided_bytes']} of {amb_bytes} bytes)")
+        say(f"uploader check: fed in {up.stats['chunks']} chunks of {chunk} "
+            f"bases, planes fw {tuple(got.fw.shape)} amb "
+            f"{tuple(got.amb.shape)} == upload_seqdb's, amb elided and zero "
+            f"({wall:.3f} s): " + upload_split(up.stats))
+
+
 def smi(fields: str) -> str:
     return subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
                            "--format=csv,noheader"], capture_output=True,
@@ -1159,26 +1215,51 @@ def phase_index_profile(reads, k: int) -> None:
 
     from peregrine_tpu_torch.config import AsmConfig
     from peregrine_tpu_torch.io.seqdb import SeqDB
-    from peregrine_tpu_torch.ops import index, kernels as kn
-    from peregrine_tpu_torch.ops.dbgather import (_pad_rows, pack_db_np,
-                                                  packed_from_numpy)
+    from peregrine_tpu_torch.ops import dbgather as dg, index, kernels as kn
     from peregrine_tpu_torch.ops.index import build_index
 
     torch.set_num_threads(os.cpu_count() or 1)
     db = SeqDB.from_reads(reads)
     cfg = AsmConfig(k=k)
     say(f"index profile: k={k}")
-    # upload_seqdb's two parts, apart: the host pack and the upload
-    t0 = time.perf_counter()
-    fw, amb = pack_db_np(db.data)
-    t1 = time.perf_counter()
-    packed = packed_from_numpy(_pad_rows(fw, 1 << 19), _pad_rows(amb, 1 << 17),
-                               "cuda")
+    # upload_seqdb's split: its first call meets the card first (CUDA
+    # context creation lands in the worker's init_s), the second runs
+    # under the profiler for the device time of its copies and memsets
+    upload = {}
+    for run_ in ("first", "profiled"):
+        with (profile(activities=[ProfilerActivity.CUDA]) if run_ ==
+              "profiled" else contextlib.nullcontext()) as prof:
+            t = time.perf_counter()
+            packed = dg.upload_seqdb(db.data, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        upload[run_] = {"wall_s": wall, **dg.LAST_STATS}
+        if prof is not None:  # copies, memsets and fill kernels (zeros)
+            dev = device_trace(prof)
+            for kind in ("gpu_memcpy", "gpu_memset", "FillFunctor"):
+                ev = [e for e in dev
+                      if e["cat"] == kind or kind in e["name"]]
+                upload[run_][f"{kind}_ms"] = sum(e["dur"] for e in ev) / 1000
+                upload[run_][f"{kind}_n"] = len(ev)
+        say(f"index profile: upload_seqdb [{run_}] {wall:.4f} s: "
+            + upload_split(upload[run_]))
+    # the uploader as stage 0 feeds it, in build_to_disk's chunks
+    t = time.perf_counter()
+    up = dg.SeqDBUploader("cuda", est_bases=len(db.data))
+    for i in range(0, len(db.data), 1 << 22):
+        up.feed(db.data[i:i + (1 << 22)])
+    fed = up.finish()
     torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    pack_s, upload_s = t1 - t0, t2 - t1
-    say(f"index profile: seqdb pack {pack_s:.4f} s, upload {upload_s:.4f} s "
-        f"({packed.fw.numel() + packed.amb.numel()} bytes)")
+    upload["uploader"] = {"wall_s": time.perf_counter() - t, **up.stats}
+    check(torch.equal(fed.fw, packed.fw) and torch.equal(fed.amb, packed.amb),
+          "the uploader's planes != upload_seqdb's")
+    del fed
+    say(f"index profile: SeqDBUploader fed in chunks of 1 << 22 bases: first "
+        f"feed to the end of finish() {up.stats['feed_to_finish_s']:.4f} s, "
+        f"finish() waited {up.stats['finish_wait_s']:.4f} s: "
+        + upload_split(up.stats))
+    pack_s = upload["profiled"]["pack_s"]
+    upload_s = upload["profiled"]["wall_s"]
 
     def run():
         torch.cuda.synchronize()
@@ -1282,7 +1363,7 @@ def phase_index_profile(reads, k: int) -> None:
         "other_kernels_ms": other, "copies_ms": copies,
         "device_intervals": sum(count.values()), "fill_launches": fills,
         "launches": launches, "by_grid": by_grid, "pack_s": pack_s,
-        "upload_s": upload_s, "split_wall_s": split_wall,
+        "upload_s": upload_s, "upload": upload, "split_wall_s": split_wall,
         "host_split_s": host, "replays": split["replays"],
         "group_fetches": split["group_fetches"],
         "graph_pool_bytes": split["graph_pool_bytes"]}}))
@@ -1433,6 +1514,43 @@ def run_asm(lst: str, out: str, flags: list, label: str, stages: tuple):
     return walls, launches, total
 
 
+def check_stage0_planes(out: str, walls: dict, messages: list,
+                        label: str) -> None:
+    """Stage 0 of the run into `out` started the seqdb uploader and stage
+    1 built on its planes (the stage log says both), and its 1-index
+    files equal, byte for byte, an index built on the same seqdb by
+    build_index from upload_seqdb's planes; prints the seqdb and index
+    walls and finish()'s wait."""
+    import filecmp
+
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops.dbgather import upload_seqdb
+    from peregrine_tpu_torch.ops.index import build_index
+
+    started = [m for m in messages if "seqdb upload to cuda" in m]
+    took = [m for m in messages if "took the stage-0 seqdb planes" in m]
+    check(len(started) == 1 and len(took) == 1,
+          f"{label}: stage 0 did not start the uploader, or stage 1 did not "
+          f"take its planes ({started}, {took})")
+    note = took[0].split("seqdb planes: ")[1].split(";")[0]
+    with open(os.path.join(out, "config.json")) as f:
+        cfg = AsmConfig.from_json(f.read())
+    db = SeqDB.open(os.path.join(out, "0-seqdb", "seq_dataset"))
+    ref = os.path.join(out, "ref-index")
+    build_index(db, cfg, "cuda", packed=upload_seqdb(db.data, "cuda")).save(
+        ref, level=cfg.levels)
+    for kind in ("", "MC-"):
+        name = f"L{cfg.levels}-{kind}01-of-01.dat"
+        check(filecmp.cmp(os.path.join(out, "1-index", f"shmr-{name}"),
+                          f"{ref}-{name}", shallow=False),
+              f"{label}: 1-index/shmr-{name} != the index built from "
+              "upload_seqdb's planes")
+    say(f"{label}: stage 1 took the stage-0 seqdb planes; seqdb "
+        f"{walls['seqdb']:.3f} s, index {walls['index']:.3f} s; {note}; "
+        "1-index/*.dat == build_index from upload_seqdb's planes")
+
+
 def phase_draft(lst: str, genome, wd: str, results: dict):
     """Phase 5, the k=16 draft; returns its longest contig's agreement
     and the read pairs of its preads.ovl."""
@@ -1440,8 +1558,10 @@ def phase_draft(lst: str, genome, wd: str, results: dict):
     from peregrine_tpu_torch.io.seqdb import read_fastx
 
     out = os.path.join(wd, "asm")
-    _, launches, _ = run_asm(lst, out, [], "draft path",
-                             ("seqdb", "index", "overlap", "layout"))
+    with stage_log() as (walls, messages):
+        _, launches, _ = run_asm(lst, out, [], "draft path",
+                                 ("seqdb", "index", "overlap", "layout"))
+    check_stage0_planes(out, walls, messages, "draft path")
     for name in ("build_stream", "move_plane", "emit_mask", "reduce_step",
                  "gather_codes", "drain_records"):
         check(launches[name] > 0,
@@ -2549,6 +2669,7 @@ def main(argv=None) -> int:
     if not args.cli_only:
         phase_index(reads, genome)
         phase_stage2_inputs(reads)
+        phase_uploader(reads)
 
     # phases 5 and 6: the draft path and the wide consensus path
     from peregrine_tpu_torch.simdata import write_reads

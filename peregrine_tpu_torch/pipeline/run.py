@@ -79,12 +79,14 @@ def _stage_done(path: str) -> bool:
     return os.path.exists(path)
 
 
-def _device_db_budget(device: torch.device, cfg: AsmConfig) -> int:
+def _device_db_budget(device: torch.device, cfg: AsmConfig,
+                      held: int = 0) -> int:
     """Max seqdb bytes whose packed planes (~0.375x the seqdb bytes) may
     be resident on the device at once; PG_HBM_DB_BUDGET (seqdb bytes)
     overrides.  On a card: the seqdb size whose planes take a quarter of
-    the free device memory, leaving the rest to the index batches.  The
-    CPU device has no such limit.  With cfg.device_pairs the device also
+    the free device memory, leaving the rest to the index batches, where
+    the `held` bytes (planes already resident) count as free.  The CPU
+    device has no such limit.  With cfg.device_pairs the device also
     holds the pair map's sort workspace, so the budget is 60% of that, as
     in the JAX package."""
     env = os.environ.get("PG_HBM_DB_BUDGET")
@@ -94,8 +96,34 @@ def _device_db_budget(device: torch.device, cfg: AsmConfig) -> int:
         return 1 << 62
     else:
         free, _ = torch.cuda.mem_get_info(device)
-        b = int(free / 4 / 0.375)
+        b = int((free + held) / 4 / 0.375)
     return int(b * 0.6) if cfg.device_pairs else b
+
+
+def _manifest_bytes(reads_list: str) -> int:
+    """The summed sizes of a manifest's read files: at least their bases
+    for plain FASTA/FASTQ (0 for a file that cannot be read)."""
+    total = 0
+    with open(reads_list) as f:
+        for line in f:
+            path = line.strip()
+            if path:
+                try:
+                    total += os.path.getsize(path)
+                except OSError:
+                    pass
+    return total
+
+
+def _stage0_upload(device: torch.device, cfg: AsmConfig, mesh: Mesh,
+                   est_bytes: int) -> bool:
+    """Whether stage 0 packs and uploads the seqdb while it encodes
+    (SeqDBUploader), as the JAX package does on an accelerator: on a card,
+    unless stage 1 runs over a mesh of several shards, and where the
+    manifest's bytes fit the device budget (a larger seqdb is indexed in
+    segments, each uploading only its bytes)."""
+    return (device.type == "cuda" and not (cfg.mesh and mesh.n > 1)
+            and est_bytes <= _device_db_budget(device, cfg))
 
 
 def _device_mem_line(device: torch.device) -> str:
@@ -237,6 +265,10 @@ class Assembly:
         self.idx: ShimmerIndex | None = None
         self._save_thread = None  # async stage-0 checkpoint write
         self._pairs = None        # read pair map shared by stages 2 and 4
+        # stage 0's seqdb upload to the card, which stage 1 takes; off for
+        # run_multihost, whose stage 1 runs over the global mesh
+        self._uploader = None
+        self._stage0_upload = True
 
     def _invalidate_stages(self) -> None:
         """Remove config-dependent stage checkpoints (1-index through 4-cns
@@ -266,14 +298,27 @@ class Assembly:
         elif reads is None:
             # manifest input streams straight to disk: peak RSS is one
             # read + the write buffer; the pipeline then reads back
-            # through a page-cache-governed memmap
+            # through a page-cache-governed memmap.  On a card the seqdb
+            # is packed and uploaded on a worker thread as it is encoded
+            # (the chunk sink), and stage 1 takes the planes.
             t0 = time.time()
-            self.db = SeqDB.build_to_disk(reads_list, prefix)
+            sink, started = None, ""
+            est = _manifest_bytes(reads_list)
+            # the budget check reads the card's free memory: in a new
+            # process that call makes the CUDA context
+            if self._stage0_upload and _stage0_upload(
+                    self.device, self.cfg, self.mesh, est):
+                from ..ops.dbgather import SeqDBUploader
+                self._uploader = SeqDBUploader(self.device, est_bases=est)
+                sink = self._uploader.feed
+                started = "; seqdb upload to %s started in %.3fs" % (
+                    self._uploader.device, time.time() - t0)
+            self.db = SeqDB.build_to_disk(reads_list, prefix, chunk_sink=sink)
             wall = time.time() - t0
             log.info("stage 0 seqdb: %d reads, %d bases (%.1fs streamed "
-                     "to disk; peak RSS %.1f GB)", len(self.db),
+                     "to disk; peak RSS %.1f GB%s)", len(self.db),
                      int(self.db.lengths.sum()), wall, _peak_rss_gb(),
-                     extra={"stage_wall": ("seqdb", wall)})
+                     started, extra={"stage_wall": ("seqdb", wall)})
         else:
             t0 = time.time()
             self.db = SeqDB.from_reads(reads)
@@ -300,40 +345,65 @@ class Assembly:
         level = self.cfg.levels
         mm = f"{prefix}-L{level}-01-of-01.dat"
         mc = f"{prefix}-L{level}-MC-01-of-01.dat"
+        t0 = time.time()
+        # stage 0's planes serve the single build alone: dropped before a
+        # resume, the mesh build and the segmented build
+        packed, took = self._stage0_planes()
         if _stage_done(mm) and (not keep_l0 or _stage_done(
                 f"{prefix}-L0-MC-01-of-01.dat")):
+            del packed
             self.idx = ShimmerIndex.load_chunks([mm], [mc])
+            return self.idx
+        held = sum(p.numel() for p in packed) if packed else 0
+        budget = _device_db_budget(self.device, self.cfg, held)
+        on_mesh = self.cfg.mesh and self.mesh.n > 1 and not keep_l0
+        segmented = (not on_mesh and not keep_l0
+                     and self.db.data.nbytes > budget)
+        if packed is not None and (on_mesh or segmented):
+            packed, took = None, "; the stage-0 seqdb planes dropped"
+        if on_mesh:
+            from ..parallel.sharded_index import build_index_mesh
+            self.idx, l0 = build_index_mesh(self.db, self.cfg,
+                                            self.mesh), None
+        elif segmented:
+            log.info("stage 1: the %.1f GB seqdb exceeds the %.1f GB "
+                     "device budget: indexing in segments",
+                     self.db.data.nbytes / (1 << 30), budget / (1 << 30))
+            self.idx, l0 = build_index_segmented(
+                self.db, self.cfg, self.device, budget), None
         else:
-            t0 = time.time()
-            budget = _device_db_budget(self.device, self.cfg)
-            on_mesh = self.cfg.mesh and self.mesh.n > 1 and not keep_l0
-            if on_mesh:
-                from ..parallel.sharded_index import build_index_mesh
-                self.idx, l0 = build_index_mesh(self.db, self.cfg,
-                                                self.mesh), None
-            elif not keep_l0 and self.db.data.nbytes > budget:
-                log.info("stage 1: the %.1f GB seqdb exceeds the %.1f GB "
-                         "device budget: indexing in segments",
-                         self.db.data.nbytes / (1 << 30), budget / (1 << 30))
-                self.idx, l0 = build_index_segmented(
-                    self.db, self.cfg, self.device, budget), None
-            else:
-                built = build_index(self.db, self.cfg, self.device,
-                                    keep_l0=keep_l0)
-                self.idx, l0 = built if keep_l0 else (built, None)
-            self.idx.save(prefix, level=level)
-            if keep_l0:
-                l0.save(prefix, level=0)
-            wall = time.time() - t0
-            log.info("stage 1 index: %d SHIMMERs, %d distinct%s (%.1fs on "
-                     "%s; peak RSS %.1f GB%s)",
-                     len(self.idx.x), len(self.idx.mc_hash),
-                     f"; {len(l0.x)} level-0 minimizers" if keep_l0 else "",
-                     wall, self.mesh if on_mesh else self.device,
-                     _peak_rss_gb(),
-                     _device_mem_line(self.device),
-                     extra={"stage_wall": ("index", wall)})
+            built = build_index(self.db, self.cfg, self.device,
+                                packed=packed, keep_l0=keep_l0)
+            self.idx, l0 = built if keep_l0 else (built, None)
+        del packed
+        self.idx.save(prefix, level=level)
+        if keep_l0:
+            l0.save(prefix, level=0)
+        wall = time.time() - t0
+        log.info("stage 1 index: %d SHIMMERs, %d distinct%s (%.1fs on "
+                 "%s%s; peak RSS %.1f GB%s)",
+                 len(self.idx.x), len(self.idx.mc_hash),
+                 f"; {len(l0.x)} level-0 minimizers" if keep_l0 else "",
+                 wall, self.mesh if on_mesh else self.device, took,
+                 _peak_rss_gb(), _device_mem_line(self.device),
+                 extra={"stage_wall": ("index", wall)})
         return self.idx
+
+    def _stage0_planes(self):
+        """Finish stage 0's seqdb upload, where it started one: returns
+        (planes or None, the log's note of them).  An uploader that failed
+        raises here; there is no second upload to fall back on."""
+        up, self._uploader = self._uploader, None
+        if up is None:
+            return None, ""
+        packed = up.finish()
+        st = up.stats
+        return packed, (
+            "; took the stage-0 seqdb planes: finish() waited %.3fs, %d B "
+            "copied, %d B of amb elided, planes' peak %d B, worker set-up "
+            "%.3fs, pack %.3fs" % (
+                st["finish_wait_s"], st["copied_bytes"], st["elided_bytes"],
+                st["peak_plane_bytes"], st["init_s"], st["pack_s"]))
 
     def _pair_map(self):
         """The unchunked oriented read pair map, shared by stages 2 and 4:
@@ -839,6 +909,7 @@ class Assembly:
         primary = rank == 0
         barrier = distributed.barrier
         if primary:
+            self._stage0_upload = False
             self.build_db(reads_list=reads_list)
         barrier("pg-tpu stage0")
         if not primary:

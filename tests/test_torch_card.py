@@ -1306,3 +1306,74 @@ def test_build_index_on_the_card_matches_the_cpu_across_groups(monkeypatch):
         assert stats["replays"] == 6 and stats["group_fetches"] == 3
         assert stats["retried_batches"] == (3 if w == 8 else 0)
         assert len(stats["graph_pool_bytes"]) == 2
+
+
+# --- the seqdb uploader ----------------------------------------------------
+
+@pytest.mark.parametrize("amb", [False, True], ids=["acgt", "ambiguous"])
+def test_seqdb_uploader_on_the_card_matches_upload_seqdb_and_the_cpu(
+        amb, monkeypatch):
+    """SeqDBUploader on cuda, fed in 4096-base chunks with a ragged tail
+    and pieces of 4 KiB (so that the three staging buffers turn over many
+    times), equals upload_seqdb on cuda and the cpu planes; without an
+    ambiguous base the amb plane is elided (no byte of it copied) and
+    zero."""
+    from peregrine_tpu_torch.ops import dbgather as dg
+
+    rng = np.random.default_rng(5)
+    n = 1_500_000 + 333
+    data = (rng.integers(0, 16, n, dtype=np.uint8) if amb else
+            rng.choice(np.array([1, 2, 4, 8], np.uint8), n))
+    want = dg.upload_seqdb(data, "cpu")
+    bulk = dg.upload_seqdb(data, "cuda")
+    monkeypatch.setattr(dg.SeqDBUploader, "PIECE_FW_BYTES", 4096)
+    up = dg.SeqDBUploader("cuda", est_bases=n)
+    for i in range(0, n, 4096):
+        up.feed(data[i:i + 4096])
+    got = up.finish()
+    for planes in (bulk, got):
+        assert planes.fw.is_cuda and planes.amb.is_cuda
+        assert torch.equal(planes.fw.cpu(), want.fw)
+        assert torch.equal(planes.amb.cpu(), want.amb)
+    assert up.stats["pieces"] > 3 * dg.SeqDBUploader.N_STAGING
+    # the guard's amb bytes (four whole pieces) are zero, and so is every
+    # amb byte of ACGT
+    assert up.stats["elided_bytes"] == (
+        dg.GUARD_BASES // 8 if amb else -(-(dg.GUARD_BASES + n) // 8))
+    assert bool(got.amb.any()) == amb
+
+
+def test_assembly_on_the_card_takes_the_stage0_planes(tmp_path, caplog):
+    """An Assembly on cuda from a manifest starts the uploader in stage 0
+    and builds stage 1 on its planes (the log says so), writing the same
+    1-index files as an Assembly on the cpu."""
+    import filecmp
+    import logging
+
+    from peregrine_tpu_torch.config import AsmConfig
+    from peregrine_tpu_torch.pipeline.run import Assembly
+    from peregrine_tpu_torch.simdata import (random_genome, simulate_reads,
+                                             write_reads)
+
+    rng = np.random.default_rng(8)
+    genome = random_genome(rng, 60000)
+    reads, _ = simulate_reads(rng, genome, read_len=4000, coverage=12.0)
+    lst = str(tmp_path / "reads.lst")
+    write_reads(reads, str(tmp_path / "reads.fa"), lst)
+    cfg = AsmConfig(k=16, w=24, r=4, levels=2, sketch_pad_len=8192,
+                    sketch_batch=16)
+    for dev in ("cuda", "cpu"):
+        asm = Assembly(str(tmp_path / dev), cfg, device=dev)
+        with caplog.at_level(logging.INFO, logger="peregrine_tpu_torch"):
+            caplog.clear()
+            asm.build_db(reads_list=lst)
+            assert (asm._uploader is not None) == (dev == "cuda")
+            asm.build_shimmer_index()
+        msgs = [r.getMessage() for r in caplog.records]
+        started = any("seqdb upload to cuda:0 started" in m for m in msgs)
+        took = any("took the stage-0 seqdb planes" in m for m in msgs)
+        assert started == took == (dev == "cuda"), msgs
+    for f in ("shmr-L2-01-of-01.dat", "shmr-L2-MC-01-of-01.dat"):
+        assert filecmp.cmp(str(tmp_path / "cuda" / "1-index" / f),
+                           str(tmp_path / "cpu" / "1-index" / f),
+                           shallow=False), f
