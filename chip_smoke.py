@@ -16,7 +16,7 @@ Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the SHIMMER kernels and the banded Myers aligner (nvcc, sm_90a)
      and the native host library, the three at once;
-  3. each of the ten SHIMMER kernels against its plain PyTorch version
+  3. each of the twelve SHIMMER kernels against its plain PyTorch version
      on the card, exactly, at the main paths' shapes (B=64, L in 8192/16384/
      24576/32768/40960, 16384 being the draft's main bucket; move_plane
      moving both stream planes in one launch; reduce_step on the draft's
@@ -52,7 +52,14 @@ Phases, in order; any failure raises and exits non-zero:
      2048, two levels, out_cap columns),
      on random codes' level 2 three times through one cursor, and on the
      test batches at k=16 and 28 (counts 0, the width and past it;
-     streams cut short); and
+     streams cut short); the k <= 16 step's fused pair, each also against
+     the two kernels it replaces: gather_build_stream on the same reads at
+     L = 16384 (the main shape) and 24576 and on the fused windows of
+     tests/torch_kernel_cases.py (every residue mod 32, N runs across the
+     chunk boundary) on cut planes, reduce_drain on the simulated reads'
+     level 1 (the main shape and load) and on crafted rows of 5000
+     columns three batches through one cursor, each timed shape with the
+     time of the two launches it replaces; and
      pg_myers_align on 1,024 E. coli-class read pairs, on the crafted
      lanes of tests/torch_kernel_cases.py (windows at every word offset)
      and on its plane-end lanes (planes cut to the data and followed by
@@ -82,10 +89,11 @@ Phases, in order; any failure raises and exits non-zero:
   5. the draft path: `pg-tpu-torch asm` (cli.main, k=16) on a simulated
      E. coli-class set (4.6 Mb circular genome, 30x of 15 kb reads, 1%
      error, 40 kb wrap, seed 42), with stage walls, kernel launch counts
-     (each of its four kernels, gather_codes and drain_records must be
-     > 0, move_plane must run twice per build_stream, the reduction
-     levels moving nothing, and gather_codes and drain_records once: one
-     batch step a sketch), peak device
+     (gather_build_stream, move_plane, emit_mask, reduce_step and
+     reduce_drain must be > 0, and gather_codes, build_stream and
+     drain_records 0: stage 1's step runs the fused pair; move_plane twice
+     per sketch, the reduction levels moving nothing, and reduce_step and
+     reduce_drain once a sketch: one batch step each), peak device
      memory, and a
      check of the draft: the longest contig covers >= 0.9 of the genome
      and >= 0.7 of its 21-mers occur in the genome or its reverse
@@ -97,7 +105,8 @@ Phases, in order; any failure raises and exits non-zero:
   6. the wide consensus path: `pg-tpu-torch asm --shimmer-k 28
      --with-L0-index --with-consensus` on the same set, with the stage
      walls of stages 0-4, launch counts (compact_planes, wide_stream,
-     wide_emit and reduce_wide must each be > 0),
+     wide_emit, reduce_wide, gather_codes and drain_records must each be
+     > 0, the fused pair 0),
      peak device memory, and a check of the polished contigs: the longest
      covers >= 0.9 of the genome, and >= 0.95 of its 21-mers, and more
      than of the phase-5 draft's, occur in the genome;
@@ -121,7 +130,9 @@ Phases, in order; any failure raises and exits non-zero:
      5's workdir; the API's get_shimmers_from_seq and get_cns_from_reads
      on the card equal to the cpu; Assembly(profile_dir=).run(
      with_consensus=False), whose p_ctg.fa equals phase 5's and whose
-     trace names the four kernels; verify_fasta of phase 6's polished
+     trace names the fused pair, move_plane, emit_mask and reduce_step
+     (build_stream is the long route's, launched by the reference
+     index); verify_fasta of phase 6's polished
      contig against the genome, with its wall (phase 5's draft, at ~1%
      error, stalls the verifier's exact re-alignment: it is built for
      polished contigs);
@@ -154,14 +165,18 @@ Phases, in order; any failure raises and exits non-zero:
  12. the repeat genome of tests/test_modes.py (900 kb with dispersed
      elements, a tandem array and segmental duplications; 16x of 4 kb
      reads) through Assembly(device="cuda", with_alt=True) and
-     build_consensus: the four packed kernels launched, non-empty c_path,
+     build_consensus: the fused pair, move_plane, emit_mask and
+     reduce_step launched, non-empty c_path,
      a_ctg_tiling_path and a_ctg.fa, the alt polish where a_ctg.fa passes
      its gate, the polished contigs all anchored at identity >= 0.99
      (verify_contigs_multi), and stage 1's index and p_ctg.fa equal to
      the same draft on the cpu in this process.
 Each path's launch counts are zeroed just before it runs and read just
-after.  It then prints the JSON lines of phases 9 to 12, the kernels'
-JSON line and, last, the device JSON line.
+after.  It then prints the JSON lines of phases 9 to 12, the digests of
+every output file of phases 5-8 and 12 (the stage directories 1-index
+to 4-cns-alt; scripts/torch_outputs_compare.py digests the same runs of
+another checkout), the kernels' JSON line and, last, the device JSON
+line.
 There is no CPU path: without a CUDA device it exits non-zero at once.
 
 --index-profile measures stage 1 alone (at --profile-k, default 16) on
@@ -183,7 +198,9 @@ whose trace gives the device's busy time (the union of its kernel, copy
 and memset intervals), the device time of each kernel, in all and by
 template instance and launch grid (which tell its shapes apart), and
 the number of device intervals (fill kernels counted apart); each
-kernel's launch count must equal its launches in the trace.  With
+kernel's launch count must equal its launches in the trace (at k=16
+the fused pair and no gather_codes or drain_records, at k=28 the
+reverse).  With
 --abba PARENT it runs `chip_smoke.py --index-profile` of the checkout
 PARENT and of this one in turns (parent, change, change, parent), each
 in its own process, and prints each run's summary.
@@ -220,9 +237,14 @@ REPLACES = {
     # stage 1's batch step around the kernels
     "gather_codes": "peregrine_tpu/ops/dbgather.py:233",
     "drain_records": "peregrine_tpu/ops/index.py:66",
+    # the k <= 16 step's fused pair: gather_codes into build_stream's load
+    # stage, the drain into the final reduce_step's store stage
+    "gather_build_stream": "peregrine_tpu/ops/compact_pallas.py:243",
+    "reduce_drain": "peregrine_tpu/ops/compact_pallas.py:464",
 }
 WIDE = ("wide_stream", "wide_emit", "reduce_wide")
 STAGE1 = ("gather_codes", "drain_records")
+FUSED = ("gather_build_stream", "reduce_drain")
 # the kernel the port adds where the JAX package used XLA: the banded
 # Myers aligner's fused loop (_myers_core, as myers_batch_db_packed calls it)
 ALIGN_SOURCE = "peregrine_tpu_torch/csrc/myers_align.cu"
@@ -250,6 +272,40 @@ GENOME, READ_LEN, COVERAGE, WRAP = 4_600_000, 15_000, 30.0, 40_000
 PIECE = 40_000  # phase 9's reference: the genome cut into 115 pieces
 
 
+# every phase-5/6/7/8/12 output, digested (output_digests), printed as
+# one JSON line before the kernels line; scripts/torch_outputs_compare.py
+# digests the same runs of another checkout
+DIGESTS: dict = {}
+OUTPUT_DIRS = ("1-index", "2-ovlp", "3-asm", "4-cns", "4-cns-alt")
+
+
+# files whose compound rows list their '|'-joined members in an order
+# that follows Python's string hash seed (tests/test_torch_repeat.py):
+# digested with each token's members sorted
+HASH_ORDERED = ("c_path", "utg_data")
+
+
+def output_digests(out: str) -> dict:
+    """sha1 (16 hex digits) of every file under the stage directories of
+    the workdir `out` (stages 1-4, the alternate contigs' polish), by
+    path."""
+    import hashlib
+    digests = {}
+    for d in OUTPUT_DIRS:
+        for base, _, files in sorted(os.walk(os.path.join(out, d))):
+            for f in sorted(files):
+                path = os.path.join(base, f)
+                with open(path, "rb") as fh:
+                    data = fh.read()
+                if f in HASH_ORDERED:
+                    data = b"\n".join(b" ".join(b"|".join(sorted(
+                        tok.split(b"|"))) for tok in ln.split())
+                        for ln in data.splitlines())
+                digests[os.path.relpath(path, out)] = hashlib.sha1(
+                    data).hexdigest()[:16]
+    return digests
+
+
 def say(*a) -> None:
     print(*a, flush=True)
 
@@ -257,6 +313,13 @@ def say(*a) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def traced(name: str, event: str) -> bool:
+    """Whether a trace event's kernel name is wrapper `name`'s kernel
+    (name_kernel as a whole word: build_stream_kernel is not
+    gather_build_stream_kernel)."""
+    return re.search(rf"(?<!\w){name}_kernel(?!\w)", event) is not None
 
 
 def _events():
@@ -550,7 +613,8 @@ def phase_kernels(results: dict) -> None:
         main = {"reduce_step": CAP,  # level 1
                 "compact_planes": (MAIN_L, 0.98),
                 "reduce_wide": WIDE_LEVEL,
-                "drain_records": DRAIN_MAIN}.get(name, MAIN_L)
+                "drain_records": DRAIN_MAIN,
+                "reduce_drain": FUSED_DRAIN}.get(name, MAIN_L)
         ms, pms = st["times"][main]
         bound_ms = moved[name] / HBM_BYTES_PER_S * 1e3
         results[name].update(
@@ -567,6 +631,8 @@ WIDE_LEVEL = f"B=64 L={MAIN_L} uncapped, level 1"  # reduce_wide's main shape
 OUT_CAP = max(64, CAP // int((R / 2) ** 2))  # the draft's final columns
 DRAIN_MAIN = (f"B=64 reads at L={MAIN_L}: (H, P) level 2 of cap {CAP}, "
               f"out_cap {OUT_CAP}")
+FUSED_DRAIN = (f"B=64 reads at L={MAIN_L}: (H, P) level 1 of cap {CAP} -> "
+               f"level 2, out_cap {OUT_CAP}")
 
 
 def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
@@ -583,9 +649,18 @@ def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
     (index_planes, cap 2,048, two levels, out_cap columns: the main shape
     and load, and the one timed), on
     random codes' level 2 three times through one cursor, and on the test
-    cases' batches at k=16 and k=28 (counts 0, the width and past it).  Each timed shape
-    has its bytes, bound and plain ms; results[name]["shapes"] lists
-    them."""
+    cases' batches at k=16 and k=28 (counts 0, the width and past it).
+    The fused pair of the k <= 16 step, each held to its plain version and
+    to the two kernels it replaces exactly: gather_build_stream on the
+    same reads at L = 16,384 (the main shape) and 24,576, and on
+    tests/torch_kernel_cases.py's fused windows (every residue mod 32, N
+    runs across the chunk boundary) on planes cut to the data at a byte
+    offset; reduce_drain on the simulated reads' level 1 (the main shape
+    and load: level 2 and the drain of out_cap columns) and on the test
+    cases' level rows three batches through one cursor.  Each timed shape
+    has its bytes, bound and plain ms, the fused pair's also the time of
+    the two launches it replaces on the same inputs (pair_ms);
+    results[name]["shapes"] lists them."""
     import torch
 
     from peregrine_tpu_torch.io.seqdb import SeqDB
@@ -593,14 +668,16 @@ def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
     from peregrine_tpu_torch.simdata import random_genome, simulate_reads
 
     B = 64
-    shapes = {name: [] for name in STAGE1}
+    shapes = {name: [] for name in STAGE1 + FUSED}
 
-    def shape(name, site, fn, plain, nbytes, key=None):
+    def shape(name, site, fn, plain, nbytes, key=None, pair=None):
         ms, pms = kernel_ms(fn), plain_ms(plain)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         shapes[name].append({"site": site, "bytes": nbytes, "ms": ms,
                              "plain_ms": pms, "bound_ms": bound_ms,
                              "share_of_bound": bound_ms / ms})
+        if pair is not None:  # the two launches the kernel replaces
+            shapes[name][-1]["pair_ms"] = kernel_ms(pair)
         if key is not None:
             stats[name]["times"][key] = (ms, pms)
             moved[name] = nbytes
@@ -624,6 +701,21 @@ def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
               lambda: dbgather.gather_codes(pdb, off, ln, None, L, 4),
               lambda: dbgather.gather_codes_plain(pdb, off, ln, None, L, 4),
               nbytes, L if L == MAIN_L else None)
+        if L != 8192:
+            # the fused gather and build on the same windows
+            got = kn.gather_build_stream(pdb, off, ln, L, k=K)
+            note("gather_build_stream", zip(got, kn.gather_build_stream_plain(
+                pdb, off, ln, L, K)))
+            ln32 = ln.to(torch.int32)
+            note("gather_build_stream", zip(got, kn.build_stream(
+                dbgather.gather_codes(pdb, off, ln, None, L, 4), ln32, k=K)))
+            shape("gather_build_stream", f"index batch B={B} L={L}",
+                  lambda: kn.gather_build_stream(pdb, off, ln, L, k=K),
+                  lambda: kn.gather_build_stream_plain(pdb, off, ln, L, K),
+                  B * L * 3 // 8 + 12 * B * L + 20 * B,
+                  L if L == MAIN_L else None,
+                  pair=lambda: kn.build_stream(dbgather.gather_codes(
+                      pdb, off, ln, None, L, 4), ln32, k=K))
         st = torch.from_numpy(rng.integers(0, 2, B).astype(np.int32)).cuda()
         goff = torch.where(st == 1, off + ln - L, off)
         note("gather_codes", [(
@@ -645,6 +737,20 @@ def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
                 note("gather_codes", [(
                     dbgather.gather_codes(cut, goff, ln, st, L, fill),
                     dbgather.gather_codes_plain(cut, goff, ln, st, L, fill))])
+
+    # the fused windows: every residue mod 32, N runs across the chunk
+    # boundary, tails past the data, on planes cut to the data at an offset
+    FL = 4224
+    fseqs = kernel_cases.fused_gather_seqs(FL)
+    fdb = SeqDB.from_reads([(str(i), q) for i, q in enumerate(fseqs)])
+    fw, amb, nf, na = kernel_cases.plane_end_planes(fseqs, junk=64, seed=5)
+    fcut = dbgather.PackedSeqDB(fw=view(fw, nf), amb=view(amb, na))
+    fg, fl = on_card(*kernel_cases.fused_gather_windows(
+        fdb.offsets, fdb.lengths, FL, rows=B))
+    for k in (5, K):
+        note("gather_build_stream", zip(
+            kn.gather_build_stream(fcut, fg, fl, FL, k=k),
+            kn.gather_build_stream_plain(fcut, fg, fl, FL, k)))
 
     def streams(n_rec, slots):
         return (torch.full((n_rec, 2), 7, dtype=torch.int64, device="cuda"),
@@ -676,11 +782,14 @@ def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
     check(len(sim) == B, f"{len(sim)} simulated reads in the main bucket")
     sdb = SeqDB.from_reads([(str(i), q) for i, q in enumerate(sim)])
     ln = torch.from_numpy(sdb.lengths.astype(np.int64)).cuda()
-    H, P, c, c0 = index.index_planes(
-        dbgather.gather_codes(dbgather.upload_seqdb(sdb.data, "cuda"),
-                              torch.from_numpy(sdb.offsets.astype(
-                                  np.int64)).cuda(), ln, None, MAIN_L, 4),
-        ln.to(torch.int32), rids, w=W, k=K, r=R, levels=2, cap=CAP)
+    codes = dbgather.gather_codes(dbgather.upload_seqdb(sdb.data, "cuda"),
+                                  torch.from_numpy(sdb.offsets.astype(
+                                      np.int64)).cuda(), ln, None, MAIN_L, 4)
+    H, P, c, c0 = index.index_planes(codes, ln.to(torch.int32), rids, w=W,
+                                     k=K, r=R, levels=2, cap=CAP)
+    # level 1, the fused final level's input
+    H1, P1, c1, _ = index.index_planes(codes, ln.to(torch.int32), rids, w=W,
+                                       k=K, r=R, levels=1, cap=CAP)
     n = int(c.clamp(0, OUT_CAP).sum())
     got, want = streams(n, 4), streams(n, 4)
     kn.drain_records(H, P, rids, c, c0, got[2], got[0], got[1], k=K,
@@ -688,6 +797,12 @@ def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
     kn.drain_records_plain(H, P, rids, c, c0, want[2], want[0], want[1],
                            k=K, width=OUT_CAP)
     note("drain_records", list(zip(got, want)))
+    fused, fwant = streams(n, 4), streams(n, 4)
+    kn.reduce_drain(H1, P1, c1, rids, c0, fused[2], fused[0], fused[1], r=R,
+                    k=K, width=OUT_CAP)
+    kn.reduce_drain_plain(H1, P1, c1, rids, c0, fwant[2], fwant[0],
+                          fwant[1], r=R, k=K, width=OUT_CAP)
+    note("reduce_drain", list(zip(fused, fwant)) + list(zip(fused, got)))
     say(f"kernel drain_records: the reads' final level holds {n} records, "
         f"{n / B:.1f} a row")
     # kernel_ms' launches (at most 301) append to one stream; the count
@@ -700,6 +815,33 @@ def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
               H, P, rids, c, c0, ptimed[2], ptimed[0], ptimed[1], k=K,
               width=OUT_CAP)),
           24 * n + 16 * B + 8 * B, DRAIN_MAIN)
+    # the fused final level: level 2's reads (the columns below level 1's
+    # counts), the records, and a row's n, c0 and rid in and count slot
+    # out
+    ftimed, fptimed = streams(320 * n, 4), streams(n, 4)
+
+    def level_then_drain():
+        oH, oP, cc = kn.reduce_step(H1, P1, c1, r=R)
+        kn.drain_records(oH, oP, rids, cc, c0, ftimed[2], ftimed[0],
+                         ftimed[1], k=K, width=OUT_CAP)
+    shape("reduce_drain", FUSED_DRAIN,
+          lambda: kn.reduce_drain(H1, P1, c1, rids, c0, ftimed[2], ftimed[0],
+                                  ftimed[1], r=R, k=K, width=OUT_CAP),
+          lambda: (fptimed[2].zero_(), kn.reduce_drain_plain(
+              H1, P1, c1, rids, c0, fptimed[2], fptimed[0], fptimed[1], r=R,
+              k=K, width=OUT_CAP)),
+          8 * int(c1.clamp(0, CAP).sum()) + 16 * n + 24 * B, FUSED_DRAIN,
+          pair=level_then_drain)
+    # reduce_rows' crafted rows, three batches through one cursor
+    batches = kernel_cases.reduce_drain_batches(3, B, 5000, R,
+                                                kn.REDUCE_CHUNK)
+    got, want = streams(3 * B * 300, 4), streams(3 * B * 300, 4)
+    for Hb, Pb, nb, c0b, rb in batches:
+        args = on_card(Hb.view(np.int32), Pb.view(np.int32), nb, rb, c0b)
+        kn.reduce_drain(*args, got[2], got[0], got[1], r=R, k=K, width=300)
+        kn.reduce_drain_plain(*args, want[2], want[0], want[1], r=R, k=K,
+                              width=300)
+    note("reduce_drain", list(zip(got, want)))
     for k in (K, K_WIDE):
         Cw = 300
         dt = np.int32 if k <= 16 else np.int64
@@ -714,19 +856,23 @@ def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
                 kn.drain_records_plain(*args, want[2], want[0], want[1], k=k,
                                        width=Cw)
             note("drain_records", list(zip(got, want)))
-    for name in STAGE1:
+    for name in STAGE1 + FUSED:
         results[name]["shapes"] = shapes[name]
         for sh in shapes[name]:
             say(f"kernel {name} {sh['site']}: {sh['bytes']} bytes, bound "
                 f"{sh['bound_ms'] * 1e3:.3f} us, kernel {sh['ms'] * 1e3:.3f}"
                 f" us, {sh['share_of_bound']:.4f} of the bound, plain "
-                f"{sh['plain_ms']:.4f} ms")
+                f"{sh['plain_ms']:.4f} ms" + (
+                    f", the two launches it replaces {sh['pair_ms'] * 1e3:.3f}"
+                    " us" if "pair_ms" in sh else ""))
     say("kernel checks: gather_codes on E. coli-class reads at L 8192/"
         f"{MAIN_L}/24576 (strand 0 fill 4, random strands fill 7) and on "
         "the test windows on cut planes with junk after them; "
         "drain_records on the reads' final level, on random codes' level 2 "
         "three times through one cursor and on the test batches at k 16/28, "
-        "streams cut short")
+        "streams cut short; gather_build_stream on the reads at L "
+        f"{MAIN_L}/24576 and the fused windows on cut planes, reduce_drain "
+        "on the reads' level 1 and on three batches of crafted rows")
 
 
 def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
@@ -1146,6 +1292,9 @@ def plain_kernels():
         "reduce_wide": lambda x, y, c, *, r: kn.reduce_wide_plain(x, y, c, r),
         "gather_codes": kn.gather_codes_plain,
         "drain_records": kn.drain_records_plain,
+        "gather_build_stream": lambda pdb, g, ln, L, *, k:
+            kn.gather_build_stream_plain(pdb, g, ln, L, k),
+        "reduce_drain": kn.reduce_drain_plain,
     }
     saved = [(m, name, getattr(m, name)) for m in (index, reduce, sketch)
              for name in plain if hasattr(m, name)]
@@ -1188,14 +1337,22 @@ def check_traced_launches(dev, launches: dict, label: str) -> None:
     kernel must appear in the trace `dev` as often as its wrapper counted.
     A captured stage-1 step adds the launches its graph holds on each
     replay, so this shows that the replays ran them."""
-    traced = {name: sum(1 for e in dev if e["cat"] == "kernel"
-                        and f"{name}_kernel" in e["name"])
-              for name in REPLACES}
+    traced_n = {name: sum(1 for e in dev if e["cat"] == "kernel"
+                          and traced(name, e["name"]))
+                for name in REPLACES}
     counted = {name: launches[name] for name in REPLACES}
-    check(traced == counted, f"{label}: the wrappers counted {counted}, the "
-          f"trace holds {traced}")
+    check(traced_n == counted, f"{label}: the wrappers counted {counted}, "
+          f"the trace holds {traced_n}")
+    # stage 1's step runs the fused pair at k=16, the gather and the
+    # drain alone at k > 16
+    if any(traced_n[n] for n in FUSED + STAGE1):
+        want, absent = (FUSED, STAGE1) if "k=16" in label else (STAGE1, FUSED)
+        check(all(traced_n[n] for n in want)
+              and not any(traced_n[n] for n in absent),
+              f"{label}: the trace holds {traced_n}, not {want} without "
+              f"{absent}")
     say(f"launch check: {label}: each kernel's count equals its launches in "
-        f"the trace ({sum(traced.values())} launches)")
+        f"the trace ({sum(traced_n.values())} launches)")
 
 
 def busy_ms(events) -> float:
@@ -1323,8 +1480,8 @@ def phase_index_profile(reads, k: int) -> None:
         per[key] = per.get(key, 0.0) + e["dur"] / 1000
         count[key] = count.get(key, 0) + 1
     fills = sum(c for key, c in count.items() if "FillFunctor" in key)
-    ours = {name: sum(ms for key, ms in per.items()
-                      if f"{name}_kernel" in key) for name in REPLACES}
+    ours = {name: sum(ms for key, ms in per.items() if traced(name, key))
+            for name in REPLACES}
     busy = busy_ms(dev)
     copies = sum(per.get(c, 0.0) for c in ("gpu_memcpy", "gpu_memset"))
     other = sum(per.values()) - sum(ours.values()) - copies
@@ -1346,7 +1503,7 @@ def phase_index_profile(reads, k: int) -> None:
     # its output)
     by_grid: dict = {}
     for e in dev:
-        name = next((n for n in REPLACES if f"{n}_kernel" in e["name"]), None)
+        name = next((n for n in REPLACES if traced(n, e["name"])), None)
         if e["cat"] == "kernel" and name:
             inst = re.search(r"_kernel(<[^>]*>)", e["name"])
             cell = by_grid.setdefault(name, {}).setdefault(
@@ -1561,22 +1718,28 @@ def phase_draft(lst: str, genome, wd: str, results: dict):
     with stage_log() as (walls, messages):
         _, launches, _ = run_asm(lst, out, [], "draft path",
                                  ("seqdb", "index", "overlap", "layout"))
+    DIGESTS["phase5"] = output_digests(out)
     check_stage0_planes(out, walls, messages, "draft path")
-    for name in ("build_stream", "move_plane", "emit_mask", "reduce_step",
-                 "gather_codes", "drain_records"):
+    for name in ("gather_build_stream", "move_plane", "emit_mask",
+                 "reduce_step", "reduce_drain"):
         check(launches[name] > 0,
               f"kernel {name} was not launched by the draft path")
         results[name]["launches"] = launches[name]
-    # one batch step a build_stream: one gather, one drain
-    check(launches["gather_codes"] == launches["drain_records"]
-          == launches["build_stream"],
-          f"draft path: {launches['gather_codes']} gathers and "
-          f"{launches['drain_records']} drains for "
-          f"{launches['build_stream']} sketches")
+    # the fused pair in place of the gather, the build and the drain
+    for name in STAGE1 + ("build_stream",):
+        check(launches[name] == 0,
+              f"the draft path launched {name} {launches[name]} times")
+    # one batch step a sketch: one fused gather, one level-1 reduce_step
+    # and one fused final level with the drain
+    check(launches["gather_build_stream"] == launches["reduce_step"]
+          == launches["reduce_drain"],
+          f"draft path: {launches['reduce_step']} level-1 reductions and "
+          f"{launches['reduce_drain']} fused drains for "
+          f"{launches['gather_build_stream']} sketches")
     # two-plane moves, two per sketch; the reduction levels move nothing
-    check(launches["move_plane"] == 2 * launches["build_stream"],
+    check(launches["move_plane"] == 2 * launches["gather_build_stream"],
           f"move_plane launched {launches['move_plane']} times for "
-          f"{launches['build_stream']} sketches, not twice per sketch")
+          f"{launches['gather_build_stream']} sketches, not twice per sketch")
     x, _ = formats.read_mmlist(os.path.join(out, "1-index",
                                             "shmr-L2-01-of-01.dat"))
     with open(os.path.join(out, "2-ovlp", "preads.ovl"), "rb") as f:
@@ -1732,6 +1895,7 @@ def phase_device_overlap(lst: str, genome, wd: str, draft, label: str,
                                      ("seqdb", "index", "overlap", "layout"))
     check(launches["myers_align"] > 0,
           f"kernel myers_align was not launched by the {label}")
+    DIGESTS["phase7" if trace else "phase8"] = output_digests(out)
     sample = check_launch_sample(calls, label)
     dev_ms = sum(r["device_ms"] for r in rounds)
     say(f"{label}: {len(rounds)} device alignment calls, lanes "
@@ -1776,10 +1940,14 @@ def phase_consensus(lst: str, genome, wd: str, results: dict,
         lst, out, flags, "consensus path",
         ("seqdb", "index", "overlap", "layout", "ctg_index", "mapping",
          "consensus"))
-    for name in ("compact_planes",) + WIDE:
+    for name in ("compact_planes",) + WIDE + STAGE1:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the consensus path")
         results[name]["launches"] = launches[name]
+    for name in FUSED:  # k=28: the gather and the drain stay alone
+        check(launches[name] == 0,
+              f"the consensus path launched {name} {launches[name]} times")
+    DIGESTS["phase6"] = output_digests(out)
     n = {lv: len(formats.read_mmlist(os.path.join(
         out, "1-index", f"shmr-L{lv}-01-of-01.dat"))[0]) for lv in (0, 2)}
     with open(os.path.join(out, "4-cns", "read_map.txt"), "rb") as f:
@@ -1900,6 +2068,8 @@ def phase_rest(lst: str, genome, truth, wd: str) -> dict:
         f"launches {json.dumps(launches)}")
     check(on_card_calls == want_calls, "the long route made "
           f"{on_card_calls} sketch_batch calls, not {want_calls}")
+    check(launches["build_stream"] > 0, "the long route launched no "
+          "build_stream")
     out["ref_index"] = {"pieces": len(pieces), "wall_s": wall,
                         "cpu_wall_s": host_wall,
                         "sketch_batch_calls": on_card_calls,
@@ -2006,8 +2176,9 @@ def phase_rest(lst: str, genome, truth, wd: str) -> dict:
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    named = {name: sum(f"{name}_kernel" in k for k in kernels) for name in
-             ("build_stream", "move_plane", "emit_mask", "reduce_step")}
+    named = {name: sum(traced(name, k) for k in kernels) for name in
+             ("gather_build_stream", "move_plane", "emit_mask",
+              "reduce_step", "reduce_drain")}
     say(f"{label}: Assembly(profile_dir=).run(with_consensus=False) "
         f"{wall:.2f} s, the same p_ctg.fa as phase 5; trace "
         f"{os.path.getsize(traces[0])} bytes, {len(events)} events, "
@@ -2399,7 +2570,8 @@ def phase_spill(lst: str, wd: str, db_bytes: int) -> dict:
 REPEAT_N, REPEAT_SEGDUP = 900_000, (50_000, 90_000)
 REPEAT_CFG = dict(k=12, w=24, r=4, levels=2, min_len=2500,
                   sketch_pad_len=8192, sketch_batch=16)
-PACKED = ("build_stream", "move_plane", "emit_mask", "reduce_step")
+PACKED = ("gather_build_stream", "move_plane", "emit_mask", "reduce_step",
+          "reduce_drain")
 VERIFY_TIMEOUT = 300  # seconds phase 12's verifier process may take
 # phase 12's verifier, in a process of its own so that it runs beside the
 # cpu draft (it is pure Python, ~1 min at 900 kb): argv = the polished
@@ -2457,7 +2629,8 @@ def phase_repeat(wd: str) -> dict:
             f"{label}, cuda", lambda: (asm.run_draft(reads=reads),
                                        asm.build_consensus()), PACKED)
     res["walls"] = dict(walls)
-    res["launches"] = {k: launches[k] for k in PACKED}
+    res["launches"] = {k: launches[k] for k in PACKED + ("build_stream",)}
+    DIGESTS["phase12"] = output_digests(outs["cuda"])
     say(f"{label}: stage walls " + ", ".join(
         f"{s} {w:.2f} s" for s, w in walls.items())
         + f"; peak device memory "
@@ -2682,7 +2855,8 @@ def main(argv=None) -> int:
         draft = phase_draft(lst, genome, wd, results)
         phase_consensus(lst, genome, wd, results, draft[0])
         if args.cli_only:
-            say(json.dumps({"phase9": phase_rest(lst, genome, truth, wd)}))
+            rest = phase_rest(lst, genome, truth, wd)
+            say(json.dumps({"phase9": rest}))
             return 0
         # phases 7 and 8: stage 2 on the card
         entry = results.setdefault("myers_align", {})
@@ -2695,8 +2869,11 @@ def main(argv=None) -> int:
          _) = phase_device_overlap(lst, genome, wd, draft,
                                    "hybrid overlap path",
                                    ["--hybrid-overlap"])
-        # phase 9: the rest of the CLI and the API
+        # phase 9: the rest of the CLI and the API; build_stream's path
+        # is now the long route's (stage 1 runs the fused pair)
         rest = phase_rest(lst, genome, truth, wd)
+        results["build_stream"]["launches"] = \
+            rest["ref_index"]["launches"]["build_stream"]
         # phase 10: the multi-device paths
         mesh = phase_mesh(lst, wd, calls)
         # phase 11: spill mode, sharing and rebuilding the pair map
@@ -2720,6 +2897,7 @@ def main(argv=None) -> int:
     say(json.dumps({"phase10": mesh}))
     say(json.dumps({"phase11": spill}))
     say(json.dumps({"phase12": repeat}))
+    say(json.dumps({"digests": DIGESTS}))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], **results[name]}
                for name in REPLACES]

@@ -16,6 +16,13 @@
 //   pg_drain_records  <- peregrine_tpu/ops/index.py:_compact_drain (:66)
 //                        with ops/sketch.py:assemble_records folded in
 //
+// and two fuse a stage-1 kernel into its neighbour on the k <= 16 main
+// path, the launch and the global round trip between them removed:
+//
+//   pg_gather_build_stream <- gather_codes followed by build_stream (:243)
+//   pg_reduce_drain        <- the final reduce_step (:464) followed by
+//                             _compact_drain with assemble_records
+//
 // The first four run the packed k <= 16 path on [B, L] row-major uint32
 // planes (the wrappers in ops/kernels.py hand over int32 tensors holding
 // the same bits); compact_planes serves the wide k > 16 sketch and the
@@ -254,6 +261,23 @@ __device__ __forceinline__ ulonglong2 load_pair(const volatile ulonglong2* w) {
   return r;
 }
 
+// A 64-bit load that later memory operations of the thread cannot pass,
+// and a 64-bit store that earlier ones cannot follow (device scope).
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
 template <typename T>
 __device__ __forceinline__ void publish_words(volatile ulonglong2* w,
                                               const T& v) {
@@ -452,31 +476,18 @@ __device__ __forceinline__ uint32_t hash32(uint32_t key, uint32_t mask) {
 // hashes, which the chunk's aggregate does not need, are computed in that
 // wait too.  Three blocks fit an SM (at most 42 registers a thread), so
 // the 384 blocks of a B=64, L=24,576 batch run in one wave on 132 SMs.
-__global__ void __launch_bounds__(kChunkThreads, 3)
-build_stream_kernel(const uint8_t* __restrict__ codes,
-                    const int32_t* __restrict__ lengths,
-                    int* __restrict__ status, int* __restrict__ stale,
-                    int stale_words, uint32_t* __restrict__ H,
-                    uint32_t* __restrict__ P, int32_t* __restrict__ dest,
-                    int32_t* __restrict__ n_out, int L, int k, int chunks) {
-  __shared__ __align__(16) uint8_t cs[kChunk + 32];
-  __shared__ uint32_t tb[2 * kTransposed];
-  __shared__ Stream scratch[kChunkWarps];
-  __shared__ int ticket;
-  __shared__ Stream carried;
-
-  const int tile = take_ticket(status, &ticket);
-  clear_stale(stale, stale_words);
-  const int row = tile / chunks, j = tile - row * chunks;
-  const int c0 = j * kChunk, ncols = min(kChunk, L - c0);
-  const size_t base = (size_t)row * L;
-  const int len = lengths[row];
-  const int g0 = max(0, c0 - (k - 1));
-  const int off = stage_async(cs, codes + base + g0, c0 + ncols - g0);
-  const uint8_t* c = cs + off;  // c[t - g0] is column t's code
-  cp_async_wait_all();
-  __syncthreads();
-
+// build_stream on one chunk whose codes are staged in shared memory:
+// c[t - g0] is column t's code for g0 <= t < c0 + ncols (g0 = the first
+// column of the k - 1 halo), len the row's length.  Shared by
+// build_stream_kernel, which stages a codes plane, and
+// gather_build_stream_kernel, which unpacks the packed seqdb; tb, scratch
+// and carried are the caller's shared memory.
+__device__ __forceinline__ void build_stream_chunk(
+    const uint8_t* c, int g0, int tile, int j, int c0, int ncols,
+    size_t base, int len, int* __restrict__ status, uint32_t* __restrict__ H,
+    uint32_t* __restrict__ P, int32_t* __restrict__ dest,
+    int32_t* __restrict__ n_out, int row, int k, int chunks, uint32_t* tb,
+    Stream* scratch, Stream* carried) {
   const uint32_t mask = k >= 16 ? 0xFFFFFFFFu : ((1u << (2 * k)) - 1u);
   const int t0 = c0 + threadIdx.x * kPerThread;
   uint32_t fwd = 0, rev = 0;
@@ -529,8 +540,8 @@ build_stream_kernel(const uint8_t* __restrict__ codes,
   // warp 0 carries the row prefix while the other warps store P (the scan's
   // barriers ordered its transpose writes before these reads) and hash
   if (threadIdx.x < 32) {
-    const Stream c = look_back(status, tile, j, agg, id, StreamOp());
-    if (threadIdx.x == 0) carried = c;
+    const Stream cr = look_back(status, tile, j, agg, id, StreamOp());
+    if (threadIdx.x == 0) *carried = cr;
   } else {
     for (int x = threadIdx.x - 32; x < ncols; x += kChunkThreads - 32)
       P[base + c0 + x] = tb[kTransposed + x + (x >> 5)];
@@ -538,7 +549,7 @@ build_stream_kernel(const uint8_t* __restrict__ codes,
 #pragma unroll
   for (int q = 0; q < kPerThread; ++q) hv[q] = hash32(hv[q], mask);
   __syncthreads();
-  const Stream pre = StreamOp()(carried, ex);
+  const Stream pre = StreamOp()(*carried, ex);
 
   uint32_t hp[kPerThread], dp[kPerThread];
   int cv = pre.vns, ci = pre.inc, at_amb = max(pre.amb, 0);
@@ -554,7 +565,34 @@ build_stream_kernel(const uint8_t* __restrict__ codes,
     dp[q] = (vns || amb) ? (uint32_t)(ci - 1) : kInf;
   }
   store_chunk(H + base + c0, hp, (uint32_t*)dest + base + c0, dp, ncols, tb);
-  if (threadIdx.x == 0 && j == chunks - 1) n_out[row] = carried.inc + agg.inc;
+  if (threadIdx.x == 0 && j == chunks - 1) n_out[row] = carried->inc + agg.inc;
+}
+
+__global__ void __launch_bounds__(kChunkThreads, 3)
+build_stream_kernel(const uint8_t* __restrict__ codes,
+                    const int32_t* __restrict__ lengths,
+                    int* __restrict__ status, int* __restrict__ stale,
+                    int stale_words, uint32_t* __restrict__ H,
+                    uint32_t* __restrict__ P, int32_t* __restrict__ dest,
+                    int32_t* __restrict__ n_out, int L, int k, int chunks) {
+  __shared__ __align__(16) uint8_t cs[kChunk + 32];
+  __shared__ uint32_t tb[2 * kTransposed];
+  __shared__ Stream scratch[kChunkWarps];
+  __shared__ int ticket;
+  __shared__ Stream carried;
+
+  const int tile = take_ticket(status, &ticket);
+  clear_stale(stale, stale_words);
+  const int row = tile / chunks, j = tile - row * chunks;
+  const int c0 = j * kChunk, ncols = min(kChunk, L - c0);
+  const size_t base = (size_t)row * L;
+  const int len = lengths[row];
+  const int g0 = max(0, c0 - (k - 1));
+  const int off = stage_async(cs, codes + base + g0, c0 + ncols - g0);
+  cp_async_wait_all();
+  __syncthreads();
+  build_stream_chunk(cs + off, g0, tile, j, c0, ncols, base, len, status, H,
+                     P, dest, n_out, row, k, chunks, tb, scratch, &carried);
 }
 
 // Stable compaction of one or two planes by one destination plane
@@ -879,6 +917,243 @@ __device__ __forceinline__ int window_winner(const uint32_t* hs, int i,
   return best;
 }
 
+// reduce_drain's store stage (see reduce_drain_kernel): where the
+// records go and where the batch's counts go.
+struct DrainArgs {
+  const long long* rids;
+  const int32_t* c0;
+  unsigned long long* cursor;
+  ulonglong2* out;
+  int32_t* counts_out;
+  int k, width;
+  long long max_records;
+  int max_slots, counts_ld;
+};
+
+// reduce_drain's prefix across the tiles of a batch (tile t = chunk j of
+// row b, t = b * chunks + j, in ticket order), a segmented sum whose
+// segments are rows, each row contributing min(width, its entries)
+// records.  A span of tiles holds: s, whether a row starts in it; f, the
+// entries before its first row start (all of them where s == 0); o, the
+// entries from its last row start on; c, the records of the rows that
+// start in it and end before that last row start (0 where s == 0).
+// RecordsOp(a, b) is a followed by b; the cursor base enters as tile 0's
+// c.  Published as x = f << 1 | o << 26 | s << 51 and y = c << 1 (see
+// to_words), so f and o stay below 2^25 (rows of fewer columns).
+struct Records {
+  int s, f, o;
+  long long c;
+};
+struct RecordsOp {
+  int width;
+  __device__ Records operator()(const Records& a, const Records& b) const {
+    if (!b.s) return {a.s, a.s ? a.f : a.f + b.f, a.s ? a.o + b.f : 0, a.c};
+    if (!a.s) return {1, a.f + b.f, b.o, b.c};
+    return {1, a.f, b.o, a.c + min(width, a.o + b.f) + b.c};
+  }
+};
+
+__device__ __forceinline__ Records shfl_down(const Records& v, int off) {
+  return {shfl_down(v.s, off), shfl_down(v.f, off), shfl_down(v.o, off),
+          __shfl_down_sync(0xFFFFFFFFu, v.c, off)};
+}
+__device__ __forceinline__ Records shfl_from(const Records& v, int lane) {
+  return {shfl_from(v.s, lane), shfl_from(v.f, lane), shfl_from(v.o, lane),
+          __shfl_sync(0xFFFFFFFFu, v.c, lane)};
+}
+__device__ __forceinline__ void to_words(const Records& v,
+                                         unsigned long long* x,
+                                         unsigned long long* y) {
+  *x = 1ull | (unsigned long long)(unsigned)v.f << 1 |
+       (unsigned long long)(unsigned)v.o << 26 |
+       (unsigned long long)(unsigned)v.s << 51;
+  *y = 1ull | (unsigned long long)v.c << 1;
+}
+__device__ __forceinline__ void from_words(unsigned long long x,
+                                           unsigned long long y, Records* v) {
+  *v = {(int)(x >> 51 & 1u), (int)(x >> 1 & 0x1FFFFFFu),
+        (int)(x >> 26 & 0x1FFFFFFu), (long long)(y >> 1)};
+}
+
+// One reduction level over a chunk (see reduce_step_kernel); kDrain adds
+// reduce_drain_kernel's store stage in place of the oH, oP, count
+// stores.  Each kernel's blocks run it once.
+template <bool kDrain>
+__device__ __forceinline__ void reduce_level(
+    const uint32_t* __restrict__ H, const uint32_t* __restrict__ P,
+    const int32_t* __restrict__ n_in, int* __restrict__ status,
+    int* __restrict__ stale, int stale_words, uint32_t* __restrict__ oH,
+    uint32_t* __restrict__ oP, int32_t* __restrict__ count, int L, int r,
+    int chunks, const DrainArgs& d) {
+  __shared__ __align__(16) uint32_t Hs[kRExt];
+  __shared__ __align__(16) uint32_t Ps[kRExt];
+  __shared__ int seg[kRSegs];
+  __shared__ uint32_t edge[kRSegs];  // each segment's last winner P
+  __shared__ int shared_int;
+  __shared__ int ticket;
+  __shared__ long long row_base;  // kDrain: the row's first record
+
+  // rows of one chunk need no look-back, and so no ticket, unless the
+  // look-back runs across rows (kDrain)
+  const int tile = chunks == 1 && !kDrain ? (int)blockIdx.x
+                                          : take_ticket(status, &ticket);
+  clear_stale(stale, stale_words);
+  const int row = tile / chunks, j = tile - row * chunks;
+  const int c0 = j * kRChunk;
+  const size_t base = (size_t)row * L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the chunk's first columns are staged while n loads (the draft's rows
+  // hold a few hundred entries, so most levels need no second round trip)
+  const int g0 = max(0, c0 - r);
+  const int early = min(L, c0 + kREarly) - g0;
+  const uint8_t* h0 = (const uint8_t*)(H + base + g0);
+  const uint8_t* p0 = (const uint8_t*)(P + base + g0);
+  const int offH = stage_async((uint8_t*)Hs, h0, 4 * early);
+  const int offP = stage_async((uint8_t*)Ps, p0, 4 * early);
+  const int n = max(0, min(n_in[row], L));  // a count: never past the row
+  unsigned long long rid_hi = 0, cur0 = 0, cur1 = 0;
+  if (kDrain) {
+    rid_hi = (unsigned long long)d.rids[row] << 32;
+    // the cursors, before this tile publishes anything (thread 0 does):
+    // the last tile moves them only once it has seen every publication
+    if (threadIdx.x == 0) {
+      cur1 = load_acquire(d.cursor + 1);
+      cur0 = load_acquire(d.cursor);
+    }
+  }
+  // block-uniform: a chunk past n has nothing below n; reduce_step's
+  // publishes nothing, reduce_drain's publishes that it holds no entries
+  const bool live = c0 < n;
+  if (!live) {
+    cp_async_wait_all();
+    if (!kDrain) {
+      if (j == 0 && threadIdx.x == 0) count[row] = 0;
+      return;
+    }
+  }
+  const int ncols = live ? min(kRChunk, n - c0) : 0;  // columns below n
+  uint32_t wh[kRPer], wp[kRPer], em[kRPer];
+#pragma unroll
+  for (int q = 0; q < kRPer; ++q) em[q] = 0;
+  if (live) {
+    const int E = c0 + ncols - g0;
+    if (E > early) {  // the rest of the chunk below n
+      stage_rest((uint8_t*)Hs, offH, h0, 4 * early, 4 * E);
+      stage_rest((uint8_t*)Ps, offP, p0, 4 * early, 4 * E);
+    }
+    const uint32_t* hs = Hs + offH / 4;  // hs[i], ps[i]: column g0 + i
+    const uint32_t* ps = Ps + offP / 4;
+    // the registers that hold a column below n (block-uniform)
+    const int nq = (ncols + kRThreads - 1) / kRThreads;
+    cp_async_wait_all();
+    __syncthreads();
+
+    // each column's winner, where its window is whole
+    bool full[kRPer];
+#pragma unroll
+    for (int q = 0; q < kRPer; ++q) {
+      const int x = threadIdx.x + q * kRThreads, col = c0 + x;
+      full[q] = x < ncols && col >= r - 1;
+      wh[q] = wp[q] = 0;
+      if (full[q]) {
+        const int b = window_winner(hs, col - g0, col, r);
+        wh[q] = hs[b];
+        wp[q] = ps[b];
+      }
+      if (q < nq && lane == 31) edge[q * kRWarps + warp] = wp[q];
+    }
+    // column c0 - 1's winner, the previous one of the chunk's first column
+    uint32_t before = 0;
+    if (threadIdx.x == 0 && c0 >= r)
+      before = ps[window_winner(hs, c0 - 1 - g0, c0 - 1, r)];
+    __syncthreads();
+
+    // emitted columns by ballots in segments q * kRWarps + warp, which run
+    // in column order
+#pragma unroll
+    for (int q = 0; q < kRPer; ++q) {
+      const int e = q * kRWarps + warp;
+      if (q < nq) {
+        uint32_t prev = __shfl_up_sync(0xFFFFFFFFu, wp[q], 1);
+        if (lane == 0) prev = e > 0 ? edge[e - 1] : before;
+        const int col = c0 + threadIdx.x + q * kRThreads;
+        em[q] = __ballot_sync(0xFFFFFFFFu,
+                              full[q] && (col == r - 1 || wp[q] != prev));
+      }
+      if (lane == 0) seg[e] = __popc(em[q]);
+    }
+    __syncthreads();
+  }
+  if (warp == 0) {
+    const int agg = live ? segment_scan<kRSegs>(seg, 0, Sum()) : 0;
+    if (kDrain) {
+      const RecordsOp op{d.width};
+      const Records v = j == 0 ? Records{1, 0, agg, 0} : Records{0, agg, 0, 0};
+      // the cursor base, as a row of no entries closed before row 0 (tile
+      // 0's thread 0 read it; the others take it from the chain)
+      const Records first = {1, 0, 0, (long long)cur0};
+      Records ex = look_back(status, tile, tile, tile == 0 ? op(first, v) : v,
+                             Records{0, 0, 0, 0}, op);
+      if (tile == 0) ex = first;
+      if (lane == 0) {
+        const int in_row = j == 0 ? 0 : ex.o;  // the row's earlier entries
+        shared_int = in_row;
+        row_base = j == 0 ? ex.c + min(d.width, ex.o) : ex.c;
+        const unsigned long long slot = cur1;
+        // the chunk of column n - 1 (chunk 0 where n == 0) has the count
+        if (d.counts_out != nullptr && (live ? c0 + ncols == n : j == 0) &&
+            slot < (unsigned long long)d.max_slots) {
+          d.counts_out[2 * slot * d.counts_ld + row] = d.c0[row];
+          d.counts_out[(2 * slot + 1) * d.counts_ld + row] = in_row + agg;
+        }
+        if (tile == (int)gridDim.x - 1) {  // after its whole look-back
+          const Records all = op(ex, v);
+          store_release(d.cursor,
+                        (unsigned long long)(all.c + min(d.width, all.o)));
+          store_release(d.cursor + 1, slot + 1);
+        }
+      }
+    } else {
+      const int c =
+          chunks == 1 ? 0 : look_back(status, tile, j, agg, 0, Sum());
+      if (lane == 0) {
+        shared_int = c;
+        if (c0 + ncols == n) count[row] = c + agg;  // the chunk of column n-1
+      }
+    }
+  }
+  __syncthreads();
+  const int pre = shared_int;
+  if (kDrain) {
+    const long long at0 = row_base;
+#pragma unroll
+    for (int q = 0; q < kRPer; ++q) {
+      if (em[q] >> lane & 1u) {
+        const int rank = pre + seg[q * kRWarps + warp] +
+                         __popc(em[q] & ((1u << lane) - 1u));
+        const long long at = at0 + rank;
+        if (rank < d.width && at < d.max_records) {
+          ulonglong2 rec;
+          rec.x = (unsigned long long)wh[q] << 8 | (unsigned)d.k;
+          rec.y = rid_hi | (unsigned long long)(wp[q] >> 2) << 1 |
+                  (wp[q] >> 1 & 1u);
+          d.out[at] = rec;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kRPer; ++q) {
+      if (em[q] >> lane & 1u) {
+        const size_t at = base + pre + seg[q * kRWarps + warp] +
+                          __popc(em[q] & ((1u << lane) - 1u));
+        oH[at] = wh[q];
+        oP[at] = wp[q];
+      }
+    }
+  }
+}
+
 // One SHIMMER reduction level over (H, P, n), compacted (replaces
 // reduce_step, compact_pallas.py:452, and the two move_plane calls that
 // followed it): the winner of the r-wide trailing window at each column
@@ -915,104 +1190,53 @@ reduce_step_kernel(const uint32_t* __restrict__ H,
                    int* __restrict__ stale, int stale_words,
                    uint32_t* __restrict__ oH, uint32_t* __restrict__ oP,
                    int32_t* __restrict__ count, int L, int r, int chunks) {
-  __shared__ __align__(16) uint32_t Hs[kRExt];
-  __shared__ __align__(16) uint32_t Ps[kRExt];
-  __shared__ int seg[kRSegs];
-  __shared__ uint32_t edge[kRSegs];  // each segment's last winner P
-  __shared__ int shared_int;
+  reduce_level<false>(H, P, n_in, status, stale, stale_words, oH, oP, count,
+                      L, r, chunks, DrainArgs{});
+}
 
-  // rows of one chunk need no look-back, and so no ticket
-  const int tile =
-      chunks == 1 ? (int)blockIdx.x : take_ticket(status, &shared_int);
-  clear_stale(stale, stale_words);
-  const int row = tile / chunks, j = tile - row * chunks;
-  const int c0 = j * kRChunk;
-  const size_t base = (size_t)row * L;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // the chunk's first columns are staged while n loads (the draft's rows
-  // hold a few hundred entries, so most levels need no second round trip)
-  const int g0 = max(0, c0 - r);
-  const int early = min(L, c0 + kREarly) - g0;
-  const uint8_t* h0 = (const uint8_t*)(H + base + g0);
-  const uint8_t* p0 = (const uint8_t*)(P + base + g0);
-  const int offH = stage_async((uint8_t*)Hs, h0, 4 * early);
-  const int offP = stage_async((uint8_t*)Ps, p0, 4 * early);
-  const int n = max(0, min(n_in[row], L));  // a count: never past the row
-  if (c0 >= n) {  // block-uniform: nothing below n, nothing to publish
-    cp_async_wait_all();
-    if (j == 0 && threadIdx.x == 0) count[row] = 0;
-    return;
-  }
-  const int ncols = min(kRChunk, n - c0);  // the chunk's columns below n
-  const int E = c0 + ncols - g0;
-  if (E > early) {  // the rest of the chunk below n
-    stage_rest((uint8_t*)Hs, offH, h0, 4 * early, 4 * E);
-    stage_rest((uint8_t*)Ps, offP, p0, 4 * early, 4 * E);
-  }
-  const uint32_t* hs = Hs + offH / 4;  // hs[i], ps[i]: column g0 + i
-  const uint32_t* ps = Ps + offP / 4;
-  // the registers that hold a column below n (block-uniform)
-  const int nq = (ncols + kRThreads - 1) / kRThreads;
-  cp_async_wait_all();
-  __syncthreads();
-
-  // each column's winner, where its window is whole
-  uint32_t wh[kRPer], wp[kRPer];
-  bool full[kRPer];
-#pragma unroll
-  for (int q = 0; q < kRPer; ++q) {
-    const int x = threadIdx.x + q * kRThreads, col = c0 + x;
-    full[q] = x < ncols && col >= r - 1;
-    wh[q] = wp[q] = 0;
-    if (full[q]) {
-      const int b = window_winner(hs, col - g0, col, r);
-      wh[q] = hs[b];
-      wp[q] = ps[b];
-    }
-    if (q < nq && lane == 31) edge[q * kRWarps + warp] = wp[q];
-  }
-  // column c0 - 1's winner, the previous one of the chunk's first column
-  uint32_t before = 0;
-  if (threadIdx.x == 0 && c0 >= r)
-    before = ps[window_winner(hs, c0 - 1 - g0, c0 - 1, r)];
-  __syncthreads();
-
-  // emitted columns by ballots in segments q * kRWarps + warp, which run
-  // in column order
-  uint32_t em[kRPer];
-#pragma unroll
-  for (int q = 0; q < kRPer; ++q) {
-    const int e = q * kRWarps + warp;
-    em[q] = 0;
-    if (q < nq) {
-      uint32_t prev = __shfl_up_sync(0xFFFFFFFFu, wp[q], 1);
-      if (lane == 0) prev = e > 0 ? edge[e - 1] : before;
-      const int col = c0 + threadIdx.x + q * kRThreads;
-      em[q] = __ballot_sync(0xFFFFFFFFu,
-                            full[q] && (col == r - 1 || wp[q] != prev));
-    }
-    if (lane == 0) seg[e] = __popc(em[q]);
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int agg = segment_scan<kRSegs>(seg, 0, Sum());
-    const int c = chunks == 1 ? 0 : look_back(status, tile, j, agg, 0, Sum());
-    if (lane == 0) {
-      shared_int = c;
-      if (c0 + ncols == n) count[row] = c + agg;  // the chunk of column n-1
-    }
-  }
-  __syncthreads();
-  const int pre = shared_int;
-#pragma unroll
-  for (int q = 0; q < kRPer; ++q) {
-    if (em[q] >> lane & 1u) {
-      const size_t at = base + pre + seg[q * kRWarps + warp] +
-                        __popc(em[q] & ((1u << lane) - 1u));
-      oH[at] = wh[q];
-      oP[at] = wp[q];
-    }
-  }
+// The final reduction level of stage 1's batch step with the record drain
+// as its store stage (replaces reduce_step, compact_pallas.py:452, call
+// :464, followed by peregrine_tpu/ops/index.py:_compact_drain (:66) with
+// assemble_records, ops/sketch.py:257): the level's emitted winners of
+// each row, the first min(count, width) of them, go as (x, y) records,
+// x = h << 8 | k and y = rid << 32 | (p >> 2) << 1 | (p >> 1 & 1), to the
+// tight stream at the device cursor, in (row, column) order, exactly as
+// reduce_step followed by drain_records writes them (writes at or past
+// max_records dropped); (c0, count) goes to count slot cursor[1]; the
+// last tile advances cursor[0] by the batch's records and cursor[1] by
+// one, so the launch has fixed arguments for a CUDA graph.  The level's
+// own planes and counts are never written.
+//
+// Bound: 8 bytes per column below n (H, P in), 16 per record out, 20 per
+// row (n, c0, rid in; two count words out): under 0.1 MB at the draft's
+// level 2, 0.03 us on 3.35 TB/s, so the launch is a chain of latencies.
+// Design: reduce_step_kernel's staging and ranking, unchanged; every
+// chunk of every row is one tile of a single decoupled look-back across
+// the batch (Records, a segmented sum of the clamped row counts), so each
+// tile learns both its row's earlier entries and the records of the rows
+// before it and stores its records at their place with no further pass.
+// Every tile takes a ticket.  Each tile's thread 0 reads the cursors
+// with acquire loads before the tile publishes anything; only tile 0's cursor[0] is used (it enters the
+// chain as the base), and the last tile, whose look-back has seen every
+// tile's publication, moves both with release stores, so no tile reads
+// a cursor that has moved.  Where drain_records re-read the counts, read
+// the cursor, re-read (H, P), fenced and took an atomic in a second
+// launch, the records leave the registers that ranked them.
+__global__ void __launch_bounds__(kRThreads)
+reduce_drain_kernel(const uint32_t* __restrict__ H,
+                    const uint32_t* __restrict__ P,
+                    const int32_t* __restrict__ n_in,
+                    const long long* __restrict__ rids,
+                    const int32_t* __restrict__ c0, int* __restrict__ status,
+                    int* __restrict__ stale, int stale_words,
+                    unsigned long long* cursor, ulonglong2* __restrict__ out,
+                    int32_t* __restrict__ counts_out, int L, int r, int chunks,
+                    int k, int width, long long max_records, int max_slots,
+                    int counts_ld) {
+  reduce_level<true>(H, P, n_in, status, stale, stale_words, nullptr,
+                     nullptr, nullptr, L, r, chunks,
+                     DrainArgs{rids, c0, cursor, out, counts_out, k, width,
+                               max_records, max_slots, counts_ld});
 }
 
 // Up to kMaxPlanes planes of 4- or 8-byte elements compacted by one mask;
@@ -1753,6 +1977,101 @@ gather_codes_kernel(const uint8_t* __restrict__ fw, long long n_fw,
   }
 }
 
+// --- gather_build_stream: build_stream from the packed seqdb -------------
+//
+// build_stream of gather_codes' windows (strand 0, fill 4), in one launch
+// (replaces peregrine_tpu/ops/dbgather.py:gather_codes (:233) followed by
+// build_stream, compact_pallas.py:230, call :243): the same (H, P, dest,
+// n) as build_stream_kernel on the codes plane pg_gather_codes would
+// write, with the same look-back.  The window of row b starts at base
+// goff[b] + kGuardBases of the packed planes (fw: 4 bases a byte, amb: 8);
+// a column is 4 where its amb bit is set or it lies at or past lens[b],
+// its 2-bit code elsewhere; a byte index past a plane's end reads its
+// last byte (as plane_word clamps), and the planes may be views into
+// larger buffers.  lens[b] is cut to 32 bits for build_stream's length,
+// as the step's lengths are.
+//
+// Bound: 0.375 bytes per column in (the packed planes), 12 out (H, P,
+// dest) and 20 per row (goff, lens in, n out): 12.98 MB, 3.87 us at B=64,
+// L=16,384 on 3.35 TB/s, where the two launches moved 2 bytes a column
+// more through the codes plane.  Design: a block stages, by cp.async, the
+// bytes of fw and amb that cover its chunk and the k - 1 halo (about
+// 1,030 and 515 bytes) in its transpose buffer, which the build does not
+// use until its stores, unpacks them into the codes buffer
+// build_stream_kernel stages into, and runs build_stream_chunk.
+constexpr int kFwStage = (15 + (kChunk + kMaxK - 1 + 3) / 4 + 1 + 15) / 16 * 16;
+constexpr int kAmbStage =
+    (15 + (kChunk + kMaxK - 1 + 7) / 8 + 1 + 15) / 16 * 16;
+static_assert(kFwStage + kAmbStage <= 4 * 2 * kTransposed,
+              "the packed bytes fit the transpose buffer");
+
+__global__ void __launch_bounds__(kChunkThreads, 3)
+gather_build_stream_kernel(const uint8_t* __restrict__ fw, long long n_fw,
+                           const uint8_t* __restrict__ amb, long long n_amb,
+                           const long long* __restrict__ goff,
+                           const long long* __restrict__ lens,
+                           int* __restrict__ status, int* __restrict__ stale,
+                           int stale_words, uint32_t* __restrict__ H,
+                           uint32_t* __restrict__ P,
+                           int32_t* __restrict__ dest,
+                           int32_t* __restrict__ n_out, int L, int k,
+                           int chunks) {
+  __shared__ __align__(16) uint8_t cs[kChunk + 32];
+  __shared__ __align__(16) uint32_t tb[2 * kTransposed];
+  __shared__ Stream scratch[kChunkWarps];
+  __shared__ int ticket;
+  __shared__ Stream carried;
+
+  const int tile = take_ticket(status, &ticket);
+  clear_stale(stale, stale_words);
+  const int row = tile / chunks, j = tile - row * chunks;
+  const int c0 = j * kChunk, ncols = min(kChunk, L - c0);
+  const long long len = lens[row];
+  const int g0 = max(0, c0 - (k - 1));
+  const int E = c0 + ncols - g0;                        // staged columns
+  const long long q0 = goff[row] + kGuardBases + g0;  // column g0's base
+  // the planes' bytes under columns [g0, g0 + E), clamped to the planes
+  const long long f_lo = min(max(q0 >> 2, 0LL), n_fw - 1);
+  const long long f_hi = min(max((q0 + E - 1) >> 2, 0LL), n_fw - 1);
+  const long long a_lo = min(max(q0 >> 3, 0LL), n_amb - 1);
+  const long long a_hi = min(max((q0 + E - 1) >> 3, 0LL), n_amb - 1);
+  uint8_t* fs = reinterpret_cast<uint8_t*>(tb);
+  uint8_t* as = fs + kFwStage;
+  const int offF = stage_async(fs, fw + f_lo, (int)(f_hi - f_lo) + 1);
+  const int offA = stage_async(as, amb + a_lo, (int)(a_hi - a_lo) + 1);
+  // columns at or past `in` are past the length: fill
+  const int in = (int)min(max(len - g0, 0LL), (long long)E);
+  cp_async_wait_all();
+  __syncthreads();
+  if (q0 >= 0 && (q0 + E - 1) >> 2 < n_fw && (q0 + E - 1) >> 3 < n_amb) {
+    // block-uniform: no byte index to clamp, so 32-bit bit addresses in
+    // the staged bytes (column g0's at fq in fs, at aq in as)
+    const int fq = 8 * offF + 2 * (int)(q0 & 3);
+    const int aq = 8 * offA + (int)(q0 & 7);
+    for (int i = threadIdx.x; i < E; i += kChunkThreads) {
+      const int x = fq + 2 * i, y = aq + i;
+      const uint32_t code = fs[x >> 3] >> (x & 7) & 3u;
+      const uint32_t a = as[y >> 3] >> (y & 7) & 1u;
+      cs[i] = (a || i >= in) ? 4 : (uint8_t)code;
+    }
+  } else {
+#pragma unroll 1
+    for (int i = threadIdx.x; i < E; i += kChunkThreads) {
+      const long long q = q0 + i;
+      const long long fb = min(max(q >> 2, 0LL), n_fw - 1);
+      const long long ab = min(max(q >> 3, 0LL), n_amb - 1);
+      const uint32_t code =
+          fs[offF + (int)(fb - f_lo)] >> (2 * (q & 3)) & 3u;
+      const uint32_t a = as[offA + (int)(ab - a_lo)] >> (q & 7) & 1u;
+      cs[i] = (a || i >= in) ? 4 : (uint8_t)code;
+    }
+  }
+  __syncthreads();  // the codes are in place; tb is free again
+  build_stream_chunk(cs, g0, tile, j, c0, ncols, (size_t)row * L, (int)len,
+                     status, H, P, dest, n_out, row, k, chunks, tb, scratch,
+                     &carried);
+}
+
 // --- drain_records: padded rows -> one tight record stream ---------------
 //
 // Replaces the XLA code of peregrine_tpu/ops/index.py:_compact_drain (:66)
@@ -1983,6 +2302,44 @@ int pg_gather_codes(const void* fw, long long n_fw, const void* amb,
       (const uint8_t*)fw, n_fw, (const uint8_t*)amb, n_amb,
       (const long long*)goff, (const long long*)lens, (const int32_t*)strand,
       (uint8_t*)out, B, L, fill);
+  return (int)cudaGetLastError();
+}
+
+int pg_gather_build_stream(const void* fw, long long n_fw, const void* amb,
+                           long long n_amb, const void* goff,
+                           const void* lens, void* status, void* stale,
+                           int stale_words, void* H, void* P, void* dest,
+                           void* n_out, int B, int L, int k, void* stream) {
+  if (k < 1 || k > kMaxK || stale_words % kSlot || n_fw < 1 || n_amb < 1 ||
+      L % 8 || L > kGuardBases)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (L + kChunk - 1) / kChunk;
+  gather_build_stream_kernel<<<B * chunks, kChunkThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (const uint8_t*)fw, n_fw, (const uint8_t*)amb, n_amb,
+      (const long long*)goff, (const long long*)lens, (int*)status,
+      (int*)stale, stale_words, (uint32_t*)H, (uint32_t*)P, (int32_t*)dest,
+      (int32_t*)n_out, L, k, chunks);
+  return (int)cudaGetLastError();
+}
+
+int pg_reduce_drain(const void* H, const void* P, const void* n_in,
+                    const void* rids, const void* c0, void* status,
+                    void* stale, int stale_words, void* cursor, void* out,
+                    void* counts_out, int B, int L, int r, int k, int width,
+                    long long max_records, int max_slots, int counts_ld,
+                    void* stream) {
+  if (r < 2 || r > kMaxR || stale_words % kSlot || L < 1 || L >= (1 << 25) ||
+      width < 0 || width > L || (counts_out && counts_ld < B) ||
+      ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (L + kRChunk - 1) / kRChunk;
+  reduce_drain_kernel<<<B * chunks, kRThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)H, (const uint32_t*)P, (const int32_t*)n_in,
+      (const long long*)rids, (const int32_t*)c0, (int*)status, (int*)stale,
+      stale_words, (unsigned long long*)cursor, (ulonglong2*)out,
+      (int32_t*)counts_out, L, r, chunks, k, width, max_records, max_slots,
+      counts_ld);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,9 @@
 """Native host runtime: ctypes bindings to the C++ alignment kernels.
 
-A copy of peregrine_tpu/native/__init__.py with one change: the C++
-sources are read by path from the JAX package (they are compiled, never
-imported), and the shared object is built on first use into
-peregrine_tpu_torch/build/ (see _build.build_shared), so this package
-neither imports the JAX package nor writes into it.
+A copy of peregrine_tpu/native/__init__.py with one change: the shared
+object is built on first use from this package's copies of the C++
+sources (peregrine_tpu_torch/native/*.cpp, byte for byte the JAX
+package's) into peregrine_tpu_torch/build/ (see _build.build_shared).
 """
 
 from __future__ import annotations
@@ -16,8 +15,7 @@ import numpy as np
 
 from .._build import build_shared
 
-_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "peregrine_tpu", "native")
+_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = [os.path.join(_DIR, "dw_align.cpp"),
         os.path.join(_DIR, "consensus.cpp"),
         os.path.join(_DIR, "overlap_replay.cpp"),

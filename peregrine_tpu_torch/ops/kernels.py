@@ -27,6 +27,13 @@ package's XLA code around the kernels:
   gather_codes    <- peregrine_tpu/ops/dbgather.py:gather_codes (:233),
                      re-exported by ops/dbgather.py with GUARD_BASES
 
+and two fuse those into their neighbours on the k <= 16 main path, where
+the step runs them in place of the pairs they compute:
+
+  gather_build_stream <- gather_codes then build_stream (pallas_call :243)
+  reduce_drain        <- the final reduce_step (pallas_call :464) then
+                         drain_records
+
 On a CUDA tensor a function launches its kernel from
 csrc/shimmer_kernels.cu (built with nvcc for sm_90a on first use, bound
 through a plain C interface with ctypes) and counts the launch in its
@@ -37,13 +44,14 @@ device raises.
 
 What bounds the kernels on an H100: device-memory bytes (each reads and
 writes a few bytes per column once).  build_stream, emit_mask,
-reduce_step, compact_planes, wide_stream and reduce_wide split rows into
-chunks (CHUNK columns, REDUCE_CHUNK for reduce_step, COMPACT_CHUNK for
-compact_planes, REDUCE_WIDE_CHUNK for reduce_wide), one block each, and
-carry row prefixes across chunks by a decoupled look-back over a zeroed
-status buffer; each launch zeroes the one the launch before it used, so
-the wrappers alternate two (`_call_chunked`).  wide_emit needs no row
-prefix.  See the source note in the .cu file.
+reduce_step, compact_planes, wide_stream, reduce_wide and the fused pair
+split rows into chunks (CHUNK columns, REDUCE_CHUNK for reduce_step and
+reduce_drain, COMPACT_CHUNK for compact_planes, REDUCE_WIDE_CHUNK for
+reduce_wide), one block each, and carry row prefixes across chunks by a
+decoupled look-back over a zeroed status buffer (reduce_drain across
+the batch's rows too); each launch zeroes the one the launch before it
+used, so the wrappers alternate two (`_call_chunked`).  wide_emit needs
+no row prefix.  See the source note in the .cu file.
 
 Conventions: torch has no usable uint32 (no shifts, compares or minimum),
 so the u32 planes ride in int32 tensors holding the same bits; the plain
@@ -96,6 +104,10 @@ SIGNATURES = {
     "pg_gather_codes": [_VP, _I64, _VP, _I64] + [_VP] * 4 + [_INT] * 3
     + [_VP],
     "pg_drain_records": [_VP] * 8 + [_INT] * 5 + [_I64] + [_INT] * 2 + [_VP],
+    "pg_gather_build_stream": [_VP, _I64, _VP, _I64] + [_VP] * 4 + [_INT]
+    + [_VP] * 4 + [_INT] * 3 + [_VP],
+    "pg_reduce_drain": [_VP] * 7 + [_INT] + [_VP] * 3 + [_INT] * 5 + [_I64]
+    + [_INT] * 2 + [_VP],
 }
 # The chunked kernels' layout (kChunk, kRChunk, kCChunk, kWRChunk and
 # kSlot in the .cu file; tests check they agree): columns per block of
@@ -857,6 +869,53 @@ def gather_codes_plain(pdb: PackedSeqDB, goff: torch.Tensor,
     return out.to(torch.uint8)
 
 
+def gather_build_stream_plain(pdb: PackedSeqDB, goff: torch.Tensor,
+                              lens: torch.Tensor, L: int, k: int):
+    """Plain version of gather_build_stream: the two plain versions."""
+    codes = gather_codes_plain(pdb, goff, lens, None, L, 4)
+    return build_stream_plain(codes, lens.to(codes.device, torch.int32), k)
+
+
+def gather_build_stream(pdb: PackedSeqDB, goff: torch.Tensor,
+                        lens: torch.Tensor, L: int, *, k: int):
+    """build_stream(gather_codes(pdb, goff, lens, None, L, fill=4), lens
+    as int32, k=k) in one launch: the [B] strand-0 windows of the packed
+    seqdb (goff, lens: [B] int64 on the planes' device, as the batch
+    step's metas hold them) -> (H, P, dest, n), build_stream's stream
+    planes.  On a CUDA card one pg_gather_build_stream launch (counted in
+    gather_build_stream.launches), with build_stream's look-back status;
+    on the CPU gather_build_stream_plain."""
+    if not 0 < k <= 16:
+        raise ValueError(f"gather_build_stream: k={k} outside 1..16")
+    if L % 8 or not 0 <= L <= GUARD_BASES:
+        raise ValueError(f"gather_build_stream: L={L} not a multiple of 8 "
+                         f"in 0..{GUARD_BASES}")
+    B = goff.shape[0]
+    _check(goff, torch.int64, (B,), "goff")
+    _check(lens, torch.int64, (B,), "lens")
+    if _route(pdb.fw, pdb.amb, goff, lens) == "cpu":
+        return gather_build_stream_plain(pdb, goff, lens, L, k)
+    if not (pdb.fw.is_contiguous() and pdb.amb.is_contiguous()
+            and pdb.fw.dtype == pdb.amb.dtype == torch.uint8):
+        raise ValueError("gather_build_stream: contiguous uint8 planes")
+    dev = pdb.fw.device
+    H = torch.empty((B, L), dtype=torch.int32, device=dev)
+    P = torch.empty_like(H)
+    dest = torch.empty_like(H)
+    n = torch.empty(B, dtype=torch.int32, device=dev)
+    if B and L:
+        _call_chunked(library().pg_gather_build_stream, B, L, dev,
+                      (pdb.fw, pdb.fw.numel(), pdb.amb, pdb.amb.numel(),
+                       goff, lens), (H, P, dest, n), B, L, k)
+        gather_build_stream.launches += 1
+    else:
+        n.zero_()
+    return H, P, dest, n
+
+
+gather_build_stream.launches = 0
+
+
 # --- drain_records: stage 1's tight record stream -----------------------
 
 def assemble_records(oH: torch.Tensor, oP: torch.Tensor, count: torch.Tensor,
@@ -946,8 +1005,70 @@ def drain_records(a: torch.Tensor, b: torch.Tensor, rids, count: torch.Tensor,
 
 drain_records.launches = 0
 
+
+def reduce_drain_plain(H, P, n, rids, c0, cursor, out, counts_out, *, r: int,
+                       k: int, width: int) -> None:
+    """Plain version of reduce_drain: the two plain versions."""
+    oH, oP, count = reduce_step_plain(H, P, n, r)
+    drain_records_plain(oH, oP, rids, count, c0, cursor, out, counts_out,
+                        k=k, width=width)
+
+
+def reduce_drain(H: torch.Tensor, P: torch.Tensor, n: torch.Tensor,
+                 rids: torch.Tensor, c0: torch.Tensor, cursor: torch.Tensor,
+                 out: torch.Tensor, counts_out, *, r: int, k: int,
+                 width: int) -> None:
+    """reduce_step(H, P, n, r=r) followed by drain_records of its output
+    (rids, c0, cursor, out, counts_out, k, width as there), in one launch:
+    the level's first min(count, width) winners of each row go to the
+    tight (x, y) stream at cursor[0], slot cursor[1] of counts_out gets
+    (c0, count), both cursors advance, and the level's planes are never
+    written.  H, P: [B, L] int32 (u32 bits), n: [B] int32, L >= width.
+    On a CUDA card one pg_reduce_drain launch (counted in
+    reduce_drain.launches), with a look-back across the batch's rows; on
+    the CPU reduce_drain_plain."""
+    B, L = H.shape
+    if not 1 < r < 256:
+        raise ValueError(f"reduce_drain: r={r} outside 2..255")
+    if not 0 <= width <= L or (B and not 0 < L < 1 << 25):
+        raise ValueError(f"reduce_drain: width {width} of [{B}, {L}] planes "
+                         "(rows of 1..2^25 - 1 columns)")
+    _check(H, torch.int32, (B, L), "H")
+    _check(P, torch.int32, (B, L), "P")
+    _check(n, torch.int32, (B,), "n")
+    _check(rids, torch.int64, (B,), "rids")
+    _check(c0, torch.int32, (B,), "c0")
+    _check(cursor, torch.int64, (3,), "cursor")
+    _check(out, torch.int64, (out.shape[0], 2), "out")
+    extra = []
+    if counts_out is not None:
+        S, _, Bc = counts_out.shape
+        if Bc < B:
+            raise ValueError(f"counts_out: {Bc} counts a slot, {B} rows")
+        _check(counts_out, torch.int32, (S, 2, Bc), "counts_out")
+        extra.append(counts_out)
+    if _route(H, P, n, rids, c0, cursor, out, *extra) == "cpu":
+        return reduce_drain_plain(H, P, n, rids, c0, cursor, out, counts_out,
+                                  r=r, k=k, width=width)
+    if not B:  # the plain version's empty batch: one more slot
+        cursor[1] += 1
+    else:
+        slots = 0 if counts_out is None else counts_out.shape[0]
+        _call_chunked(library().pg_reduce_drain, B, L, H.device,
+                      (H, P, n, rids, c0),
+                      (cursor, out, 0 if counts_out is None else counts_out),
+                      B, L, r, k, width, out.shape[0], slots,
+                      0 if counts_out is None else counts_out.shape[2],
+                      chunk=REDUCE_CHUNK)
+        reduce_drain.launches += 1
+    return None
+
+
+reduce_drain.launches = 0
+
 KERNELS = (build_stream, move_plane, emit_mask, reduce_step, compact_planes,
-           wide_stream, wide_emit, reduce_wide, gather_codes, drain_records)
+           wide_stream, wide_emit, reduce_wide, gather_codes, drain_records,
+           gather_build_stream, reduce_drain)
 
 
 def reset_launches() -> None:

@@ -38,7 +38,14 @@ def sketch_planes(codes: torch.Tensor, lengths: torch.Tensor, *, w: int,
     """[B, L] uint8 codes, [B] int32 lengths -> the emitted (H, P) planes
     and their counts (replaces peregrine_tpu's sketch_planes_tpu).
     Columns at or past a row's count are stale."""
-    H, P, dest, n = build_stream(codes, lengths, k=k)
+    return sketch_stream(*build_stream(codes, lengths, k=k), w=w, k=k)
+
+
+def sketch_stream(H: torch.Tensor, P: torch.Tensor, dest: torch.Tensor,
+                  n: torch.Tensor, *, w: int, k: int):
+    """The sketch after its stream build: build_stream's (H, P, dest, n)
+    (or gather_build_stream's) -> the emitted (H, P) planes and their
+    counts, as sketch_planes returns them."""
     sH, sP = move_plane(dest, H, P)
     dest2, count = emit_mask(sH, sP, n, w=w, k=k)
     return move_plane(dest2, sH, sP) + (count,)

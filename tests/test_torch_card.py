@@ -18,7 +18,13 @@ before it: their cases put lengths, counts, placeholders, final windows,
 window winners and kept columns on chunk boundaries (torch_kernel_cases),
 check what each launch published to its status and that it zeroed the
 earlier one, and repeat launches on two status buffers in turn to catch
-races.  move_plane and reduce_step write only the columns below their
+races.  The fused stage-1 pair is held to its plain composition:
+gather_build_stream on packed planes (padded, and cut to the data at a
+byte offset into larger buffers) at every gather residue mod 32 with N
+runs across chunk boundaries, reduce_drain with each tile's look-back
+publication decoded (one chain across the batch's rows), 64 batches
+through one cursor against reduce_step and drain_records.
+move_plane and reduce_step write only the columns below their
 counts, so the columns past them keep the canary; compact_planes writes
 every column, the fills past the count included.  The mesh tests put a
 two-shard mesh on one card and, where there are two, one shard on each;
@@ -1097,7 +1103,8 @@ def test_spill_sharing_on_the_card_matches_the_cpu(tmp_path, monkeypatch):
                            str(tmp_path / "cpu" / f), shallow=False), f
 
 
-# --- stage 1's batch step: gather_codes, drain_records, captured steps ----
+# --- stage 1's batch step: gather_codes, drain_records, the fused pair,
+# captured steps --------------------------------------------------------
 
 def _byte_view(a, offset: int, n: int):
     """numpy bytes a on the card as a view of n bytes starting `offset`
@@ -1217,6 +1224,238 @@ def test_drain_records_matches_plain(k):
         assert outs["cuda"][2].tolist() == [total, 3, 0]
 
 
+# --- the fused pair: gather_build_stream, reduce_drain --------------------
+
+FUSED_L = [C - 8, C, C + 8, 16384, 24576]  # multiples of 8, as the gather
+
+
+def _fused_planes(L, offset):
+    """fused_gather_seqs(L) on the card twice: upload_seqdb's planes, and
+    planes cut to the data at `offset` bytes into larger buffers with junk
+    after them; and 64 windows (every residue mod 32, lengths on and
+    beside a chunk boundary, tails past the data, N runs across chunk
+    boundaries) as int64 on the card."""
+    from peregrine_tpu_torch.io.seqdb import SeqDB
+    from peregrine_tpu_torch.ops import dbgather
+
+    seqs = kernel_cases.fused_gather_seqs(L)
+    db = SeqDB.from_reads([(str(i), s) for i, s in enumerate(seqs)])
+    fw, amb, nf, na = kernel_cases.plane_end_planes(seqs, junk=64,
+                                                    seed=offset)
+    cut = dbgather.PackedSeqDB(fw=_byte_view(fw, offset, nf),
+                               amb=_byte_view(amb, offset, na))
+    goff, lens = kernel_cases.fused_gather_windows(db.offsets, db.lengths, L,
+                                                   rows=B)
+    return ((dbgather.upload_seqdb(db.data, "cuda"), cut),
+            torch.from_numpy(goff).cuda(), torch.from_numpy(lens).cuda())
+
+
+def _gather_build_stream(pdb, goff, lens, L, k, statuses=None):
+    """One guarded pg_gather_build_stream launch (statuses as for
+    _build_stream), checked against gather_build_stream_plain and its
+    status (build_stream's look-back), and the earlier status checked
+    zeroed; returns the outputs."""
+    bufs, outs = _outputs((B, L), (B, L), (B, L), (B,))
+    (sbuf, status), (xbuf, stale) = statuses or (_status(L), _status(L, -1))
+    _launch("pg_gather_build_stream", bufs + [sbuf, xbuf], pdb.fw,
+            pdb.fw.numel(), pdb.amb, pdb.amb.numel(), goff, lens, status,
+            stale, stale.numel(), *outs, B, L, k)
+    for got, ref in zip(outs, kn.gather_build_stream_plain(pdb, goff, lens,
+                                                           L, k)):
+        assert torch.equal(got, ref)
+    _check_status(status, L, 1, _chunk_counts(outs[2], L), outs[3])
+    assert not stale.any()
+    return outs
+
+
+@pytest.mark.parametrize("L", FUSED_L)
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_gather_build_stream_matches_plain(L, offset):
+    """pg_gather_build_stream equals the plain gather and build (and the
+    two kernels it replaces, launched in turn) at k = 5 and 16, on
+    upload_seqdb's planes and on planes cut to the data at an offset
+    into larger buffers; the wrapper launches it once."""
+    from peregrine_tpu_torch.ops import dbgather
+
+    planes, goff, lens = _fused_planes(L, offset)
+    for pdb in planes:
+        for k in (5, K):
+            got = _gather_build_stream(pdb, goff, lens, L, k)
+            codes = dbgather.gather_codes(pdb, goff, lens, None, L, 4)
+            for a, b in zip(got, kn.build_stream(codes, lens.int(), k=k)):
+                assert torch.equal(a, b)
+    before = kn.gather_build_stream.launches
+    got = kn.gather_build_stream(pdb, goff, lens, L, k=K)
+    assert kn.gather_build_stream.launches == before + 1
+    for a, b in zip(got, kn.gather_build_stream_plain(pdb, goff, lens, L, K)):
+        assert torch.equal(a, b)
+
+
+def _records_op(a, b, width):
+    """reduce_drain's look-back operator (Records, RecordsOp in the .cu
+    file) on (s, f, o, c) tuples: a followed by b."""
+    if not b[0]:
+        return (a[0], a[1] if a[0] else a[1] + b[1],
+                a[2] + b[1] if a[0] else 0, a[3])
+    if not a[0]:
+        return (1, a[1] + b[1], b[2], b[3])
+    return (1, a[1], b[2], a[3] + min(width, a[2] + b[1]) + b[3])
+
+
+def _records_words(x, y):
+    return ((x >> 51) & 1, (x >> 1) & 0x1FFFFFF, (x >> 26) & 0x1FFFFFF,
+            y >> 1)
+
+
+def _check_drain_status(status, H, P, n, r, width, base):
+    """Every tile of the batch (chunk j of row b is tile b * chunks + j)
+    took a ticket and published its inclusive prefix, and each but tile 0
+    its aggregate, as (s, f, o, c) words with bit 0 set: the aggregate of
+    a row's first chunk is (1, 0, e, 0) and of a later one (0, e, 0, 0),
+    e its emitted entries; the inclusive prefixes run from tile 0's, which
+    holds the cursor base; returns the last one's record count."""
+    rows, L = H.shape
+    chunks = -(-L // RC)
+    dest = kn.reduce_columns_plain(H, P, n, r)[2]
+    e = _chunk_counts(dest, L, RC).cpu().tolist()
+    st = status.view(torch.int64).view(-1, SLOT // 2).cpu().tolist()
+    assert st[0][0] == rows * chunks and not any(st[0][1:])
+    acc = (1, 0, 0, base)
+    for t in range(rows * chunks):
+        b, j = divmod(t, chunks)
+        ax, ay, ix, iy = st[1 + t]
+        v = (1, 0, e[b][j], 0) if j == 0 else (0, e[b][j], 0, 0)
+        if t == 0:
+            assert ax == ay == 0
+        else:
+            assert ax & ay & 1 and _records_words(ax, ay) == v
+        acc = _records_op(acc, v, width)
+        assert ix & iy & 1 and _records_words(ix, iy) == acc, t
+    assert not any(any(w) for w in st[1 + rows * chunks:])
+    return acc[3] + min(width, acc[2])
+
+
+def _reduce_drain(H, P, n, r, width, base=0, statuses=None, slots=4):
+    """One guarded pg_reduce_drain launch into a stream and count slots
+    inside canary margins, its cursor at `base` and slot 1, checked
+    against reduce_drain_plain (the stream, its untouched tail, the slots
+    and the cursors) and its status, and the earlier status checked
+    zeroed; returns (stream, counts, cursor)."""
+    rows, L = H.shape
+    rng = np.random.default_rng(L + r)
+    rids = torch.from_numpy(rng.integers(0, 1 << 31, rows)).cuda()
+    c0 = n + 11
+    size = base + rows * width + 5
+    (obuf, out), (cbuf, counts) = (_guarded(size, 2, dtype=torch.int64),
+                                   _guarded(slots, 2, rows + 3))
+    cursor = torch.tensor([base, 1, 0], dtype=torch.int64, device="cuda")
+    (sbuf, status), (xbuf, stale) = statuses or (
+        _status(L, chunk=RC, rows=rows), _status(L, -1, chunk=RC, rows=rows))
+    _launch("pg_reduce_drain", [obuf, cbuf, sbuf, xbuf], H, P, n, rids, c0,
+            status, stale, stale.numel(), cursor, out, counts, rows, L, r, K,
+            width, size, slots, rows + 3)
+    want = (out.clone().fill_(CANARY), counts.clone().fill_(CANARY),
+            torch.tensor([base, 1, 0], dtype=torch.int64, device="cuda"))
+    kn.reduce_drain_plain(H, P, n, rids, c0, want[2], want[0], want[1], r=r,
+                          k=K, width=width)
+    for got, ref in zip((out, counts, cursor), want):
+        assert torch.equal(got, ref)
+    end = _check_drain_status(status, H, P, n, r, width, base)
+    assert cursor.tolist() == [end, 2, 0]
+    assert not stale.any()
+    return out, counts, cursor
+
+
+@pytest.mark.parametrize("L", REDUCE_L)
+@pytest.mark.parametrize("r", [2, R, 255])
+@pytest.mark.parametrize("ties", [False, True])
+def test_reduce_drain_across_chunks(L, r, ties):
+    """pg_reduce_drain equals reduce_step then drain_records (plain) on
+    reduce_rows' rows (n = 0, L, short of a window, on and beside a chunk
+    boundary, a winner across one, all ties, one P), at a width below
+    the counts and at the full width, from a cursor that is not 0."""
+    H, P, n = kernel_cases.reduce_rows(np.random.default_rng(L + r), B, L, r,
+                                       RC, ties)
+    H, P, n = (torch.from_numpy(x).cuda()
+               for x in (H.view(np.int32), P.view(np.int32), n))
+    for width in (min(L, 40), L):
+        _reduce_drain(H, P, n, r, width, base=123)
+
+
+def test_reduce_drain_at_the_draft_level():
+    """The draft's final level: level 2 of random codes' capped sketch at
+    the main path's shape (B=64, cap 2,048, out_cap columns)."""
+    rng = np.random.default_rng(5)
+    codes, lens = _codes(rng, 16384)
+    from peregrine_tpu_torch.ops.index import index_planes
+    H, P, c, _ = index_planes(codes, lens, torch.zeros(B, dtype=torch.int64,
+                                                       device="cuda"),
+                              w=W, k=K, r=R, levels=1, cap=2048)
+    out_w = max(64, 2048 // int((R / 2) ** 2))
+    _reduce_drain(H, P, c, R, out_w)
+
+
+def test_fused_repeated_launches_are_identical():
+    """Twenty launches of each fused kernel on the same inputs, on two
+    status buffers in turn (each launch zeroes the one before it used):
+    gather_build_stream at L = 24,576 (six chunks a row), reduce_drain at
+    L = 40,960 (fourteen chunks a row, one chain across the batch)."""
+    L = 24576
+    (pdb, _), goff, lens = _fused_planes(L, 0)
+    a, b = _status(L), _status(L, -1)
+    turns = [(a, b), (b, a)]
+    first = _gather_build_stream(pdb, goff, lens, L, K, turns[0])
+    for i in range(1, 20):
+        for got, ref in zip(_gather_build_stream(pdb, goff, lens, L, K,
+                                                 turns[i % 2]), first):
+            assert torch.equal(got, ref)
+    L = 40960
+    H, P, n = kernel_cases.reduce_rows(np.random.default_rng(9), B, L, R, RC,
+                                       True)
+    H, P, n = (torch.from_numpy(x).cuda()
+               for x in (H.view(np.int32), P.view(np.int32), n))
+    a, b = _status(L, chunk=RC), _status(L, -1, chunk=RC)
+    turns = [(a, b), (b, a)]
+    first = _reduce_drain(H, P, n, R, 300, statuses=turns[0])
+    for i in range(1, 20):
+        for got, ref in zip(_reduce_drain(H, P, n, R, 300,
+                                          statuses=turns[i % 2]), first):
+            assert torch.equal(got, ref)
+
+
+def test_reduce_drain_through_one_cursor_equals_drain_records():
+    """64 batches of 64 rows through one cursor and 64 count slots: the
+    wrapper's stream, slots and cursor equal reduce_step followed by
+    drain_records, both launched on the card, through another; one
+    launch a batch."""
+    rng = np.random.default_rng(64)
+    L, width = 2048, 227
+    n_rec = 64 * B * width
+    streams = [(torch.full((n_rec, 2), 7, dtype=torch.int64, device="cuda"),
+                torch.full((64, 2, B), -5, dtype=torch.int32, device="cuda"),
+                torch.zeros(3, dtype=torch.int64, device="cuda"))
+               for _ in range(2)]
+    before = kn.reduce_drain.launches
+    for g in range(64):
+        H, P, n = kernel_cases.reduce_rows(rng, B, L, R, RC, g % 3 == 0)
+        H, P, n = (torch.from_numpy(x).cuda()
+                   for x in (H.view(np.int32), P.view(np.int32), n))
+        rids = torch.from_numpy(rng.integers(0, 1 << 31, B)).cuda()
+        c0 = n + 3
+        out, counts, cursor = streams[0]
+        kn.reduce_drain(H, P, n, rids, c0, cursor, out, counts, r=R, k=K,
+                        width=width)
+        out, counts, cursor = streams[1]
+        oH, oP, c = kn.reduce_step(H, P, n, r=R)
+        kn.drain_records(oH, oP, rids, c, c0, cursor, out, counts, k=K,
+                         width=width)
+    torch.cuda.synchronize()
+    assert kn.reduce_drain.launches == before + 64
+    for got, ref in zip(*streams):
+        assert torch.equal(got, ref)
+    assert streams[0][2][1] == 64
+
+
 def _stage1_steps(dev, packed, batches):
     """The two shapes the captured-step test alternates: k=16 at pad 2048
     (capped) and k=28 at pad 4096 with the level-0 stream, four rows."""
@@ -1267,16 +1506,18 @@ def test_captured_steps_match_the_eager_steps():
             assert not card.counts[i, :, rows:].any()
     n0 = int(runs["cpu"][1].cursor0[0])
     assert torch.equal(runs["cuda"][1].rec0[:n0].cpu(), runs["cpu"][1].rec0[:n0])
+    # k=16: the gather and build_stream, and level 2 and the drain, fused
     names = {fn.__name__: n for fn, n in runs["cuda"][0].per_replay.items()}
-    assert names == {"gather_codes": 1, "build_stream": 1, "move_plane": 2,
-                     "emit_mask": 1, "reduce_step": 2, "drain_records": 1}
+    assert names == {"gather_build_stream": 1, "move_plane": 2,
+                     "emit_mask": 1, "reduce_step": 1, "reduce_drain": 1}
     names = {fn.__name__: n for fn, n in runs["cuda"][1].per_replay.items()}
     assert names == {"gather_codes": 1, "wide_stream": 1,
                      "compact_planes": 2, "wide_emit": 1, "reduce_wide": 2,
                      "drain_records": 2}
     # ten replays of each graph and one eager warm-up of each shape
-    assert launches["build_stream"] == launches["wide_stream"] == 11
-    assert launches["gather_codes"] == 22 and launches["drain_records"] == 33
+    assert launches["gather_build_stream"] == launches["wide_stream"] == 11
+    assert launches["reduce_drain"] == 11 and launches["build_stream"] == 0
+    assert launches["gather_codes"] == 11 and launches["drain_records"] == 22
     assert not any(bool(pair[0].any()) for pair in kn._status_pairs.values())
 
 

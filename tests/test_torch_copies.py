@@ -6,7 +6,8 @@ peregrine_tpu imports jax, so the port holds copies of the framework-free
 host modules.  Each must equal its source line for line, apart from the
 lines listed here (imports, the logger's name, docstrings, where the
 native library is built): a change to a source then fails this test
-until the copy follows it.
+until the copy follows it.  The native host library's C++ sources, which
+the port compiles from its own copies, must equal theirs byte for byte.
 """
 
 import difflib
@@ -54,17 +55,13 @@ ALLOWED = {
         "-The shared object is compiled on demand from the committed C++ sources",
         "-(g++ -O3) into this package directory; rebuilds happen automatically when",
         "-sources are newer than the binary.",
-        "+A copy of peregrine_tpu/native/__init__.py with one change: the C++",
-        "+sources are read by path from the JAX package (they are compiled, never",
-        "+imported), and the shared object is built on first use into",
-        "+peregrine_tpu_torch/build/ (see _build.build_shared), so this package",
-        "+neither imports the JAX package nor writes into it.",
+        "+A copy of peregrine_tpu/native/__init__.py with one change: the shared",
+        "+object is built on first use from this package's copies of the C++",
+        "+sources (peregrine_tpu_torch/native/*.cpp, byte for byte the JAX",
+        "+package's) into peregrine_tpu_torch/build/ (see _build.build_shared).",
         "-import subprocess",
-        "-_DIR = os.path.dirname(os.path.abspath(__file__))",
-        "+from .._build import build_shared",
         "+",
-        "+_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(",
-        '+    os.path.abspath(__file__)))), "peregrine_tpu", "native")',
+        "+from .._build import build_shared",
         '-_SO = os.path.join(_DIR, "_pgnative.so")',
         "-",
         "-",
@@ -85,6 +82,12 @@ ALLOWED = {
 }
 
 
+# the native host library's C++ sources, which the port compiles from its
+# own copies: each must equal its source byte for byte
+NATIVE_SOURCES = sorted(
+    p.name for p in (ROOT / "peregrine_tpu" / "native").glob("*.cpp"))
+
+
 def _changed_lines(source: str, copy: str) -> list[str]:
     diff = difflib.unified_diff(source.splitlines(), copy.splitlines(),
                                 lineterm="", n=0)
@@ -99,6 +102,23 @@ def test_copy_matches_its_source(module):
     assert _changed_lines(source, copy) == ALLOWED[module], (
         f"peregrine_tpu_torch/{module} drifted from peregrine_tpu/{module}: "
         "carry the source's change over, or list the line here")
+
+
+@pytest.mark.parametrize("name", NATIVE_SOURCES)
+def test_native_source_copy_is_byte_identical(name):
+    source = (ROOT / "peregrine_tpu" / "native" / name).read_bytes()
+    copy = (ROOT / "peregrine_tpu_torch" / "native" / name).read_bytes()
+    assert copy == source, (
+        f"peregrine_tpu_torch/native/{name} drifted from "
+        f"peregrine_tpu/native/{name}: copy the source over again")
+
+
+def test_native_library_builds_from_every_copy():
+    """native._SRC lists exactly the port's copies, one per source."""
+    from peregrine_tpu_torch import native
+
+    assert sorted(pathlib.Path(p).name for p in native._SRC) == NATIVE_SOURCES
+    assert len(NATIVE_SOURCES) == 12
 
 
 def test_every_copied_module_is_checked():

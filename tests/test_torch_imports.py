@@ -1,7 +1,9 @@
 """The port stands without JAX: no module of peregrine_tpu_torch (nor
 chip_smoke.py, nor the kernel cases it loads, nor the multi-process
-tests' worker) imports jax or the JAX package, every module imports with both made unimportable, and
-chip_smoke.py refuses to run without a card or outside a checkout."""
+tests' worker) imports jax or the JAX package or names a path into it,
+the native library builds from the port's own sources, every module
+imports with both made unimportable, and chip_smoke.py refuses to run
+without a card or outside a checkout."""
 
 import ast
 import os
@@ -38,6 +40,61 @@ def test_no_jax_imports(path):
     bad = [m for m in _imported(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# chip_smoke.py's citations of the TPU kernels each kernel replaces: file
+# and line names, never read
+CITATIONS = ("REPLACES", "ALIGN_REPLACES")
+
+
+def _jax_package_paths(path: pathlib.Path):
+    """The string constants of a file (docstrings and the citations aside)
+    that name the JAX package's directory or a path inside it."""
+    tree = ast.parse(path.read_text(), str(path))
+    skip = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)):
+            skip.add(id(body[0].value))
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id in CITATIONS
+                for t in node.targets):
+            skip.update(id(n) for n in ast.walk(node.value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in skip
+                and (node.value.strip("/\\") == "peregrine_tpu"
+                     or "peregrine_tpu/" in node.value
+                     or "peregrine_tpu\\" in node.value)):
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_paths_into_the_jax_package(path):
+    """Nothing of the port reads a file of the JAX package: no string
+    that could become a path into peregrine_tpu/ (its C++ sources once
+    were compiled from there)."""
+    bad = list(_jax_package_paths(path))
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_path_scan_finds_a_path_into_the_jax_package(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text('"""peregrine_tpu/ops/x.py in a docstring."""\n'
+                 'REPLACES = {"a": "peregrine_tpu/ops/x.py:1"}\n'
+                 'D = os.path.join(ROOT, "peregrine_tpu", "native")\n')
+    assert [ln for ln, _ in _jax_package_paths(f)] == [3]
+
+
+def test_native_sources_lie_in_the_port():
+    from peregrine_tpu_torch import native
+
+    assert native._SRC
+    for src in native._SRC:
+        p = pathlib.Path(src).resolve()
+        assert p.is_relative_to(PORT) and p.exists(), src
 
 
 _BLOCKED = """

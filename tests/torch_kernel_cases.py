@@ -560,3 +560,66 @@ def stage1_reads() -> list[tuple[str, bytes]]:
     s = reads[18][1]
     reads[18] = ("r18", s[:700] + b"N" * 30 + s[730:])
     return reads
+
+
+# --- the fused stage-1 kernels: gather_build_stream, reduce_drain ----------
+
+def fused_gather_seqs(L: int) -> list[bytes]:
+    """Six reads of L + 300 to L + 600 bases for gather_build_stream's
+    windows of L columns; reads 0, 2 and 4 hold N runs at read offsets
+    30-33, 1000 and c + 4 to c + 63 for each multiple c of 4,096 below L,
+    the last across column c (a chunk boundary) of every window
+    fused_gather_windows starts in them."""
+    rng = np.random.default_rng(17)
+    seqs = [bytearray(random_genome(rng, L + int(n)))
+            for n in rng.integers(300, 600, 6)]
+    for s in seqs[::2]:
+        s[30:34] = b"NNNN"
+        s[1000:1001] = b"N"
+        for c in range(4096, L, 4096):
+            s[c + 4:c + 64] = b"N" * 60
+    return [bytes(s) for s in seqs]
+
+
+def fused_gather_windows(offsets: np.ndarray, lengths: np.ndarray, L: int,
+                         rows: int = 40):
+    """Strand-0 windows of L columns (as stage 1 gathers them) in the reads
+    at (offsets, lengths): one for each residue of the gather start mod
+    32, read 16 + (0..31) bases in, with lengths 0, 1, 15, CHUNK - 1,
+    CHUNK, CHUNK + 1, L - 1 and L in turn; the last read's tails of 1, 17
+    and 200 bases, which end on the data's last base (the windows read on
+    past the planes' data); then, up to `rows`, windows of length L read
+    16 to 47 bases into reads 0, 2 and 4 (across their N runs at the
+    chunk boundary).  Reads must be longer than L + 47.  Returns (goff,
+    lens), both int64."""
+    rng = np.random.default_rng(L)
+    cycle = (0, 1, 15, 4095, 4096, 4097, L - 1, L)
+    goff, lens = [], []
+    for res in range(32):
+        rid = res % len(offsets)
+        base = int(offsets[rid]) + 16
+        goff.append(base + (res - base) % 32)
+        lens.append(cycle[res % len(cycle)])
+    end = int(offsets[-1] + lengths[-1])
+    for ln in (1, 17, 200):
+        goff.append(end - ln)
+        lens.append(ln)
+    while len(goff) < rows:
+        rid = 2 * int(rng.integers(0, 3))
+        goff.append(int(offsets[rid]) + int(rng.integers(16, 48)))
+        lens.append(L)
+    return np.array(goff, np.int64), np.array(lens, np.int64)
+
+
+def reduce_drain_batches(G: int, B: int, L: int, r: int, chunk: int):
+    """G batches of reduce_drain input: reduce_rows' (H, P, n) (n = 0, L,
+    short of a window, on a chunk boundary, ...; ties in the second
+    batch), sketch counts c0 >= n and rids below 2^20."""
+    rng = np.random.default_rng(r + L)
+    out = []
+    for g in range(G):
+        H, P, n = reduce_rows(rng, B, L, r, chunk, ties=g == 1)
+        c0 = (n + rng.integers(0, 50, B)).astype(np.int32)
+        rids = rng.integers(0, 1 << 20, B).astype(np.int64)
+        out.append((H, P, n, c0, rids))
+    return out
