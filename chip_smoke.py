@@ -23,8 +23,10 @@ Phases, in order; any failure raises and exits non-zero:
      two levels at L=2048, the sketch cap, and on one row of 131,072
      columns; compact_planes, whole rows with fills and counts, at the
      shapes and keep densities of each of its call sites on the k=28
-     path, B=64 L=16384 keep 0.98 with planes of 8+8+4 bytes being the
-     main one, and on one row of 131,072 columns, each shape with its
+     path, B=64 L=16384 keep 0.023 with planes of 8+8 bytes (the wide
+     sketch's output) being the main one, on one row of 131,072 columns
+     and at the former stream site's keep 0.98 with planes of 8+8+4
+     bytes, each shape with its
      bytes, bound and share of it), and the chunked kernels on the
      chunk-boundary and tie-heavy rows of tests/torch_kernel_cases.py
      (build_stream and emit_mask at L = CHUNK - 1, CHUNK + 1, 16384 and
@@ -34,13 +36,14 @@ Phases, in order; any failure raises and exits non-zero:
      planes of 8+8+4, 8+8 and 4+8+4 bytes), after which the look-back
      status that the next launch will take must be zeroed; the wide
      route's three kernels at k=28, w=80, r=6, B=64, each shape with its
-     bytes, bound, share and plain ms: wide_stream at L = 16384 (the
-     main shape), 24576 and 40960, wide_emit on the stream compacted from
-     the same codes, reduce_wide on the main shape's sketch capped at
-     2048, uncapped (n ~ 370; level 1 is the main shape) and both levels,
-     and on one row of 131,072, then tests/torch_kernel_cases.py's wide
-     rows (wide_stream at L = CHUNK - 1, CHUNK + 1, 16384 and k = 17, 28;
-     wide_emit there at w = 1, 5, 80, 255 with and without ties;
+     bytes, bound, share and plain ms: wide_stream (the compacted
+     stream, below its counts) at L = 16384 (the main shape), 24576 and
+     40960, wide_emit on that stream, reduce_wide on the main shape's
+     sketch capped at 2048, uncapped (n ~ 370; level 1 is the main shape)
+     and both levels, and on one row of 131,072, then
+     tests/torch_kernel_cases.py's wide rows (wide_stream at L =
+     CHUNK - 1, CHUNK + 1, 16384 and k = 17, 28; wide_emit there at
+     w = 1, 2, 3, 5, 31-33, 79-81, 255 with and without ties;
      reduce_wide at L = REDUCE_WIDE_CHUNK - 1, REDUCE_WIDE_CHUNK + 1, 5000
      and r = 2, 6, 255); stage 1's batch step's two: gather_codes on 64
      E. coli-class reads at L = 8192, 16384 (the main shape) and 24576,
@@ -231,7 +234,7 @@ REPLACES = {
     "reduce_step": "peregrine_tpu/ops/compact_pallas.py:464",
     "compact_planes": "peregrine_tpu/ops/compact_pallas.py:391",
     # the wide route's XLA code between and around its compactions
-    "wide_stream": "peregrine_tpu/ops/sketch.py:383",
+    "wide_stream": "peregrine_tpu/ops/sketch.py:371",
     "wide_emit": "peregrine_tpu/ops/sketch.py:425",
     "reduce_wide": "peregrine_tpu/ops/reduce.py:26",
     # stage 1's batch step around the kernels
@@ -388,6 +391,14 @@ def prefix_pairs(out_a, out_b, counts):
     return [(out_a[valid], out_b[valid])]
 
 
+def stream_pairs(got, want):
+    """(kernel, plain) pairs of wide_stream's compacted stream: each
+    plane's prefixes below the counts (the kernel leaves the columns past
+    them stale) and the counts."""
+    return [p for a, b in zip(got[:3], want[:3])
+            for p in prefix_pairs(a, b, want[3])] + [(got[3], want[3])]
+
+
 def load_kernel_cases():
     """tests/torch_kernel_cases.py, the chunked kernels' edge-case rows."""
     import importlib.util
@@ -483,23 +494,24 @@ def phase_kernels(results: dict) -> None:
         f"1/5/{W}/255 with and without ties")
 
     # compact_planes at its call sites' shapes on the k=28 path: the wide
-    # sketch's stream (x, y, run) and output (x, y) compactions and
-    # reduce_impl's two levels, uncapped as --with-L0-index runs them, on
-    # the reads' buckets; a level capped at 2,048 columns, as stage 1 runs
-    # it without the level-0 index; stage 4's contig sketch (L=40,960) and
-    # a reduction level of one contig row; then further shapes
+    # sketch's output (x, y) compaction and reduce_impl's two levels,
+    # uncapped as --with-L0-index runs them, on the reads' buckets; a
+    # level capped at 2,048 columns, as stage 1 runs it without the
+    # level-0 index; stage 4's contig sketch (L=40,960) and a reduction
+    # level of one contig row; then further shapes, among them the
+    # sketch's stream (x, y, run), which wide_stream now compacts itself
     compact_shapes = []
     for site, rows, L, density, widths in (
-            ("stream", B, MAIN_L, 0.98, (8, 8, 4)),  # the main shape
-            ("stream", B, MAIN_L, 0.92, (8, 8, 4)),
-            ("stream", B, 24576, 0.92, (8, 8, 4)),
-            ("output", B, MAIN_L, 0.023, (8, 8)),
+            ("output", B, MAIN_L, 0.023, (8, 8)),  # the main shape
             ("reduce level 1", B, MAIN_L, 0.007, (8, 8)),
             ("reduce level 2", B, MAIN_L, 0.002, (8, 8)),
             ("reduce level 1, capped", B, CAP, 0.05, (8, 8)),
-            ("contig stream", B, 40960, 0.98, (8, 8, 4)),
             ("contig output", B, 40960, 2 / (W + 1), (8, 8)),
             ("contig level", 1, 131072, 2 / (R + 1), (8, 8)),
+            ("other", B, MAIN_L, 0.98, (8, 8, 4)),
+            ("other", B, MAIN_L, 0.92, (8, 8, 4)),
+            ("other", B, 24576, 0.92, (8, 8, 4)),
+            ("other", B, 40960, 0.98, (8, 8, 4)),
             ("other", B, 8192, 0.98, (8, 8, 4)),
             ("other", B, 8192, 2 / (W + 1), (8, 8, 4)),
             ("other", B, MAIN_L, 2 / (W + 1), (8, 8, 4)),
@@ -611,7 +623,7 @@ def phase_kernels(results: dict) -> None:
         check(st["err"] == 0, f"{name} disagrees with its plain version "
               f"(max_abs_err {st['err']})")
         main = {"reduce_step": CAP,  # level 1
-                "compact_planes": (MAIN_L, 0.98),
+                "compact_planes": (MAIN_L, 0.023),
                 "reduce_wide": WIDE_LEVEL,
                 "drain_records": DRAIN_MAIN,
                 "reduce_drain": FUSED_DRAIN}.get(name, MAIN_L)
@@ -879,14 +891,14 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
                        results) -> None:
     """Phase 3's wide route (k=28, w=80, r=6, B=64): wide_stream on reads
     at L = 16,384 (the main shape), 24,576 and stage 4's contig batches at
-    40,960; wide_emit on the stream compact_planes makes of the same
-    codes; reduce_wide on the sketch of the main shape, capped at 2,048
-    (stage 1 without the level-0 index), uncapped with n ~ 370 as
-    --with-L0-index runs both levels, and on one row of 131,072 as stage
-    4's contig level; then tests/torch_kernel_cases.py's chunk-boundary,
-    tie-heavy rows.  Each shape is held to the plain version exactly and
-    timed, with the bytes it must move and its bound; results[name]
-    ["shapes"] lists them."""
+    40,960, held below its counts (it leaves the columns past them stale);
+    wide_emit on that stream; reduce_wide on the sketch of the main shape,
+    capped at 2,048 (stage 1 without the level-0 index), uncapped with
+    n ~ 370 as --with-L0-index runs both levels, and on one row of
+    131,072 as stage 4's contig level; then tests/torch_kernel_cases.py's
+    chunk-boundary, tie-heavy rows.  Each shape is held to the plain
+    version exactly and timed, with the bytes it must move and its bound;
+    results[name]["shapes"] lists them."""
     import torch
 
     from peregrine_tpu_torch.ops import kernels as kn
@@ -894,9 +906,10 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
     B = 64
     shapes = {name: [] for name in WIDE}
 
-    def shape(name, site, rows, L, fn, plain, nbytes, main=None):
+    def shape(name, site, rows, L, fn, plain, nbytes, main=None,
+              pairs=zip):
         got, want = fn(), plain()
-        note(name, zip(got, want))
+        note(name, pairs(got, want))
         ms, pms = kernel_ms(fn), plain_ms(plain)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         shapes[name].append({
@@ -916,13 +929,14 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
         c, ln, rd = on_card(codes, lens, np.arange(B, dtype=np.int64))
         site = "contig batch" if L == 40960 else "read bucket"
         main = MAIN_L if L == MAIN_L else None
-        x, y, li, keep = shape(
+        # codes, lengths and rids in; the kept entries' 20 bytes and the
+        # counts out
+        kept = int(kn.wide_stream_compact_plain(c, ln, rd, K_WIDE)[3].sum())
+        sx, sy, sl, n = shape(
             "wide_stream", site, B, L,
             lambda: kn.wide_stream(c, ln, rd, k=K_WIDE),
-            lambda: kn.wide_stream_plain(c, ln, rd, K_WIDE),
-            22 * B * L + 12 * B, main)
-        (sx, sy, sl), n = kn.compact_planes_plain(keep, (x, y, li),
-                                                  (-1, -1, 0))
+            lambda: kn.wide_stream_compact_plain(c, ln, rd, K_WIDE),
+            B * L + 20 * kept + 16 * B, main, pairs=stream_pairs)
         emit, = shape(
             "wide_emit", site, B, L,
             lambda: (kn.wide_emit(sx, sl, n, w=W, k=K_WIDE),),
@@ -963,13 +977,14 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
     # window winners on the chunk boundaries
     for L in (kn.CHUNK - 1, kn.CHUNK + 1, MAIN_L):
         for k in (17, K_WIDE):
-            codes, lens = kernel_cases.wide_stream_codes(rng, B, L, k,
-                                                         kn.CHUNK)
+            codes, lens = kernel_cases.wide_compact_codes(rng, B, L, k,
+                                                          kn.CHUNK)
             c, ln, rd = on_card(codes, lens, rng.integers(
                 0, 2**40, B).astype(np.int64))
-            note("wide_stream", zip(kn.wide_stream(c, ln, rd, k=k),
-                                    kn.wide_stream_plain(c, ln, rd, k)))
-        for w in (1, 5, W, 255):
+            note("wide_stream", stream_pairs(
+                kn.wide_stream(c, ln, rd, k=k),
+                kn.wide_stream_compact_plain(c, ln, rd, k)))
+        for w in (1, 2, 3, 5, 31, 32, 33, 79, W, 81, 255):
             for ties in (False, True):
                 sx, sl, n = kernel_cases.wide_emit_stream(
                     rng, B, L, w, K_WIDE, kn.CHUNK, ties)
@@ -998,7 +1013,8 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
                 f"of the bound, plain {sh['plain_ms']:.4f} ms")
     say(f"kernel checks: wide_stream on the chunk-boundary rows at L "
         f"{kn.CHUNK - 1}/{kn.CHUNK + 1}/{MAIN_L}, k 17/{K_WIDE}; wide_emit "
-        f"at w 1/5/{W}/255 with and without ties; reduce_wide at L "
+        f"at w 1/2/3/5/31/32/33/79/{W}/81/255 with and without ties; "
+        f"reduce_wide at L "
         f"{WC - 1}/{WC + 1}/5000, r 2/{R}/255 with and without ties")
 
 
@@ -1285,8 +1301,8 @@ def plain_kernels():
         "emit_mask": lambda h, p, n, *, w, k: kn.emit_mask_plain(h, p, n, w, k),
         "reduce_step": lambda h, p, n, *, r: kn.reduce_step_plain(h, p, n, r),
         "compact_planes": kn.compact_planes_plain,
-        "wide_stream": lambda c, ln, rd, *, k: kn.wide_stream_plain(c, ln, rd,
-                                                                    k),
+        "wide_stream": lambda c, ln, rd, *, k: kn.wide_stream_compact_plain(
+            c, ln, rd, k),
         "wide_emit": lambda sx, sl, n, *, w, k: kn.wide_emit_plain(sx, sl, n,
                                                                    w, k),
         "reduce_wide": lambda x, y, c, *, r: kn.reduce_wide_plain(x, y, c, r),
@@ -1499,8 +1515,8 @@ def phase_index_profile(reads, k: int) -> None:
     for key, ms in sorted(per.items(), key=lambda kv: -kv[1])[:24]:
         say(f"    {ms:9.3f} ms {count[key]:6d}x  {key[:100]}")
     # each kernel's launches by template instance and grid, which tell its
-    # shapes apart (compact_planes: <8, 8, 4> the sketch's stream, <8, 8, 0>
-    # its output)
+    # shapes apart (compact_planes: <8, 8, 0> the wide sketch's output and
+    # the uncapped reduction levels)
     by_grid: dict = {}
     for e in dev:
         name = next((n for n in REPLACES if traced(n, e["name"])), None)

@@ -9,8 +9,9 @@
 //   pg_compact_planes <- compact_planes (compact_pallas.py:365, call :391)
 //
 // and five replace XLA code of the JAX package: the wide (k > 16) route's
-// pg_wide_stream, pg_wide_emit and pg_reduce_wide (see their notes), and
-// stage 1's batch step around the kernels:
+// pg_wide_stream (which also does the wide sketch's stream compaction, a
+// compact_planes call of the JAX package), pg_wide_emit and pg_reduce_wide
+// (see their notes), and stage 1's batch step around the kernels:
 //
 //   pg_gather_codes   <- peregrine_tpu/ops/dbgather.py:gather_codes (:233)
 //   pg_drain_records  <- peregrine_tpu/ops/index.py:_compact_drain (:66)
@@ -385,12 +386,13 @@ __device__ __forceinline__ void cp_async_wait_one() {
 // first or last group by plain copies (all loads issued before any
 // store, so they overlap).  Returns off.  The caller, a block of
 // kChunkThreads threads, waits with cp_async_wait_all() and a barrier.
+template <int kThreads = kChunkThreads>
 __device__ int stage_async(uint8_t* dst, const uint8_t* src, int nbytes) {
   const uintptr_t a = (uintptr_t)src;
   const int off = (int)(a & 15);
   const uintptr_t a0 = a - off;
   const int groups = (off + nbytes + 15) >> 4;
-  for (int g = threadIdx.x; g < groups; g += kChunkThreads) {
+  for (int g = threadIdx.x; g < groups; g += kThreads) {
     const int lo = 16 * g - off;  // the group's first byte, relative to src
     if (lo >= 0 && lo + 16 <= nbytes) {
       cp_async16(dst + 16 * g, (const void*)(a0 + 16 * g));
@@ -1302,17 +1304,17 @@ __device__ __forceinline__ void plane_store(const Planes& pl, int p,
 // Stable compaction of up to three planes of a row by one keep mask
 // (replaces compact_planes, compact_pallas.py:365): the kept entries go
 // to the row front in their order, every column at or past the row's
-// count takes the plane's fill (the wide sketch reads past the count: its
-// sliding minimum runs over whole rows), and the count is exact.  All
+// count takes the plane's fill (the wide sketch's output and the
+// reduction levels return whole rows), and the count is exact.  All
 // planes move in one launch; the TPU kernel ran one call per u32 half of
 // each plane because its VMEM held one [8, L] working set at a time.
 //
 // Bound: 1 byte of keep per column, the kept entries of each plane read
 // once, and every column of each plane written once (the fills are part
-// of the result): 41 B per column for the stream compaction (x, y, run;
-// keep 0.98), 12.7 us at B=64, L=16,384 on 3.35 TB/s, and about 17 B per
-// column for the sparse output and reduction compactions (x, y), where
-// the fills are nearly all of it.  Design: one block per chunk of kCChunk
+// of the result): about 17 B per column for the wide sketch's sparse
+// output (x, y; keep 0.023), 5.4 us at B=64, L=16,384 on 3.35 TB/s, the
+// fills nearly all of it, and 41 B per column for a dense compaction of
+// three planes (x, y, run; keep 0.98).  Design: one block per chunk of kCChunk
 // columns (B x ceil(L / kCChunk) blocks), rows carried across chunks by
 // the decoupled look-back (a row of one chunk takes no ticket and
 // publishes nothing); the chunk's keep bytes are staged in shared memory
@@ -1327,8 +1329,8 @@ __device__ __forceinline__ void plane_store(const Planes& pl, int p,
 // [count, L) exactly once without waiting for the count, so every store
 // leaves right after the block's own look-back and there is no second
 // pass; the chunk of column L - 1 writes the count.  The plane widths are
-// template arguments: (8, 8, 4) for the stream, (8, 8) for the output and
-// the reduction levels, and kAnyWidth for any other mix.
+// template arguments: (8, 8) for the wide sketch's output, and kAnyWidth
+// for any other mix.
 template <int kW0, int kW1, int kW2>
 __global__ void __launch_bounds__(kCThreads, kCBlocksPerSM)
 compact_planes_kernel(const uint8_t* __restrict__ keep, Planes pl,
@@ -1405,10 +1407,11 @@ compact_planes_kernel(const uint8_t* __restrict__ keep, Planes pl,
 // Three kernels for the code the JAX package leaves to XLA on the wide
 // route (peregrine_tpu/ops/sketch.py:_sketch_impl_wide, reduce.py:
 // reduce_impl), where a record x = hash << 8 | span needs all 64 bits:
-// wide_stream and wide_emit run before and between the sketch's two
-// compact_planes calls, reduce_wide is a whole reduction level.  Records
-// are unsigned long long (the wrappers hand over int64 tensors holding
-// the same bits) and every comparison is unsigned.
+// wide_stream writes the sketch's compacted stream, wide_emit its
+// emission set over that stream (compact_planes then compacts the
+// emitted records), reduce_wide is a whole reduction level.  Records are
+// unsigned long long (the wrappers hand over int64 tensors holding the
+// same bits) and every comparison is unsigned.
 
 constexpr int kMaxWideK = 28;  // 56-bit hashes
 // wide_stream: kChunk columns of one row per block of kChunkThreads
@@ -1421,10 +1424,20 @@ constexpr int kWPer = kChunk / kChunkThreads;
 constexpr int kWSegs = kWPer * kChunkWarps;  // 32-column segments
 constexpr int kWLead = 32;
 constexpr int kWPacked = (kWLead + kChunk + 64) / 8;
-// wide_emit stages the columns [c0 - (w - 1), c0 + kChunk + w - 1) of a
-// chunk at c0, plus one word of 16-byte alignment slack.
-constexpr int kWExt = (kChunk + 2 * (kMaxW - 1) + 1 + 15) / 16 * 16;
-constexpr int kWExtPer = (kWExt + kChunkThreads - 1) / kChunkThreads;
+// wide_emit: kChunk columns of one row per block of kEThreads threads;
+// the staged columns [c0 - (w - 1), c0 + kChunk + w - 1) of a chunk at
+// c0 are slots 0, 1, ..., kEPer consecutive slots a thread.
+constexpr int kEThreads = 256;
+constexpr int kEWarps = kEThreads / 32;
+constexpr int kEPer = (kChunk + 2 * (kMaxW - 1) + kEThreads - 1) / kEThreads;
+constexpr int kESlots = kEPer * kEThreads;
+// its dynamic shared memory: the staged keys with a word of alignment
+// slack either side, the exchanged runs and a byte a slot
+constexpr int kEmitSmem = (2 * kESlots + 2) * 8 + kESlots;
+static_assert(kESlots % 32 == 0, "whole words of `complete` bits");
+static_assert(32 * kEPer >= kMaxW, "every warp's slots meet a block edge");
+static_assert(kESlots >= kChunk + 2 * (kMaxW - 1), "slots hold the halos");
+constexpr int kMaxDevices = 64;  // cards whose wide_emit_kernel is sized
 // reduce_wide: kWRChunk columns of one row per block of kChunkThreads
 // threads (as stage_async strides), column x of the chunk in thread
 // x % kChunkThreads, register x / kChunkThreads; a block stages the
@@ -1437,7 +1450,7 @@ constexpr int kWRExt = (kWRChunk + kMaxR + 1 + 1) / 2 * 2;
 
 static_assert(kWPacked % 4 == 0, "whole 64-bit words of packed codes");
 static_assert(kWLead >= kMaxWideK - 1, "the packed lead covers the halo");
-static_assert(kWExtPer <= 32 && kWPer <= 32, "per-thread bit masks");
+static_assert(kWPer <= 32 && kEPer <= 32, "per-thread bit masks");
 static_assert(kMaxR < kWRChunk && kWRChunk % kChunkThreads == 0, "chunks");
 static_assert(kWSegs <= 32 * 32 && kWRSegs <= 32 * 32, "segments");
 
@@ -1468,46 +1481,54 @@ __device__ __forceinline__ uint32_t lanes_upto(int lane) {
   return 0xFFFFFFFFu >> (31 - lane);
 }
 
-// The wide buffer stream (replaces the XLA code of _sketch_impl_wide,
-// peregrine_tpu/ops/sketch.py:383-423, up to its stream compaction).  Per
-// column t of a read: the forward and reverse-complement k-mers ending at
-// t from the codes c[t-k+1..t] & 3, the complement taken before the shift
-// (src/mm_sketch.c:102), so an ambiguous base gives 0 bits to fwd and 3
-// to rev and only columns before the row's start give 0 to both; the
-// canonical k-mer, its strand (a tie goes to 1) and its 56-bit hash; the
-// run length l, the valid non-symmetric entries since the last ambiguous
-// base (a row prefix); and the records: x = hash << 8 | k and y = rid <<
-// 32 | (t << 1 & 0xFFFFFFFE) | strand where the entry is valid,
-// non-symmetric and l >= k, all ones elsewhere, li = l on valid
-// non-symmetric entries (0 elsewhere) and keep = valid non-symmetric or
-// ambiguous: compact_planes' inputs, written at every column.
+// The wide sketch's compacted stream (replaces the XLA code of
+// _sketch_impl_wide, peregrine_tpu/ops/sketch.py:371-422, its stream
+// compaction at :422 included).  Per column t of a read: the forward and
+// reverse-complement k-mers ending at t from the codes c[t-k+1..t] & 3,
+// the complement taken before the shift (src/mm_sketch.c:102), so an
+// ambiguous base gives 0 bits to fwd and 3 to rev and only columns before
+// the row's start give 0 to both; the canonical k-mer, its strand (a tie
+// goes to 1) and its 56-bit hash; the run length l, the valid
+// non-symmetric entries since the last ambiguous base (a row prefix); the
+// records x = hash << 8 | k and y = rid << 32 | (t << 1 & 0xFFFFFFFE) |
+// strand where the entry is valid, non-symmetric and l >= k, all ones
+// elsewhere, and li = l on valid non-symmetric entries (0 elsewhere).
+// The entries kept (valid non-symmetric, or an ambiguous placeholder) are
+// written in order to the row front of sx, sy, sl, and their count to n;
+// the columns at or past n are not written (nothing reads them: wide_emit
+// reads below n, and the output compaction only the emitted entries).
 //
-// Bound: 1 byte read and 21 written per column (codes in; x, y, li, keep
-// out): 23.1 MB, 6.9 us at B=64, L=16,384 on 3.35 TB/s.  Design: one
-// block per chunk of a row (B x ceil(L / kChunk) blocks), the chunk's
-// codes and a k - 1 halo staged in shared memory by cp.async and packed
-// two bits a column; a column's window is a funnel shift of two packed
-// 64-bit words (the reverse complement is it xor the mask; the forward
-// k-mer its two-bit groups reversed), so no column walks k codes; the
-// columns run in the layout of compact_planes, a warp's 32 consecutive
-// columns per register, so the run length comes from ballots of the
-// valid non-symmetric and the ambiguous columns, one warp's prefix over
-// the 32-column segments and, across chunks, build_stream's decoupled
-// look-back over (valid non-symmetric count, that count at the last
-// ambiguous base): an ATAT... run at even k is all symmetric k-mers of
-// any length, so no bounded halo could carry it; the hashes are computed
-// while warp 0 waits on the look-back, and every store is a warp's 32
-// consecutive columns.  A row of one chunk takes no ticket and publishes
-// nothing; a chunk past the read's length writes its constants and
-// publishes nothing, since only chunks past it could wait on it.
+// Bound: 1 byte read per column (codes) and 20 written per kept entry
+// (sx, sy, sl): 20.3 MB, 6.1 us at B=64, L=16,384 with reads of 0.8-1.0
+// L on 3.35 TB/s.  Design: one block per chunk of a row (B x ceil(L /
+// kChunk) blocks), the chunk's codes and a k - 1 halo staged in shared
+// memory by cp.async and packed two bits a column; a column's window is a
+// funnel shift of two packed 64-bit words (the reverse complement is it
+// xor the mask; the forward k-mer its two-bit groups reversed), so no
+// column walks k codes; a warp's 32 consecutive columns per register, so
+// the run length and the kept ranks come from ballots of the valid
+// non-symmetric and the ambiguous columns, one warp's prefix over the
+// 32-column segments and, across chunks, build_stream's decoupled
+// look-back over (valid non-symmetric count, kept count, that count at
+// the last ambiguous base): an ATAT... run at even k is all symmetric
+// k-mers of any length, so no bounded halo could carry it; the hashes are
+// computed while warp 0 waits on the look-back; each warp stores its
+// kept columns of a register at consecutive ranks, so every store is
+// coalesced, and no column past the count is written (the stream and its
+// compaction used to be two launches: 21 bytes a column written, read
+// back and 20 written again with the fills).  A row of one chunk takes no
+// ticket and publishes nothing; a chunk at or past the read's length keeps
+// nothing, writes nothing and publishes nothing, since only chunks past it
+// could wait on it; the chunk of the read's last column writes the count
+// after its look-back (chunk 0 writes 0 for an empty read).
 __global__ void __launch_bounds__(kChunkThreads)
 wide_stream_kernel(const uint8_t* __restrict__ codes,
                    const int32_t* __restrict__ lengths,
                    const long long* __restrict__ rids,
                    int* __restrict__ status, int* __restrict__ stale,
-                   int stale_words, unsigned long long* __restrict__ xo,
-                   unsigned long long* __restrict__ yo,
-                   int32_t* __restrict__ lio, uint8_t* __restrict__ keep,
+                   int stale_words, unsigned long long* __restrict__ sx,
+                   unsigned long long* __restrict__ sy,
+                   int32_t* __restrict__ sl, int32_t* __restrict__ n_out,
                    int L, int k, int chunks) {
   __shared__ __align__(16) uint8_t cs[kChunk + 48];
   __shared__ __align__(8) uint16_t pk[kWPacked];
@@ -1524,12 +1545,7 @@ wide_stream_kernel(const uint8_t* __restrict__ codes,
   const int len = lengths[row];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (c0 >= len) {  // block-uniform: past the read, nothing is kept
-    for (int x = threadIdx.x; x < ncols; x += kChunkThreads) {
-      xo[base + c0 + x] = ~0ull;
-      yo[base + c0 + x] = ~0ull;
-      lio[base + c0 + x] = 0;
-      keep[base + c0 + x] = 0;
-    }
+    if (j == 0 && threadIdx.x == 0) n_out[row] = 0;
     return;
   }
   const int g0 = max(0, c0 - (k - 1));
@@ -1581,7 +1597,7 @@ wide_stream_kernel(const uint8_t* __restrict__ codes,
     if (lane == 0) {
       const int last = 31 - __clz(ab[q]);  // the segment's last amb lane
       seg[q * kChunkWarps + warp] =
-          Stream{__popc(vb[q]), 0,
+          Stream{__popc(vb[q]), __popc(vb[q] | ab[q]),
                  ab[q] ? __popc(vb[q] & lanes_upto(last)) : -1};
     }
   }
@@ -1591,7 +1607,11 @@ wide_stream_kernel(const uint8_t* __restrict__ codes,
     const Stream agg = segment_scan<kWSegs>(seg, id, StreamOp());
     const Stream c =
         chunks == 1 ? id : look_back(status, tile, j, agg, id, StreamOp());
-    if (lane == 0) carried = c;
+    if (lane == 0) {
+      carried = c;
+      // the chunk of the read's last column (at most L - 1) has the count
+      if (j == (min(len, L) - 1) / kChunk) n_out[row] = c.inc + agg.inc;
+    }
   }
 #pragma unroll
   for (int q = 0; q < kWPer; ++q) hv[q] = hash64(hv[q], mask);
@@ -1602,23 +1622,111 @@ wide_stream_kernel(const uint8_t* __restrict__ codes,
 #pragma unroll
   for (int q = 0; q < kWPer; ++q) {
     const int x = threadIdx.x + q * kChunkThreads, t = c0 + x;
-    if (x < ncols) {
+    const bool vns = vb[q] >> lane & 1u, amb = ab[q] >> lane & 1u;
+    if (vns || amb) {  // kept: columns past ncols or the read are neither
       const Stream pre = StreamOp()(carried, seg[q * kChunkWarps + warp]);
-      const bool vns = vb[q] >> lane & 1u, amb = ab[q] >> lane & 1u;
       const int cv = pre.vns + __popc(vb[q] & upto);
       const uint32_t la = ab[q] & upto;
       const int at = la ? pre.vns + __popc(vb[q] & (0xFFFFFFFFu >> __clz(la)))
                         : max(pre.amb, 0);
       const int run = cv - at;
       const bool defined = vns && run >= k;
-      xo[base + t] = defined ? hv[q] << 8 | (unsigned long long)k : ~0ull;
-      yo[base + t] = defined ? rid | ((unsigned long long)t << 1 &
-                                      0xFFFFFFFEull) |
-                                   (strand >> q & 1u)
-                             : ~0ull;
-      lio[base + t] = vns ? run : 0;
-      keep[base + t] = vns || amb;
+      const size_t o = base + pre.inc + __popc((vb[q] | ab[q]) & upto) - 1;
+      sx[o] = defined ? hv[q] << 8 | (unsigned long long)k : ~0ull;
+      sy[o] = defined ? rid | ((unsigned long long)t << 1 & 0xFFFFFFFEull) |
+                            (strand >> q & 1u)
+                      : ~0ull;
+      sl[o] = vns ? run : 0;
     }
+  }
+}
+
+// Runs within blocks of w slots (van Herk / Gil-Werman), the block edges
+// at slot multiples of w: `edges` bit p marks slot p of the thread's
+// kEPer consecutive slots, forward (kRev false) where a block starts, so
+// v becomes each slot's extremum from its block's first slot, backward
+// where one ends, to its block's last slot.  Two halves around a
+// barrier, each called for a forward and a backward run at once.
+// run_lanes takes the thread's own slots and then the warp's lanes (five
+// shuffle steps, each lane combining only lanes inside its block); it
+// leaves the warp's value toward the next warp in wv[warp] and whether
+// the warp holds an edge in wh[warp], and returns the lane's carry from
+// the lanes before it (after it, backward), with *open set where that
+// carry still lacks the warps before (after) this one.
+template <bool kMax>
+__device__ __forceinline__ unsigned long long ext(unsigned long long a,
+                                                  unsigned long long b) {
+  return kMax ? max(a, b) : min(a, b);
+}
+
+template <bool kMax, bool kRev>
+__device__ __forceinline__ unsigned long long run_lanes(
+    unsigned long long (&v)[kEPer], uint32_t edges, unsigned long long id,
+    bool* open, unsigned long long* wv, int* wh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long acc = id;
+#pragma unroll
+  for (int s = 0; s < kEPer; ++s) {
+    const int p = kRev ? kEPer - 1 - s : s;
+    acc = edges >> p & 1u ? v[p] : ext<kMax>(acc, v[p]);
+    v[p] = acc;
+  }
+  const uint32_t em = __ballot_sync(0xFFFFFFFFu, edges != 0);
+  // the nearest lane at or before (after) this one that holds an edge:
+  // the lanes from it to this one are this lane's block's
+  const uint32_t before = lanes_upto(lane) >> 1, after = ~lanes_upto(lane);
+  int near;
+  if (kRev) {
+    const uint32_t m = em & (after | 1u << lane);
+    near = m ? __ffs(m) - 1 : 31;
+  } else {
+    const uint32_t m = em & lanes_upto(lane);
+    near = m ? 31 - __clz(m) : 0;
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned long long o =
+        kRev ? __shfl_down_sync(0xFFFFFFFFu, acc, off)
+             : __shfl_up_sync(0xFFFFFFFFu, acc, off);
+    if (kRev ? lane + off <= near : lane - off >= near)
+      acc = ext<kMax>(acc, o);
+  }
+  if (lane == (kRev ? 0 : 31)) {
+    wv[warp] = acc;
+    wh[warp] = em != 0;
+  }
+  unsigned long long carry = kRev ? __shfl_down_sync(0xFFFFFFFFu, acc, 1)
+                                  : __shfl_up_sync(0xFFFFFFFFu, acc, 1);
+  if (lane == (kRev ? 31 : 0)) carry = id;
+  *open = (em & (kRev ? after : before)) == 0;
+  return carry;
+}
+
+// The second half, after the barrier: an open lane takes the warps
+// before (after) its own back to the nearest one with an edge (one, since
+// every warp's slots meet an edge), and the slots before the thread's
+// first edge (after its last) take the carry.
+template <bool kMax, bool kRev>
+__device__ __forceinline__ void run_finish(unsigned long long (&v)[kEPer],
+                                           uint32_t edges,
+                                           unsigned long long carry,
+                                           bool open,
+                                           const unsigned long long* wv,
+                                           const int* wh) {
+  const int warp = threadIdx.x >> 5;
+  if (open) {
+    for (int u = kRev ? warp + 1 : warp - 1; u >= 0 && u < kEWarps;
+         u += kRev ? 1 : -1) {
+      carry = ext<kMax>(carry, wv[u]);
+      if (wh[u]) break;
+    }
+  }
+  bool live = true;
+#pragma unroll
+  for (int s = 0; s < kEPer; ++s) {
+    const int p = kRev ? kEPer - 1 - s : s;
+    live = live && !(edges >> p & 1u);
+    if (live) v[p] = ext<kMax>(carry, v[p]);
   }
 }
 
@@ -1630,111 +1738,163 @@ wide_stream_kernel(const uint8_t* __restrict__ codes,
 // n; an entry t < n is emitted where sx[t] is not all ones and M equals
 // it, or where it is the newest minimum of the final window
 // [max(0, n - w), n) unless that minimum is all ones.  Columns at or past
-// n are not emitted and never read (compact_planes fills them with all
-// ones and 0, which emit nothing).
+// n are not emitted and never read.
 //
 // Bound: 12 bytes per column below n (sx, sl in) and 1 per column (the
-// mask out): 13.6 MB, 4.1 us at B=64, L=16,384 with full rows on 3.35
-// TB/s.  Design: emit_mask's, on 64-bit keys and without its ranks: one
-// block per chunk of a row, no row prefix, so no ticket and no status;
-// the chunk's sx with a halo of w - 1 columns before and after, clipped
-// to [0, n), staged in shared memory by cp.async (40 KB: each column's
-// raw key stays in a register); the final window, which lies inside the
-// staged columns of every chunk it meets, is reduced first, while the
-// staged keys are whole; the trailing minimum and the leading maximum
-// are log-step sparse tables over one shared buffer, about 2 log2(w)
-// steps of one shared load a column; each warp stores its 32 columns of
-// the mask at once.
-__global__ void __launch_bounds__(kChunkThreads)
+// mask out): 12.3 MB, 3.67 us at B=64, L=16,384 with reads of 0.8-1.0 L
+// on 3.35 TB/s.  Design: one block per chunk of a row, no row prefix, so
+// no ticket and no status; the chunk's sx with a halo of w - 1 columns
+// before and after, clipped to [0, n) and padded with all ones, staged
+// in shared memory by cp.async, and its `complete` flags as warp ballots
+// in a bitmap; each thread then holds kEPer consecutive staged columns in
+// registers.  Both window extrema are van Herk / Gil-Werman runs over
+// blocks of w columns: W at t is the minimum of the backward run at
+// t - w + 1 and the forward run at t, M at t the maximum of the backward
+// run at t and the forward run at t + w - 1, so whatever w is, a block
+// takes four runs (each a pass over a thread's registers, five shuffle
+// steps across the warp and one warp value from the warp before, the
+// forward and the backward run side by side) and two exchanges of one run
+// through shared memory: five barriers after the staging, where the
+// log-step sparse tables took about 2 log2(w) passes of a shared store, a
+// barrier and a shared load a column (15 at w = 80) and two block
+// reductions for the final window.  The final window reuses the runs: its
+// minimum is W at n - 1 (the forward run there, kept in shared memory,
+// with the exchanged backward run) and its newest minimum the one column
+// of it that equals the minimum while the minimum over the columns after
+// it, the backward run at the next column and the forward run at n - 1,
+// does not.  The mask leaves through shared memory as consecutive bytes.
+// What holds it is instruction issue, not memory: a 64-bit
+// compare-and-select is four instructions, and every column takes
+// several of them across the runs; 256 threads of 18 columns (128
+// registers, no spill) and 78 KB of shared memory let two blocks share an
+// SM, which gained more than the register-bound 512-thread forms did.
+__global__ void __launch_bounds__(kEThreads, 2)
 wide_emit_kernel(const unsigned long long* __restrict__ sx,
                  const int32_t* __restrict__ sl,
                  const int32_t* __restrict__ n_in, uint8_t* __restrict__ emit,
                  int L, int w, int k, int chunks) {
-  __shared__ __align__(16) unsigned long long As[kPad + kWExt + kPad];
-  __shared__ unsigned long long red[kChunkWarps];
+  // dynamic: the staged keys (slot i, column g0 + i, at as[i]), the
+  // exchanged runs (slot i at S[i]) and the mask (fb[i]); kEmitSmem bytes
+  extern __shared__ __align__(16) unsigned long long As[];
+  unsigned long long* S = As + kESlots + 2;
+  uint8_t* fb = reinterpret_cast<uint8_t*>(S + kESlots);
+  __shared__ uint32_t cbits[kESlots / 32 + 1];  // bit i: slot i complete
+  __shared__ unsigned long long wv[2][kEWarps];
+  __shared__ int wh[2][kEWarps];
+  __shared__ unsigned long long at_last;  // the forward run at n - 1
 
   const int row = blockIdx.x / chunks, j = blockIdx.x - row * chunks;
   const int c0 = j * kChunk, ncols = min(kChunk, L - c0);
   const size_t base = (size_t)row * L;
   const int n = max(0, min(n_in[row], L));  // a count: never past the row
   if (c0 >= n) {  // block-uniform: nothing below n
-    for (int x = threadIdx.x; x < ncols; x += kChunkThreads)
+    for (int x = threadIdx.x; x < ncols; x += kEThreads)
       emit[base + c0 + x] = 0;
     return;
   }
   const int g0 = max(0, c0 - (w - 1));
-  const int E = min(n, c0 + ncols + w - 1) - g0;
-  const int off = stage_async((uint8_t*)(As + kPad),
-                              (const uint8_t*)(sx + base + g0), 8 * E);
-  unsigned long long* as = As + kPad + off / 8;  // as[i]: column g0 + i
-  for (int i = threadIdx.x; i < kPad + off / 8; i += kChunkThreads)
-    As[i] = ~0ull;  // the minimum's identity before the staged columns
-  for (int i = threadIdx.x; i < kPad; i += kChunkThreads)
-    as[E + i] = 0;  // the maximum's after them
-  unsigned long long v[kWExtPer], h[kWExtPer];
-  uint32_t complete = 0;  // bit q: that column's window is complete
+  const int E = min(n, c0 + ncols + w - 1) - g0;  // staged slots
+  const int off = stage_async<kEThreads>(
+      (uint8_t*)As, (const uint8_t*)(sx + base + g0), 8 * E);
+  unsigned long long* as = As + off / 8;
+  for (int i = E + (int)threadIdx.x; i < kESlots; i += kEThreads)
+    as[i] = ~0ull;  // all ones past the staged slots
+  int32_t run[kEPer];  // the run lengths, every load in flight at once
 #pragma unroll
-  for (int q = 0; q < kWExtPer; ++q) {
-    const int i = threadIdx.x + q * kChunkThreads;
-    if (i < E && sl[base + g0 + i] >= w + k - 1) complete |= 1u << q;
+  for (int q = 0; q < kEPer; ++q) {
+    const int i = threadIdx.x + q * kEThreads;
+    run[q] = i < E ? sl[base + g0 + i] : 0;
   }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < kEPer; ++q) {
+    const uint32_t b = __ballot_sync(0xFFFFFFFFu, run[q] >= w + k - 1);
+    if (lane == 0) cbits[q * kEWarps + warp] = b;
+  }
+  if (threadIdx.x == 0) cbits[kESlots / 32] = 0;
   cp_async_wait_all();
   __syncthreads();
-#pragma unroll
-  for (int q = 0; q < kWExtPer; ++q) {
-    const int i = threadIdx.x + q * kChunkThreads;
-    v[q] = h[q] = i < E ? as[i] : ~0ull;
-  }
 
-  // the final window's minimum and its newest column, in the chunks it
-  // meets
-  bool has_final = false;
-  int t_f = -1;
+  // slot i's key, all ones past the staged slots
+  auto key = [&](int i) { return as[i]; };
+  const int s0 = kEPer * threadIdx.x;  // the thread's first slot
+  unsigned long long lo[kEPer], hi[kEPer];
+#pragma unroll
+  for (int p = 0; p < kEPer; ++p) lo[p] = hi[p] = key(s0 + p);
+  // bit p: slot s0 + p opens a block of w (slots 0 mod w), or closes one
+  // (w - 1 mod w)
+  const int rem = s0 % w;
+  uint32_t starts = 0, ends = 0;
+  for (int p = rem ? w - rem : 0; p < kEPer; p += w) starts |= 1u << p;
+  for (int p = w - 1 - rem; p < kEPer; p += w) ends |= 1u << p;
+
+  // W, the trailing minimum: lo the forward run, hi the backward one
+  bool open_f, open_b;
+  unsigned long long cf =
+      run_lanes<false, false>(lo, starts, ~0ull, &open_f, wv[0], wh[0]);
+  unsigned long long cb =
+      run_lanes<false, true>(hi, ends, ~0ull, &open_b, wv[1], wh[1]);
+  __syncthreads();  // the warp values
+  run_finish<false, false>(lo, starts, cf, open_f, wv[0], wh[0]);
+  run_finish<false, true>(hi, ends, cb, open_b, wv[1], wh[1]);
+  const int e = n - 1 - g0;  // the slot of column n - 1
+#pragma unroll
+  for (int p = 0; p < kEPer; ++p) {
+    S[s0 + p] = hi[p];
+    if (s0 + p == e) at_last = lo[p];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < kEPer; ++p) {
+    const int i = s0 + p;
+    if (i >= w - 1) lo[p] = min(lo[p], S[i - w + 1]);
+  }
+  // the final window [lo_f, n): where it meets the chunk, the staged
+  // slots end at e (E = e + 1) and the runs hold all ones after it; its
+  // newest minimum goes to the mask now, the rest of it at the end
   const int lo_f = max(0, n - w);
-  if (c0 + ncols > lo_f) {  // block-uniform
-    const int t = lo_f + (int)threadIdx.x;
-    const unsigned long long key = t < n ? as[t - g0] : ~0ull;
-    const unsigned long long m = block_min_u64(key, red);
-    const unsigned long long newest = block_min_u64(
-        t < n && key == m ? (unsigned long long)(kInf - (uint32_t)t) : ~0ull,
-        red);
-    has_final = m != ~0ull;
-    t_f = (int)(kInf - (uint32_t)newest);
+  if (lo_f < c0 + ncols) {  // block-uniform
+    const unsigned long long fmin =
+        e >= w - 1 ? min(at_last, S[e - w + 1]) : at_last;
+    const int e0 = e - e % w;  // the first slot of e's block
+#pragma unroll
+    for (int p = 0; p < kEPer; ++p) {
+      const int i = s0 + p;
+      fb[i] = fmin != ~0ull && g0 + i >= lo_f && i <= e && key(i) == fmin &&
+              (i == e || min(S[i + 1], e0 > i + 1 ? at_last : ~0ull) != fmin);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < kEPer; ++p) fb[s0 + p] = 0;
   }
 
-  // W, the trailing minimum over w: doublings cover jj columns, and a
-  // last step overlaps two of them to cover w (as holds the raw keys for
-  // the first)
-  int jj = 1;
-  for (; 2 * jj <= w; jj *= 2) {
-    if (jj > 1) publish(as, v, E);
-    combine<false>(v, as, E, -jj);
-  }
-  if (w > jj) {
-    publish(as, v, E);
-    combine<false>(v, as, E, jj - w);
-  }
-  // Ap = W where complete, else 0; M, the leading maximum of Ap over w
+  // Ap, and M, the leading maximum: hi the backward run, lo the forward
+  const uint32_t complete =  // bit p: slot s0 + p's window is complete
+      __funnelshift_r(cbits[s0 >> 5], cbits[(s0 >> 5) + 1], s0 & 31);
 #pragma unroll
-  for (int q = 0; q < kWExtPer; ++q)
-    if (!(complete >> q & 1u)) v[q] = 0;
-  publish(as, v, E);
-  for (jj = 1; 2 * jj <= w; jj *= 2) {
-    if (jj > 1) publish(as, v, E);
-    combine<true>(v, as, E, jj);
+  for (int p = 0; p < kEPer; ++p) {
+    if (!(complete >> p & 1u)) lo[p] = 0;
+    hi[p] = lo[p];
   }
-  if (w > jj) {
-    if (jj > 1) publish(as, v, E);
-    combine<true>(v, as, E, w - jj);
-  }
-
+  cf = run_lanes<true, false>(lo, starts, 0, &open_f, wv[0], wh[0]);
+  cb = run_lanes<true, true>(hi, ends, 0, &open_b, wv[1], wh[1]);
+  __syncthreads();  // the warp values; the exchanged run is read
+  run_finish<true, false>(lo, starts, cf, open_f, wv[0], wh[0]);
+  run_finish<true, true>(hi, ends, cb, open_b, wv[1], wh[1]);
 #pragma unroll
-  for (int q = 0; q < kWExtPer; ++q) {
-    const int i = threadIdx.x + q * kChunkThreads, t = g0 + i;
-    if (t >= c0 && t < c0 + ncols)
-      emit[base + t] = i < E && ((h[q] != ~0ull && v[q] == h[q]) ||
-                                 (has_final && t == t_f));
+  for (int p = 0; p < kEPer; ++p) S[s0 + p] = lo[p];
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < kEPer; ++p) {
+    const int i = s0 + p, t = g0 + i;
+    if (t >= c0 && t < c0 + ncols) {  // i + w - 1 < kESlots
+      const unsigned long long x = key(i);
+      if (x != ~0ull && max(hi[p], S[i + w - 1]) == x) fb[i] = 1;
+    }
   }
+  __syncthreads();
+  for (int x = threadIdx.x; x < ncols; x += kEThreads)
+    emit[base + c0 + x] = fb[c0 - g0 + x];
 }
 
 // The winner of the r-wide trailing window at column col, whose record
@@ -2240,9 +2400,7 @@ int pg_compact_planes(const void* keep, const void* in0, const void* in1,
   }
   const int chunks = (L + kCChunk - 1) / kCChunk;
   auto kernel = compact_planes_kernel<kAnyWidth, kAnyWidth, kAnyWidth>;
-  if (bytes0 == 8 && bytes1 == 8 && bytes2 == 4)
-    kernel = compact_planes_kernel<8, 8, 4>;
-  else if (bytes0 == 8 && bytes1 == 8 && bytes2 == 0)
+  if (bytes0 == 8 && bytes1 == 8 && bytes2 == 0)
     kernel = compact_planes_kernel<8, 8, 0>;
   kernel<<<B * chunks, kCThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)keep, pl, (int*)status, (int*)stale, stale_words,
@@ -2251,16 +2409,16 @@ int pg_compact_planes(const void* keep, const void* in0, const void* in1,
 }
 
 int pg_wide_stream(const void* codes, const void* lengths, const void* rids,
-                   void* status, void* stale, int stale_words, void* x,
-                   void* y, void* li, void* keep, int B, int L, int k,
+                   void* status, void* stale, int stale_words, void* sx,
+                   void* sy, void* sl, void* n, int B, int L, int k,
                    void* stream) {
   if (k < 1 || k > kMaxWideK || stale_words % kSlot)
     return (int)cudaErrorInvalidValue;
   const int chunks = (L + kChunk - 1) / kChunk;
   wide_stream_kernel<<<B * chunks, kChunkThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const int32_t*)lengths, (const long long*)rids,
-      (int*)status, (int*)stale, stale_words, (unsigned long long*)x,
-      (unsigned long long*)y, (int32_t*)li, (uint8_t*)keep, L, k, chunks);
+      (int*)status, (int*)stale, stale_words, (unsigned long long*)sx,
+      (unsigned long long*)sy, (int32_t*)sl, (int32_t*)n, L, k, chunks);
   return (int)cudaGetLastError();
 }
 
@@ -2268,8 +2426,22 @@ int pg_wide_emit(const void* sx, const void* sl, const void* n_in, void* emit,
                  int B, int L, int w, int k, void* stream) {
   if (w < 1 || w > kMaxW || k < 1 || k > kMaxWideK)
     return (int)cudaErrorInvalidValue;
+  // the shared memory past 48 KB, once a device (a launch captured in a
+  // CUDA graph is never a device's first)
+  static bool sized[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!sized[dev]) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        wide_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kEmitSmem);
+    if (rc != cudaSuccess) return (int)rc;
+    sized[dev] = true;
+  }
   const int chunks = (L + kChunk - 1) / kChunk;
-  wide_emit_kernel<<<B * chunks, kChunkThreads, 0, (cudaStream_t)stream>>>(
+  wide_emit_kernel<<<B * chunks, kEThreads, kEmitSmem,
+                     (cudaStream_t)stream>>>(
       (const unsigned long long*)sx, (const int32_t*)sl, (const int32_t*)n_in,
       (uint8_t*)emit, L, w, k, chunks);
   return (int)cudaGetLastError();

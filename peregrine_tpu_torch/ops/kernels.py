@@ -14,7 +14,8 @@ and three replace the XLA code of the wide (k > 16) route, which the JAX
 package leaves to XLA between its compactions:
 
   wide_stream     <- peregrine_tpu/ops/sketch.py:_sketch_impl_wide,
-                     :383-423 up to the stream compaction
+                     :371-422, its stream compaction (_compact, :422,
+                     compact_planes on the TPU) included
   wide_emit       <- the same, :425-441 (window extrema, emission set)
   reduce_wide     <- peregrine_tpu/ops/reduce.py:reduce_impl, :26-61
                      (the shifted winners, the dedup and the compaction)
@@ -64,7 +65,9 @@ dropped): dest = col - r on kept entries; reduce_step returns its winners
 compacted.  Positions of a plane compacted by move_plane or reduce_step
 at or past its count are stale, as on the TPU; every consumer masks by
 count.  compact_planes and reduce_wide instead fill them (INF for
-records), which the wide sketch reads.
+records); wide_stream's compacted stream is stale past its counts too
+(its plain version has compact_planes' fills there), and wide_emit reads
+nothing past them.
 """
 
 from __future__ import annotations
@@ -608,14 +611,24 @@ def wide_stream_plain(codes: torch.Tensor, lengths: torch.Tensor,
     return x, y, torch.where(vns, run, 0), vns | amb
 
 
+def wide_stream_compact_plain(codes: torch.Tensor, lengths: torch.Tensor,
+                              rids: torch.Tensor, k: int):
+    """Plain version of wide_stream: wide_stream_plain's columns compacted
+    by compact_planes_plain (INF, INF, 0 past the counts)."""
+    x, y, li, keep = wide_stream_plain(codes, lengths, rids, k)
+    (sx, sy, sl), n = compact_planes_plain(keep, (x, y, li), (INF, INF, 0))
+    return sx, sy, sl, n
+
+
 def wide_stream(codes: torch.Tensor, lengths: torch.Tensor,
                 rids: torch.Tensor, *, k: int):
     """[B, L] uint8 codes (>= 4 ambiguous), [B] int32 lengths and [B]
-    int64 read ids -> the wide buffer stream at every raw column: x, y
-    (int64 records, INF where no k-mer is defined), the run length li
-    (int32, valid non-symmetric entries since the last ambiguous base, 0
-    elsewhere) and keep (bool: valid non-symmetric entries and ambiguous
-    placeholders), for compact_planes."""
+    int64 read ids -> the wide sketch's compacted buffer stream: the
+    entries kept (valid non-symmetric k-mers and ambiguous placeholders)
+    in order at the row front of sx, sy (int64 records, INF where no k-mer
+    is defined) and sl (int32 run length: valid non-symmetric entries
+    since the last ambiguous base, 0 at a placeholder), and their count n
+    [B] int32.  Columns at or past n are stale on the card."""
     B, L = codes.shape
     if not 0 < k <= MAX_K:
         raise ValueError(f"wide_stream: k={k} outside 1..{MAX_K}")
@@ -623,16 +636,18 @@ def wide_stream(codes: torch.Tensor, lengths: torch.Tensor,
     _check(lengths, torch.int32, (B,), "lengths")
     _check(rids, torch.int64, (B,), "rids")
     if _route(codes, lengths, rids) == "cpu":
-        return wide_stream_plain(codes, lengths, rids, k)
-    x = torch.empty((B, L), dtype=torch.int64, device=codes.device)
-    y = torch.empty_like(x)
-    li = torch.empty((B, L), dtype=torch.int32, device=codes.device)
-    keep = torch.empty((B, L), dtype=torch.bool, device=codes.device)
-    if B and L:
+        return wide_stream_compact_plain(codes, lengths, rids, k)
+    sx = torch.empty((B, L), dtype=torch.int64, device=codes.device)
+    sy = torch.empty_like(sx)
+    sl = torch.empty((B, L), dtype=torch.int32, device=codes.device)
+    n = torch.empty(B, dtype=torch.int32, device=codes.device)
+    if B and L:  # the chunk of each read's last column writes its count
         _call_chunked(library().pg_wide_stream, B, L, codes.device,
-                      (codes, lengths, rids), (x, y, li, keep), B, L, k)
+                      (codes, lengths, rids), (sx, sy, sl, n), B, L, k)
         wide_stream.launches += 1
-    return x, y, li, keep
+    else:
+        n.zero_()
+    return sx, sy, sl, n
 
 
 wide_stream.launches = 0
@@ -685,7 +700,8 @@ def wide_emit_plain(sx: torch.Tensor, sl: torch.Tensor, n: torch.Tensor,
     """Plain version of wide_emit (the XLA code of
     peregrine_tpu/ops/sketch.py:_sketch_impl_wide, :425-441), restricted
     to the columns below n, which is all it emits where the columns past
-    n hold compact_planes' fills."""
+    n hold compact_planes' fills; whatever they hold, no column below n
+    depends on them."""
     B, L = sx.shape
     col = torch.arange(L, device=sx.device)[None, :]
     nn = n.to(torch.int64)[:, None]

@@ -9,8 +9,8 @@ both planes (ops.kernels: CUDA kernels on the card, plain PyTorch on the
 CPU), and
 records are assembled only at the end.  For k > 16 the hash needs up to
 56 bits, so sketch_wide works on the records themselves:
-wide_stream -> compact_planes -> wide_emit -> compact_planes, where the
-JAX package runs XLA fusions between its two compactions.
+wide_stream (the compacted stream) -> wide_emit -> compact_planes, where
+the JAX package runs XLA fusions between its two compactions.
 
     x = hash << 8 | k                       (span == k)
     y = rid << 32 | pos << 1 | strand
@@ -55,12 +55,11 @@ def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor,
                 rids: torch.Tensor, *, w: int, k: int):
     """The wide sketch (peregrine_tpu/ops/sketch.py:_sketch_impl_wide) on
     int64 records: wide_stream (rolling k-mers on raw positions, the
-    56-bit hash, the run length and the records), the stream compaction
-    (x, y, run length) by compact_planes, wide_emit (window extrema in
-    unsigned order and the emission set) and the output compaction.
+    56-bit hash, the run length and the records, compacted to the stream
+    (x, y, run length)), wide_emit (window extrema in unsigned order and
+    the emission set) and the output compaction by compact_planes.
     Returns (x, y, count) with INF past the counts."""
-    x, y, li, keep = wide_stream(codes, lengths, rids, k=k)
-    (sx, sy, sl), n = compact_planes(keep, (x, y, li), (INF, INF, 0))
+    sx, sy, sl, n = wide_stream(codes, lengths, rids, k=k)
     emit = wide_emit(sx, sl, n, w=w, k=k)
     (ox, oy), count = compact_planes(emit, (sx, sy), (INF, INF))
     return ox, oy, count

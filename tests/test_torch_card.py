@@ -402,7 +402,8 @@ def _compact_planes(keep, planes, fills, statuses=None):
     return outs
 
 
-# plane widths: the two instances the port launches and the generic one
+# plane widths: the (8, 8) instance the port launches and the generic one
+# (8 + 8 + 4 was the wide sketch's stream, which wide_stream now compacts)
 LAYOUTS = [(8, 8, 4), (8, 8), (4, 8, 4), (8,), (4, 4)]
 
 
@@ -499,7 +500,7 @@ def _bytes_untouched(buf):
 
 
 def _wide_inputs(rng, L, k):
-    codes, lens = kernel_cases.wide_stream_codes(rng, B, L, k, C)
+    codes, lens = kernel_cases.wide_compact_codes(rng, B, L, k, C)
     rids = rng.integers(0, 2**40, B).astype(np.int64)
     return (torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda(),
             torch.from_numpy(rids).cuda())
@@ -507,27 +508,36 @@ def _wide_inputs(rng, L, k):
 
 def _wide_stream(codes, lens, rids, k, statuses=None):
     """One guarded wide_stream launch, on a zeroed status and a junk
-    earlier status, or on `statuses`, checked against its plain version on
-    whole rows and its status (the valid non-symmetric entries a chunk,
-    published by the chunks that start inside the read), and the earlier
-    status checked zeroed; returns the outputs."""
+    earlier status, or on `statuses`, checked against its plain version
+    (the per-column stream compacted by compact_planes) below the counts,
+    with the columns past them still holding the canary (the kernel
+    writes nothing there), and the counts; its status decoded (each chunk
+    that starts inside the read publishes its valid non-symmetric and its
+    kept entries); the earlier status checked zeroed; returns the
+    outputs."""
     rows, L = codes.shape
-    guarded = [_guarded(rows, L, dtype=torch.int64),
-               _guarded(rows, L, dtype=torch.int64), _guarded(rows, L)]
-    kbuf, keep = _guarded_bytes(rows, L)
-    bufs = [g[0] for g in guarded]
-    outs = [g[1] for g in guarded] + [keep]
-    (sbuf, status), (xbuf, stale) = statuses or (_status(L), _status(L, -1))
+    bufs, outs = _outputs((rows, L), (rows, L), dtype=torch.int64)
+    for shape in ((rows, L), (rows,)):
+        buf, out = _guarded(*shape)
+        bufs.append(buf)
+        outs.append(out)
+    (sbuf, status), (xbuf, stale) = statuses or (_status(L, rows=rows),
+                                                 _status(L, -1, rows=rows))
     _launch("pg_wide_stream", bufs + [sbuf, xbuf], codes, lens, rids, status,
             stale, stale.numel(), *outs, rows, L, k)
-    _bytes_untouched(kbuf)
-    for got, ref in zip(outs, kn.wide_stream_plain(codes, lens, rids, k)):
-        assert torch.equal(got, ref)
+    *want, n = kn.wide_stream_compact_plain(codes, lens, rids, k)
+    assert torch.equal(outs[3], n)
+    for got, ref in zip(outs, want):
+        _prefixes_equal(got, ref, n)
+        _past_counts_untouched(got, n)
     if L > C:
-        vns = outs[2] > 0  # the run length is >= 1 on exactly these
+        _, _, li, keep = kn.wide_stream_plain(codes, lens, rids, k)
+        vns = li > 0  # the run length is >= 1 on exactly these
+        live = -(-lens.clamp(0, L) // C)
         _check_status(status, L, 0, _chunk_counts(vns.int() - 1, L),
-                      vns.sum(1, dtype=torch.int32), C,
-                      -(-lens.clamp(0, L) // C))
+                      vns.sum(1, dtype=torch.int32), C, live)
+        _check_status(status, L, 1, _chunk_counts(keep.int() - 1, L), n, C,
+                      live)
     else:  # rows of one chunk take no ticket and publish nothing
         assert not status.any()
     assert not stale.any()
@@ -537,10 +547,11 @@ def _wide_stream(codes, lens, rids, k, statuses=None):
 @pytest.mark.parametrize("L", CHUNKED_L)
 @pytest.mark.parametrize("k", [17, 24, 28])
 def test_wide_stream_across_chunks(L, k):
-    """kernel_cases.wide_stream_codes: rows of length 0, 1, k - 1, L, on a
+    """kernel_cases.wide_compact_codes: rows of length 0, 1, k - 1, L, on a
     boundary and one either side; an all-ambiguous row; ambiguous runs
-    ending at each boundary; (AT)* runs, all strand-symmetric at even k,
-    from column 0 and from just before a boundary to the end of the row;
+    ending at each boundary and across each; (AT)* runs, all
+    strand-symmetric at even k, from column 0, from just before a boundary
+    to the end of the row and over one whole chunk; a row kept whole;
     rids past 2^32."""
     _wide_stream(*_wide_inputs(np.random.default_rng(L + k), L, k), k)
 
@@ -567,19 +578,21 @@ def _emit_inputs(L, w, ties, seed, junk=False):
 
 
 @pytest.mark.parametrize("L", CHUNKED_L)
-@pytest.mark.parametrize("w", [1, 5, 80, 255])
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 31, 32, 33, 79, 80, 81, 255])
 @pytest.mark.parametrize("ties", [False, True])
 def test_wide_emit_across_chunks(L, w, ties):
     """kernel_cases.wide_emit_stream at k = 28: n = 0, L, on a boundary, a
     final window across a boundary, a final window of one repeated record,
     run lengths of w + k - 2 and w + k - 1 with the least record at each
     boundary, placeholders on the boundaries; records at and above 2^63;
-    few distinct records when `ties`."""
+    few distinct records when `ties`; w on and beside powers of two,
+    whose blocks of w columns (the window runs') fall on and across the
+    threads' and warps' column ranges."""
     _wide_emit(*_emit_inputs(L, w, ties, L + w + 7 * ties), w, 28)
 
 
 @pytest.mark.parametrize("L", [C + 1, 16384])
-@pytest.mark.parametrize("w", [5, 80])
+@pytest.mark.parametrize("w", [5, 80, 255])
 def test_wide_emit_reads_nothing_past_n(L, w):
     """Random records and run lengths past n instead of compact_planes'
     fills: the mask is the same, so the kernel read none of them."""
@@ -643,8 +656,8 @@ def test_reduce_wide_one_long_row(n):
 def test_wide_repeated_launches_are_identical():
     """Twenty launches of wide_stream and of reduce_wide on the same inputs
     at L = 40960, on two status buffers in turn as the wrappers use them:
-    a race in the look-back or in the fill placement, or a status not
-    zeroed for the launch after, would show as a difference."""
+    a race in the look-back, the kept ranks or the fill placement, or a
+    status not zeroed for the launch after, would show as a difference."""
     L = 40960
     codes, lens, rids = _wide_inputs(np.random.default_rng(13), L, 28)
     a, b = _status(L), _status(L, -1)
@@ -691,7 +704,7 @@ def test_wide_sketch_and_levels_on_the_card_match_the_cpu(L):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a, b)
     assert (kn.wide_stream.launches, kn.wide_emit.launches,
-            kn.reduce_wide.launches, kn.compact_planes.launches) == (1, 1, 2, 2)
+            kn.reduce_wide.launches, kn.compact_planes.launches) == (1, 1, 2, 1)
 
 
 def test_int64_cummin_cummax_match_the_cpu():
@@ -1512,7 +1525,7 @@ def test_captured_steps_match_the_eager_steps():
                      "emit_mask": 1, "reduce_step": 1, "reduce_drain": 1}
     names = {fn.__name__: n for fn, n in runs["cuda"][1].per_replay.items()}
     assert names == {"gather_codes": 1, "wide_stream": 1,
-                     "compact_planes": 2, "wide_emit": 1, "reduce_wide": 2,
+                     "compact_planes": 1, "wide_emit": 1, "reduce_wide": 2,
                      "drain_records": 2}
     # ten replays of each graph and one eager warm-up of each shape
     assert launches["gather_build_stream"] == launches["wide_stream"] == 11

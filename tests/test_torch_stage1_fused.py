@@ -281,11 +281,11 @@ def test_step_at_k16_launches_the_fused_pair(monkeypatch):
     (16, 2, True, ["pg_gather_build_stream", "pg_move_plane",
                    "pg_emit_mask", "pg_move_plane", "pg_reduce_step",
                    "pg_reduce_drain", "pg_drain_records"]),
-    (28, 2, False, ["pg_gather_codes", "pg_wide_stream", "pg_compact_planes",
-                    "pg_wide_emit", "pg_compact_planes", "pg_reduce_wide",
+    (28, 2, False, ["pg_gather_codes", "pg_wide_stream", "pg_wide_emit",
+                    "pg_compact_planes", "pg_reduce_wide",
                     "pg_reduce_wide", "pg_drain_records"]),
-    (28, 2, True, ["pg_gather_codes", "pg_wide_stream", "pg_compact_planes",
-                   "pg_wide_emit", "pg_compact_planes", "pg_reduce_wide",
+    (28, 2, True, ["pg_gather_codes", "pg_wide_stream", "pg_wide_emit",
+                   "pg_compact_planes", "pg_reduce_wide",
                    "pg_reduce_wide", "pg_drain_records", "pg_drain_records"]),
 ])
 def test_step_keeps_the_standalone_kernels_elsewhere(monkeypatch, k, levels,

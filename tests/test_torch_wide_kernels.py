@@ -96,8 +96,8 @@ def test_wide_stream_plain_outputs(rng):
     k = 24
     codes, lens = kernel_cases.wide_stream_codes(rng, B, L, k, CHUNK)
     rids = np.arange(B, dtype=np.int64) + 2**31
-    x, y, li, keep = (a.numpy() for a in kn.wide_stream(
-        _t(codes), _t(lens), _t(rids), k=k))
+    x, y, li, keep = (a.numpy() for a in kn.wide_stream_plain(
+        _t(codes), _t(lens), _t(rids), k))
     col = np.arange(L)[None, :]
     inlen = col < lens[:, None]
     amb = (codes >= 4) & inlen
@@ -265,32 +265,33 @@ class _Launches:
 
 
 def test_each_wrapper_is_one_launch(monkeypatch):
-    """wide_stream and reduce_wide are one chunked launch each, with the
-    look-back status sized by CHUNK and REDUCE_WIDE_CHUNK; wide_emit one
-    launch with no status; each counts it; the arguments follow the C
-    prototypes (SIGNATURES, checked against the .cu file by
-    test_torch_kernels.py)."""
+    """wide_stream (which writes the compacted stream and its counts) and
+    reduce_wide are one chunked launch each, with the look-back status
+    sized by CHUNK and REDUCE_WIDE_CHUNK; wide_emit one launch with no
+    status; each counts it; the arguments follow the C prototypes
+    (SIGNATURES, checked against the .cu file by test_torch_kernels.py)."""
     launches = _Launches(monkeypatch)
     Bq, Lq = 3, kn.CHUNK + 1
     codes = torch.zeros((Bq, Lq), dtype=torch.uint8)
     lens = torch.full((Bq,), Lq, dtype=torch.int32)
     rids = torch.arange(Bq, dtype=torch.int64)
     before = [fn.launches for fn in kn.KERNELS]
-    x, y, li, keep = kn.wide_stream(codes, lens, rids, k=28)
+    x, y, sl, n = kn.wide_stream(codes, lens, rids, k=28)
     [(fn, args)] = launches.calls
     assert fn == "pg_wide_stream"
     assert args[:3] == (codes, lens, rids)
     assert args[3].numel() == kn.STATUS_SLOT * (1 + Bq * 2)
     assert args[5] == 0  # the first launch: no earlier status to zero
-    assert args[6:] == (x, y, li, keep, Bq, Lq, 28)
-    assert (x.dtype, li.dtype, keep.dtype) == (torch.int64, torch.int32,
-                                               torch.bool)
+    assert args[6:] == (x, y, sl, n, Bq, Lq, 28)
+    assert (x.dtype, y.dtype, sl.dtype, n.dtype) == (
+        torch.int64, torch.int64, torch.int32, torch.int32)
+    assert x.shape == sl.shape == (Bq, Lq) and n.shape == (Bq,)
 
     launches.calls.clear()
-    emit = kn.wide_emit(x, li, lens, w=80, k=28)
+    emit = kn.wide_emit(x, sl, lens, w=80, k=28)
     [(fn, args)] = launches.calls
     assert fn == "pg_wide_emit"
-    assert args == (x, li, lens, emit, Bq, Lq, 80, 28)
+    assert args == (x, sl, lens, emit, Bq, Lq, 80, 28)
     assert emit.dtype == torch.bool and emit.shape == (Bq, Lq)
 
     launches.calls.clear()
@@ -307,16 +308,16 @@ def test_each_wrapper_is_one_launch(monkeypatch):
 
 
 def test_sketch_wide_and_reduce_impl_are_kernel_launches_only(monkeypatch):
-    """On the card, sketch_wide is wide_stream, compact_planes, wide_emit
-    and compact_planes, and a reduce_impl level one reduce_wide launch:
-    no other work sits between them."""
+    """On the card, sketch_wide is wide_stream (the compacted stream),
+    wide_emit and compact_planes, and a reduce_impl level one reduce_wide
+    launch: no other work sits between them."""
     launches = _Launches(monkeypatch)
     Bq, Lq = 2, 300
     codes = torch.zeros((Bq, Lq), dtype=torch.uint8)
     lens = torch.full((Bq,), Lq, dtype=torch.int32)
     x, y, c = sketch.sketch_wide(codes, lens, torch.arange(Bq), w=80, k=28)
-    assert launches.names() == ["pg_wide_stream", "pg_compact_planes",
-                                "pg_wide_emit", "pg_compact_planes"]
+    assert launches.names() == ["pg_wide_stream", "pg_wide_emit",
+                                "pg_compact_planes"]
     launches.calls.clear()
     reduce.reduce_impl(x, y, c, r=6)
     assert launches.names() == ["pg_reduce_wide"]
@@ -325,8 +326,8 @@ def test_sketch_wide_and_reduce_impl_are_kernel_launches_only(monkeypatch):
 @pytest.mark.parametrize("Bq,Lq", [(0, 64), (3, 0)])
 def test_empty_shapes_launch_nothing(monkeypatch, Bq, Lq):
     """B = 0 or L = 0: no launch, the shapes of the outputs, and
-    reduce_wide's count, which the kernel writes itself, zero; the plain
-    versions agree."""
+    wide_stream's and reduce_wide's counts, which the kernels write
+    themselves, zero; the plain versions agree."""
     codes = torch.zeros((Bq, Lq), dtype=torch.uint8)
     lens = torch.zeros(Bq, dtype=torch.int32)
     rids = torch.zeros(Bq, dtype=torch.int64)
@@ -334,8 +335,9 @@ def test_empty_shapes_launch_nothing(monkeypatch, Bq, Lq):
     sl = torch.zeros((Bq, Lq), dtype=torch.int32)
 
     def run():
-        out = kn.wide_stream(codes, lens, rids, k=28)
+        *out, n = kn.wide_stream(codes, lens, rids, k=28)
         assert all(a.shape == (Bq, Lq) for a in out)
+        assert n.shape == (Bq,) and not n.any()
         assert kn.wide_emit(x, sl, lens, w=5, k=28).shape == (Bq, Lq)
         ox, oy, count = kn.reduce_wide(x, x, lens, r=6)
         assert ox.shape == (Bq, Lq) and count.shape == (Bq,)

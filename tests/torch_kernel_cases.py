@@ -12,11 +12,11 @@ against the Pallas kernels (with a small `chunk`, where the boundaries
 only place the features) use them.
 Rows 0-7 (0-9 for reduce_step, 0-13 for compact_planes) are the crafted
 ones; any further rows are random.  The wide route's kernels
-(wide_stream, wide_emit, reduce_wide: wide_stream_codes, wide_emit_stream,
-wide_reduce_rows) take int64 records whose hashes reach 2^55 and more, so
-records at and above 2^63 are ordered as unsigned.  The banded Myers
-aligner's requests (myers_lanes, myers_requests) come with the sequences
-they read.
+(wide_stream, wide_emit, reduce_wide: wide_stream_codes and
+wide_compact_codes, wide_emit_stream, wide_reduce_rows) take int64
+records whose hashes reach 2^55 and more, so records at and above 2^63
+are ordered as unsigned.  The banded Myers aligner's requests
+(myers_lanes, myers_requests) come with the sequences they read.
 """
 
 from __future__ import annotations
@@ -207,6 +207,38 @@ def wide_stream_codes(rng: np.random.Generator, B: int, L: int, k: int,
     if B > 11:
         start = max(0, _boundaries(L, chunk)[0] - k)
         codes[11, start:] = at[:L - start]
+    return codes, lens
+
+
+def wide_compact_codes(rng: np.random.Generator, B: int, L: int, k: int,
+                       chunk: int):
+    """wide_stream_codes' rows 0-11, then rows whose kept ranks the
+    compacting wide_stream carries across boundaries: ambiguous runs of
+    seven bases centred on each boundary (row 12); no ambiguous base, so
+    every column of the read is kept (row 13); (AT)* over the whole
+    second chunk, which keeps nothing there at even k, and the read's end
+    a column after the next boundary (row 14); the read's end a column
+    before the first boundary, on an ambiguous base (row 15)."""
+    codes, lens = wide_stream_codes(rng, B, L, k, chunk)
+    bounds = list(_boundaries(L, chunk))
+    if B > 12:
+        lens[12] = L
+        for c in bounds:
+            codes[12, max(0, c - 3):c + 4] = 4 + rng.integers(
+                0, 4, len(range(max(0, c - 3), min(L, c + 4))),
+                dtype=np.uint8)
+    if B > 13:
+        codes[13] = rng.integers(0, 4, L)
+        lens[13] = L
+    if B > 14:
+        lo = min(L, chunk)
+        hi = min(L, 2 * chunk)
+        codes[14, lo:hi] = np.resize(np.array([0, 3], np.uint8), hi - lo)
+        lens[14] = min(L, hi + 1)
+    if B > 15:
+        lens[15] = max(0, bounds[0] - 1)
+        if lens[15]:
+            codes[15, lens[15] - 1] = 5
     return codes, lens
 
 
