@@ -16,7 +16,7 @@ Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the SHIMMER kernels and the banded Myers aligner (nvcc, sm_90a)
      and the native host library, the three at once;
-  3. each of the twelve SHIMMER kernels against its plain PyTorch version
+  3. each of the thirteen SHIMMER kernels against its plain PyTorch version
      on the card, exactly, at the main paths' shapes (B=64, L in 8192/16384/
      24576/32768/40960, 16384 being the draft's main bucket; move_plane
      moving both stream planes in one launch; reduce_step on the draft's
@@ -39,20 +39,27 @@ Phases, in order; any failure raises and exits non-zero:
      bytes, bound, share and plain ms: wide_stream (the compacted
      stream, below its counts) at L = 16384 (the main shape), 24576 and
      40960, wide_emit on that stream, reduce_wide on the main shape's
-     sketch capped at 2048, uncapped (n ~ 370; level 1 is the main shape)
-     and both levels, and on one row of 131,072, then
+     sketch capped at 2048 (read in place, as the step reads it),
+     uncapped (n ~ 370; level 1 is the main shape) and both levels, and on
+     one row of 131,072, reduce_wide_drain (the k > 16 step's final level
+     with the drain) on level 2 uncapped (width 16384, phase 6's, the main
+     shape) and capped (out_cap columns), each also against reduce_wide
+     followed by drain_records and timed beside that pair, then
      tests/torch_kernel_cases.py's wide rows (wide_stream at L =
      CHUNK - 1, CHUNK + 1, 16384 and k = 17, 28; wide_emit there at
      w = 1, 2, 3, 5, 31-33, 79-81, 255 with and without ties;
      reduce_wide at L = REDUCE_WIDE_CHUNK - 1, REDUCE_WIDE_CHUNK + 1, 5000
-     and r = 2, 6, 255); stage 1's batch step's two: gather_codes on 64
+     and r = 2, 6, 255, and reduce_wide_drain on six batches of the 5000
+     rows through one cursor); stage 1's batch step's two: gather_codes
+     on 64
      E. coli-class reads at L = 8192, 16384 (the main shape) and 24576,
      as the index (strand 0, fill 4) and the sharded overlap (random
      strands, fill 7) read them, and on the test windows (every residue
      mod 16, lengths 0, 1, L - 1, L) on planes cut to the data with junk
-     after them; drain_records on the final level of 64 reads simulated
-     as phase 5's (1% error) at L=16384 (the main shape and load: cap
-     2048, two levels, out_cap columns),
+     after them; drain_records on the level-0 stream of 64 reads
+     simulated as phase 5's (1% error) at L=16384, (x, y) at k=28 (phase
+     6's site, the main shape) and (H, P) at k=16, on the final level of
+     the same reads (cap 2048, two levels, out_cap columns),
      on random codes' level 2 three times through one cursor, and on the
      test batches at k=16 and 28 (counts 0, the width and past it;
      streams cut short); the k <= 16 step's fused pair, each also against
@@ -108,8 +115,10 @@ Phases, in order; any failure raises and exits non-zero:
   6. the wide consensus path: `pg-tpu-torch asm --shimmer-k 28
      --with-L0-index --with-consensus` on the same set, with the stage
      walls of stages 0-4, launch counts (compact_planes, wide_stream,
-     wide_emit, reduce_wide, gather_codes and drain_records must each be
-     > 0, the fused pair 0),
+     wide_emit, reduce_wide, gather_codes, reduce_wide_drain and
+     drain_records must each be > 0, the fused pair 0, and
+     reduce_wide_drain once a gather, drain_records at least as often:
+     the level-0 stream),
      peak device memory, and a check of the polished contigs: the longest
      covers >= 0.9 of the genome, and >= 0.95 of its 21-mers, and more
      than of the phase-5 draft's, occur in the genome;
@@ -202,11 +211,13 @@ and memset intervals), the device time of each kernel, in all and by
 template instance and launch grid (which tell its shapes apart), and
 the number of device intervals (fill kernels counted apart); each
 kernel's launch count must equal its launches in the trace (at k=16
-the fused pair and no gather_codes or drain_records, at k=28 the
-reverse).  With
+the fused pair and no gather_codes, drain_records or reduce_wide_drain,
+at k=28 gather_codes and reduce_wide_drain and not the fused pair).
+With
 --abba PARENT it runs `chip_smoke.py --index-profile` of the checkout
 PARENT and of this one in turns (parent, change, change, parent), each
-in its own process, and prints each run's summary.
+in its own process, and prints each run's summary (walls, busy time,
+device intervals, each kernel's trace us a launch).
 """
 
 from __future__ import annotations
@@ -244,10 +255,17 @@ REPLACES = {
     # stage, the drain into the final reduce_step's store stage
     "gather_build_stream": "peregrine_tpu/ops/compact_pallas.py:243",
     "reduce_drain": "peregrine_tpu/ops/compact_pallas.py:464",
+    # the k > 16 step's final reduce_impl level with the drain as its
+    # store stage
+    "reduce_wide_drain": "peregrine_tpu/ops/reduce.py:26 with "
+                         "peregrine_tpu/ops/index.py:66",
 }
 WIDE = ("wide_stream", "wide_emit", "reduce_wide")
 STAGE1 = ("gather_codes", "drain_records")
 FUSED = ("gather_build_stream", "reduce_drain")
+# the k > 16 step: the gather alone, the final level and the drain fused
+# (drain_records stays for the level-0 stream and the retries)
+WIDE_STEP = ("gather_codes", "reduce_wide_drain")
 # the kernel the port adds where the JAX package used XLA: the banded
 # Myers aligner's fused loop (_myers_core, as myers_batch_db_packed calls it)
 ALIGN_SOURCE = "peregrine_tpu_torch/csrc/myers_align.cu"
@@ -625,6 +643,7 @@ def phase_kernels(results: dict) -> None:
         main = {"reduce_step": CAP,  # level 1
                 "compact_planes": (MAIN_L, 0.023),
                 "reduce_wide": WIDE_LEVEL,
+                "reduce_wide_drain": WIDE_DRAIN,
                 "drain_records": DRAIN_MAIN,
                 "reduce_drain": FUSED_DRAIN}.get(name, MAIN_L)
         ms, pms = st["times"][main]
@@ -640,9 +659,14 @@ def phase_kernels(results: dict) -> None:
             f" {bound_ms / ms:.4f} of the bound")
 
 WIDE_LEVEL = f"B=64 L={MAIN_L} uncapped, level 1"  # reduce_wide's main shape
+# reduce_wide_drain's: phase 6's final level
+WIDE_DRAIN = f"B=64 L={MAIN_L} uncapped, level 2, width {MAIN_L}"
 OUT_CAP = max(64, CAP // int((R / 2) ** 2))  # the draft's final columns
-DRAIN_MAIN = (f"B=64 reads at L={MAIN_L}: (H, P) level 2 of cap {CAP}, "
-              f"out_cap {OUT_CAP}")
+# drain_records' main site is phase 6's level-0 stream
+DRAIN_MAIN = (f"B=64 reads at L={MAIN_L}: (x, y) level 0 at k={K_WIDE}, "
+              f"width {MAIN_L}")
+DRAIN_FINAL = (f"B=64 reads at L={MAIN_L}: (H, P) level 2 of cap {CAP}, "
+               f"out_cap {OUT_CAP}")
 FUSED_DRAIN = (f"B=64 reads at L={MAIN_L}: (H, P) level 1 of cap {CAP} -> "
                f"level 2, out_cap {OUT_CAP}")
 
@@ -676,7 +700,7 @@ def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
     import torch
 
     from peregrine_tpu_torch.io.seqdb import SeqDB
-    from peregrine_tpu_torch.ops import dbgather, index, kernels as kn
+    from peregrine_tpu_torch.ops import dbgather, index, kernels as kn, sketch
     from peregrine_tpu_torch.simdata import random_genome, simulate_reads
 
     B = 64
@@ -820,13 +844,40 @@ def phase_stage1_kernels(rng, stats, moved, kernel_cases, note, on_card,
     # kernel_ms' launches (at most 301) append to one stream; the count
     # slots past 4 are not written
     timed, ptimed = streams(320 * n, 4), streams(n, 4)
-    shape("drain_records", DRAIN_MAIN,
+    shape("drain_records", DRAIN_FINAL,
           lambda: kn.drain_records(H, P, rids, c, c0, timed[2], timed[0],
                                    timed[1], k=K, width=OUT_CAP),
           lambda: (ptimed[2].zero_(), kn.drain_records_plain(
               H, P, rids, c, c0, ptimed[2], ptimed[0], ptimed[1], k=K,
               width=OUT_CAP)),
-          24 * n + 16 * B + 8 * B, DRAIN_MAIN)
+          24 * n + 16 * B + 8 * B)
+    # the level-0 stream of --with-L0-index, where the step still drains
+    # alone: the same reads' sketch, (x, y) records at k=28 (phase 6, the
+    # main site) and (H, P) planes at k=16, every column of the pad wide;
+    # the records read and written once, the counts (and at k=16 the
+    # rids) read
+    for k, main in ((K_WIDE, DRAIN_MAIN), (K, None)):
+        if k > 16:
+            a0, b0, n0 = sketch.sketch_wide(codes, ln.to(torch.int32), rids,
+                                            w=W, k=k)
+        else:
+            a0, b0, n0 = sketch.sketch_planes(codes, ln.to(torch.int32), w=W,
+                                              k=k)
+        n = int(n0.clamp(0, MAIN_L).sum())
+        got, want = streams(n, 4), streams(n, 4)
+        for run, fn in ((got, kn.drain_records),
+                        (want, kn.drain_records_plain)):
+            fn(a0, b0, rids, n0, n0, run[2], run[0], None, k=k, width=MAIN_L)
+        note("drain_records", list(zip(got, want)))
+        timed, ptimed = streams(320 * n, 4), streams(n, 4)
+        shape("drain_records", f"B=64 reads at L={MAIN_L}: level 0 at k={k}"
+              f", {n / B:.1f} records a row, width {MAIN_L}",
+              lambda: kn.drain_records(a0, b0, rids, n0, n0, timed[2],
+                                       timed[0], None, k=k, width=MAIN_L),
+              lambda: (ptimed[2].zero_(), kn.drain_records_plain(
+                  a0, b0, rids, n0, n0, ptimed[2], ptimed[0], None, k=k,
+                  width=MAIN_L)),
+              (32 if k > 16 else 24) * n + (4 if k > 16 else 12) * B, main)
     # the fused final level: level 2's reads (the columns below level 1's
     # counts), the records, and a row's n, c0 and rid in and count slot
     # out
@@ -904,7 +955,7 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
     from peregrine_tpu_torch.ops import kernels as kn
 
     B = 64
-    shapes = {name: [] for name in WIDE}
+    shapes = {name: [] for name in WIDE + ("reduce_wide_drain",)}
 
     def shape(name, site, rows, L, fn, plain, nbytes, main=None,
               pairs=zip):
@@ -950,15 +1001,17 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
         return 16 * int(n.clamp(0, C).sum()) + 16 * n.numel() * C + 8 * n.numel()
 
     ox, oy, cnt = level
-    capped = (ox[:, :CAP].contiguous(), oy[:, :CAP].contiguous(),
-              cnt.clamp(max=CAP))
+    # the step's level 1 reads the capped sketch in place, its count
+    # unclamped
+    capped = (ox[:, :CAP], oy[:, :CAP], cnt)
     LONG = 131072
     xl = rng.integers(0, 2**64, (1, LONG), dtype=np.uint64)
     yl = np.sort(rng.integers(0, 2**31, (1, LONG)), axis=1).astype(np.uint64)
     long_row = tuple(on_card(xl.view(np.int64), (yl << np.uint64(1)).view(
         np.int64), np.array([LONG], np.int32)))
+    level1 = {}
     for site, (x, y, n), main in (
-            ("level 1, capped", capped, None),
+            ("level 1, capped, in place", capped, None),
             ("level 1, uncapped", level, WIDE_LEVEL),
             ("contig level", long_row, None)):
         C = x.shape[1]
@@ -967,11 +1020,67 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
                      lambda: kn.reduce_wide_plain(x, y, n, R),
                      reduce_bytes(n, C), main)
         if site != "contig level":  # level 2 reads level 1's output
-            x2, y2, n2 = want
-            shape("reduce_wide", site.replace("1", "2"), B, C,
+            level1[site] = x2, y2, n2 = want
+            shape("reduce_wide", site.replace("1", "2").replace(
+                ", in place", ""), B, C,
                   lambda: kn.reduce_wide(x2, y2, n2, r=R),
                   lambda: kn.reduce_wide_plain(x2, y2, n2, R),
                   reduce_bytes(n2, C))
+
+    def streams(n_rec, rows):
+        return (torch.full((n_rec, 2), 7, dtype=torch.int64, device="cuda"),
+                torch.full((4, 2, rows), -5, dtype=torch.int32,
+                           device="cuda"),
+                torch.zeros(3, dtype=torch.int64, device="cuda"))
+
+    # the fused final level at the step's two shapes: level 2 of the
+    # uncapped level 1 (--with-L0-index, phase 6: every record kept) and
+    # of the capped one (out_cap columns), each held to its plain version
+    # and to reduce_wide followed by drain_records exactly and timed
+    # against that pair; kernel_ms' launches (at most 301) append to one
+    # stream, the count slots past 4 not written
+    for site, (x, y, n), width, main in (
+            ("level 2, uncapped", level1["level 1, uncapped"], MAIN_L,
+             WIDE_DRAIN),
+            ("level 2, capped", level1["level 1, capped, in place"],
+             OUT_CAP, None)):
+        rows, C = x.shape
+        c0 = n + 7
+        n_rec = int(kn.reduce_wide_plain(x, y, n, R)[2].clamp(
+            max=width).sum())
+        got, want, pair = (streams(n_rec, rows) for _ in range(3))
+        kn.reduce_wide_drain(x, y, n, c0, got[2], got[0], got[1], r=R,
+                             width=width)
+        kn.reduce_wide_drain_plain(x, y, n, c0, want[2], want[0], want[1],
+                                   r=R, width=width)
+        ox, oy, oc = kn.reduce_wide(x, y, n, r=R)
+        kn.drain_records(ox, oy, None, oc, c0, pair[2], pair[0], pair[1],
+                         k=K_WIDE, width=width)
+        note("reduce_wide_drain", list(zip(got, want)) + list(zip(got, pair)))
+        timed, ptimed, qtimed = (streams(320 * n_rec, rows), streams(
+            n_rec, rows), streams(320 * n_rec, rows))
+
+        def level_then_drain():
+            lx, ly, lc = kn.reduce_wide(x, y, n, r=R)
+            kn.drain_records(lx, ly, None, lc, c0, qtimed[2], qtimed[0],
+                             qtimed[1], k=K_WIDE, width=width)
+        ms = kernel_ms(lambda: kn.reduce_wide_drain(
+            x, y, n, c0, timed[2], timed[0], timed[1], r=R, width=width))
+        pms = plain_ms(lambda: (ptimed[2].zero_(), kn.reduce_wide_drain_plain(
+            x, y, n, c0, ptimed[2], ptimed[0], ptimed[1], r=R, width=width)))
+        # x, y below n in; the records out; n and c0 in and the two count
+        # words out a row; the cursor's two words in and out
+        nbytes = (16 * int(n.clamp(0, C).sum()) + 16 * n_rec + 16 * rows
+                  + 32)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shapes["reduce_wide_drain"].append({
+            "site": f"{site}, width {width}", "B": rows, "L": C,
+            "records": n_rec, "bytes": nbytes, "ms": ms, "plain_ms": pms,
+            "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+            "pair_ms": kernel_ms(level_then_drain)})
+        if main is not None:
+            stats["reduce_wide_drain"]["times"][main] = (ms, pms)
+            moved["reduce_wide_drain"] = nbytes
 
     # rows that put lengths, runs, placeholders, final windows, counts and
     # window winners on the chunk boundaries
@@ -993,6 +1102,7 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
                                     kn.wide_emit_plain(sx, sl, n, w,
                                                        K_WIDE))])
     WC = kn.REDUCE_WIDE_CHUNK
+    batches = []
     for L in (WC - 1, WC + 1, 5000):
         for r in (2, R, 255):
             for ties in (False, True):
@@ -1001,6 +1111,14 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
                 x, y, n = on_card(x.view(np.int64), y.view(np.int64), n)
                 note("reduce_wide", zip(kn.reduce_wide(x, y, n, r=r),
                                         kn.reduce_wide_plain(x, y, n, r)))
+                if L == 5000:  # three batches through one cursor
+                    batches.append((x, y, n))
+    got, want = streams(6 * 300 * B, B), streams(6 * 300 * B, B)
+    for x, y, n in batches[:6]:
+        for run, fn in ((got, kn.reduce_wide_drain),
+                        (want, kn.reduce_wide_drain_plain)):
+            fn(x, y, n, n + 3, run[2], run[0], run[1], r=R, width=300)
+    note("reduce_wide_drain", list(zip(got, want)))
     torch.cuda.synchronize()
     check(not any(bool(pair[0].any()) for pair in kn._status_pairs.values()),
           "the next chunked launch's look-back status is not zeroed")
@@ -1010,12 +1128,16 @@ def phase_wide_kernels(rng, stats, moved, kernel_cases, note, on_card,
             say(f"kernel {name} {sh['site']} B={sh['B']} L={sh['L']}: "
                 f"{sh['bytes']} bytes, bound {sh['bound_ms'] * 1e3:.3f} us, "
                 f"kernel {sh['ms'] * 1e3:.3f} us, {sh['share_of_bound']:.4f} "
-                f"of the bound, plain {sh['plain_ms']:.4f} ms")
+                f"of the bound, plain {sh['plain_ms']:.4f} ms" + (
+                    f", the two launches it replaces {sh['pair_ms'] * 1e3:.3f}"
+                    " us" if "pair_ms" in sh else ""))
     say(f"kernel checks: wide_stream on the chunk-boundary rows at L "
         f"{kn.CHUNK - 1}/{kn.CHUNK + 1}/{MAIN_L}, k 17/{K_WIDE}; wide_emit "
         f"at w 1/2/3/5/31/32/33/79/{W}/81/255 with and without ties; "
         f"reduce_wide at L "
-        f"{WC - 1}/{WC + 1}/5000, r 2/{R}/255 with and without ties")
+        f"{WC - 1}/{WC + 1}/5000, r 2/{R}/255 with and without ties; "
+        "reduce_wide_drain on both level-2 shapes and on six batches of "
+        "the L=5000 rows through one cursor")
 
 
 def align_shapes(kernel_cases):
@@ -1311,6 +1433,7 @@ def plain_kernels():
         "gather_build_stream": lambda pdb, g, ln, L, *, k:
             kn.gather_build_stream_plain(pdb, g, ln, L, k),
         "reduce_drain": kn.reduce_drain_plain,
+        "reduce_wide_drain": kn.reduce_wide_drain_plain,
     }
     saved = [(m, name, getattr(m, name)) for m in (index, reduce, sketch)
              for name in plain if hasattr(m, name)]
@@ -1359,10 +1482,11 @@ def check_traced_launches(dev, launches: dict, label: str) -> None:
     counted = {name: launches[name] for name in REPLACES}
     check(traced_n == counted, f"{label}: the wrappers counted {counted}, "
           f"the trace holds {traced_n}")
-    # stage 1's step runs the fused pair at k=16, the gather and the
-    # drain alone at k > 16
-    if any(traced_n[n] for n in FUSED + STAGE1):
-        want, absent = (FUSED, STAGE1) if "k=16" in label else (STAGE1, FUSED)
+    # stage 1's step runs the fused pair at k=16 (no level-0 stream, so no
+    # drain_records); at k > 16 the gather alone and the fused final level
+    if any(traced_n[n] for n in FUSED + STAGE1 + WIDE_STEP):
+        want, absent = ((FUSED, STAGE1 + WIDE_STEP) if "k=16" in label
+                        else (WIDE_STEP, FUSED))
         check(all(traced_n[n] for n in want)
               and not any(traced_n[n] for n in absent),
               f"{label}: the trace holds {traced_n}, not {want} without "
@@ -1575,6 +1699,10 @@ def index_profile_abba(parent: str, k: int, out_dir: str) -> None:
                / prof["profiled_wall_ms"],
                "host_split_s": prof.get("host_split_s"),
                "graph_pool_bytes": prof.get("graph_pool_bytes"),
+               "launches": prof["launches"],
+               "kernels_us": {name: ms * 1e3 / prof["launches"][name]
+                              for name, ms in prof["kernels_ms"].items()
+                              if prof["launches"].get(name)},
                "process_s": time.time() - t}
         runs.append(run)
         say(f"index profile abba k={k} [{i} {label}]: median "
@@ -1586,7 +1714,8 @@ def index_profile_abba(parent: str, k: int, out_dir: str) -> None:
             f"{run['idle_share']:.4f}")
         for line in r.stdout.splitlines():
             if ("host split" in line or "seqdb pack" in line
-                    or "launch check" in line):
+                    or "launch check" in line or "by kernel" in line
+                    or "by grid" in line):
                 say("    " + line)
     say(json.dumps({"index_profile_abba": runs}))
 
@@ -1742,7 +1871,7 @@ def phase_draft(lst: str, genome, wd: str, results: dict):
               f"kernel {name} was not launched by the draft path")
         results[name]["launches"] = launches[name]
     # the fused pair in place of the gather, the build and the drain
-    for name in STAGE1 + ("build_stream",):
+    for name in STAGE1 + ("build_stream", "reduce_wide_drain"):
         check(launches[name] == 0,
               f"the draft path launched {name} {launches[name]} times")
     # one batch step a sketch: one fused gather, one level-1 reduce_step
@@ -1956,13 +2085,20 @@ def phase_consensus(lst: str, genome, wd: str, results: dict,
         lst, out, flags, "consensus path",
         ("seqdb", "index", "overlap", "layout", "ctg_index", "mapping",
          "consensus"))
-    for name in ("compact_planes",) + WIDE + STAGE1:
+    for name in ("compact_planes",) + WIDE + STAGE1 + WIDE_STEP:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the consensus path")
         results[name]["launches"] = launches[name]
-    for name in FUSED:  # k=28: the gather and the drain stay alone
+    for name in FUSED:  # k=28: the gather alone, reduce_wide_drain
         check(launches[name] == 0,
               f"the consensus path launched {name} {launches[name]} times")
+    # one batch step a gather: one fused final level, and a drain_records
+    # of the level-0 stream (and of any retried batch)
+    check(launches["gather_codes"] == launches["reduce_wide_drain"]
+          <= launches["drain_records"],
+          f"consensus path: {launches['reduce_wide_drain']} fused final "
+          f"levels and {launches['drain_records']} level-0 drains for "
+          f"{launches['gather_codes']} gathers")
     DIGESTS["phase6"] = output_digests(out)
     n = {lv: len(formats.read_mmlist(os.path.join(
         out, "1-index", f"shmr-L{lv}-01-of-01.dat"))[0]) for lv in (0, 2)}
@@ -2541,7 +2677,7 @@ def phase_spill(lst: str, wd: str, db_bytes: int) -> dict:
                         + SPILL_STAGES)
             finally:
                 prun._spill_free_bytes = free_bytes
-            for kernel in ("compact_planes",) + WIDE:
+            for kernel in ("compact_planes",) + WIDE + WIDE_STEP:
                 check(launches[kernel] > 0,
                       f"{label}: kernel {kernel} was not launched")
             check(os.path.isdir(os.path.join(out, "spill")),

@@ -17,12 +17,18 @@
 //   pg_drain_records  <- peregrine_tpu/ops/index.py:_compact_drain (:66)
 //                        with ops/sketch.py:assemble_records folded in
 //
-// and two fuse a stage-1 kernel into its neighbour on the k <= 16 main
-// path, the launch and the global round trip between them removed:
+// and three fuse a stage-1 kernel into its neighbour, the launch and the
+// global round trip between them removed, on the k <= 16 main path:
 //
 //   pg_gather_build_stream <- gather_codes followed by build_stream (:243)
 //   pg_reduce_drain        <- the final reduce_step (:464) followed by
 //                             _compact_drain with assemble_records
+//
+// and on the k > 16 path:
+//
+//   pg_reduce_wide_drain   <- the final reduce_impl level
+//                             (peregrine_tpu/ops/reduce.py:26) followed by
+//                             _compact_drain
 //
 // The first four run the packed k <= 16 path on [B, L] row-major uint32
 // planes (the wrappers in ops/kernels.py hand over int32 tensors holding
@@ -126,6 +132,11 @@ static_assert(kMaxW < kChunkThreads, "one final-window column per thread");
 struct Sum {
   __device__ int operator()(int a, int b) const { return a + b; }
 };
+struct Sum64 {
+  __device__ long long operator()(long long a, long long b) const {
+    return a + b;
+  }
+};
 struct Max {
   __device__ int operator()(int a, int b) const { return a > b ? a : b; }
 };
@@ -152,11 +163,17 @@ __device__ __forceinline__ Stream shfl_up(const Stream& s, int off) {
 __device__ __forceinline__ int shfl_from(int v, int lane) {
   return __shfl_sync(0xFFFFFFFFu, v, lane);
 }
+__device__ __forceinline__ long long shfl_from(long long v, int lane) {
+  return __shfl_sync(0xFFFFFFFFu, v, lane);
+}
 __device__ __forceinline__ Stream shfl_from(const Stream& s, int lane) {
   return {shfl_from(s.vns, lane), shfl_from(s.inc, lane),
           shfl_from(s.amb, lane)};
 }
 __device__ __forceinline__ int shfl_down(int v, int off) {
+  return __shfl_down_sync(0xFFFFFFFFu, v, off);
+}
+__device__ __forceinline__ long long shfl_down(long long v, int off) {
   return __shfl_down_sync(0xFFFFFFFFu, v, off);
 }
 __device__ __forceinline__ Stream shfl_down(const Stream& s, int off) {
@@ -221,10 +238,16 @@ __device__ unsigned long long block_min_u64(unsigned long long v,
 // A published value as two 64-bit words, each written once and carrying
 // bit 0 = written, so a reader that sees both words written has one whole
 // publication without any fence: x = vns << 1 | inc << 32 and
-// y = (amb + 1) << 1 for a Stream, x = count << 1 for a count.
+// y = (amb + 1) << 1 for a Stream, x = count << 1 for a count (int, or a
+// non-negative long long).
 __device__ __forceinline__ void to_words(int v, unsigned long long* x,
                                          unsigned long long* y) {
   *x = 1ull | (unsigned long long)(unsigned)v << 1;
+  *y = 1ull;
+}
+__device__ __forceinline__ void to_words(long long v, unsigned long long* x,
+                                         unsigned long long* y) {
+  *x = 1ull | (unsigned long long)v << 1;
   *y = 1ull;
 }
 __device__ __forceinline__ void to_words(const Stream& v,
@@ -237,6 +260,10 @@ __device__ __forceinline__ void to_words(const Stream& v,
 __device__ __forceinline__ void from_words(unsigned long long x,
                                            unsigned long long, int* v) {
   *v = (int)(unsigned)(x >> 1);
+}
+__device__ __forceinline__ void from_words(unsigned long long x,
+                                           unsigned long long, long long* v) {
+  *v = (long long)(x >> 1);
 }
 __device__ __forceinline__ void from_words(unsigned long long x,
                                            unsigned long long y, Stream* v) {
@@ -302,16 +329,17 @@ __device__ __forceinline__ int take_ticket(int* status, int* shared) {
 // predecessors at once, one per lane, and combine their values back to the
 // nearest one that has published its inclusive prefix (window after window
 // of 32 if none has); publish this chunk's inclusive prefix; return the
-// exclusive one to every lane.
+// exclusive one to every lane.  With publish false it only reads: the
+// prefix of a tile whose slot another tile publishes.
 template <typename T, typename Op>
 __device__ T look_back(int* status, int tile, int j, const T& agg,
-                       const T& id, Op op) {
+                       const T& id, Op op, bool publish = true) {
   constexpr int kPairs = kSlot / 4;  // (aggregate, inclusive prefix)
   const int lane = threadIdx.x & 31;
   auto slot = [status](int t) {
     return (volatile ulonglong2*)status + kPairs * (t + 1);
   };
-  if (j > 0 && lane == 0) publish_words(slot(tile), agg);
+  if (publish && j > 0 && lane == 0) publish_words(slot(tile), agg);
   T excl = id;
   for (int p0 = tile - 1; p0 >= tile - j; p0 -= 32) {
     const int p = p0 - lane;
@@ -346,7 +374,7 @@ __device__ T look_back(int* status, int tile, int j, const T& agg,
     excl = op(shfl_from(v, 0), excl);
     if (inclusive) break;
   }
-  if (lane == 0) publish_words(slot(tile) + 1, op(excl, agg));
+  if (publish && lane == 0) publish_words(slot(tile) + 1, op(excl, agg));
   return excl;
 }
 
@@ -1441,17 +1469,20 @@ constexpr int kMaxDevices = 64;  // cards whose wide_emit_kernel is sized
 // reduce_wide: kWRChunk columns of one row per block of kChunkThreads
 // threads (as stage_async strides), column x of the chunk in thread
 // x % kChunkThreads, register x / kChunkThreads; a block stages the
-// columns [c0 - r, c0 + kWRChunk) of x and y, plus one word of slack.
-// REDUCE_WIDE_CHUNK in ops/kernels.py must equal kWRChunk.
+// columns [c0 - r, c0 + kWRChunk) of x and y, plus one word of slack,
+// the first kWREarly of them before it knows n.  REDUCE_WIDE_CHUNK in
+// ops/kernels.py must equal kWRChunk.
 constexpr int kWRChunk = 2048;
 constexpr int kWRPer = kWRChunk / kChunkThreads;
 constexpr int kWRSegs = kWRPer * kChunkWarps;
 constexpr int kWRExt = (kWRChunk + kMaxR + 1 + 1) / 2 * 2;
+constexpr int kWREarly = 512;  // columns staged before n is known
 
 static_assert(kWPacked % 4 == 0, "whole 64-bit words of packed codes");
 static_assert(kWLead >= kMaxWideK - 1, "the packed lead covers the halo");
 static_assert(kWPer <= 32 && kEPer <= 32, "per-thread bit masks");
 static_assert(kMaxR < kWRChunk && kWRChunk % kChunkThreads == 0, "chunks");
+static_assert(kWREarly <= kWRChunk, "early columns lie in the chunk");
 static_assert(kWSegs <= 32 * 32 && kWRSegs <= 32 * 32, "segments");
 
 // Invertible minimizer hash (peregrine_tpu/ops/sketch.py:hash64) on
@@ -1916,6 +1947,202 @@ __device__ __forceinline__ int window_winner64(const unsigned long long* xs,
   return at;
 }
 
+// One reduction level on record rows (see reduce_wide_kernel); kDrain
+// adds reduce_wide_drain_kernel's store stage in place of the oX, oY,
+// count stores and the fills.  Rows are ld >= C elements apart in X and
+// Y, C apart in oX and oY.  Each kernel's blocks run it once.  kDrain's
+// status holds a slot a tile and then a slot a row.
+template <bool kDrain>
+__device__ __forceinline__ void reduce_wide_level(
+    const unsigned long long* __restrict__ X,
+    const unsigned long long* __restrict__ Y,
+    const int32_t* __restrict__ n_in, int* __restrict__ status,
+    int* __restrict__ stale, int stale_words,
+    unsigned long long* __restrict__ oX, unsigned long long* __restrict__ oY,
+    int32_t* __restrict__ count, int C, int ld, int r, int chunks,
+    const DrainArgs& d) {
+  __shared__ __align__(16) unsigned long long Xs[kWRExt];
+  __shared__ __align__(16) unsigned long long Ys[kWRExt];
+  __shared__ int seg[kWRSegs];
+  __shared__ unsigned long long edge[kWRSegs];  // each segment's last y
+  __shared__ int shared_int;
+  __shared__ int ticket;
+  __shared__ long long row_base;  // kDrain: the row's first record
+
+  // rows of one chunk need no look-back, and so no ticket, unless the
+  // look-back runs across rows (kDrain)
+  const int tile = chunks == 1 && !kDrain ? (int)blockIdx.x
+                                          : take_ticket(status, &ticket);
+  clear_stale(stale, stale_words);
+  const int row = tile / chunks, j = tile - row * chunks;
+  const int c0 = j * kWRChunk, ncols = min(kWRChunk, C - c0);
+  const size_t base = (size_t)row * C;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // a row's first chunk stages its first columns and the r-column halo
+  // while n loads (a level holds a few hundred entries a row, so most
+  // levels need no second round trip); a later chunk, past n in most
+  // rows, stages only what n says lies below it
+  const int g0 = max(0, c0 - r);
+  const int early = j == 0 ? min(C, c0 + kWREarly) - g0 : 0;
+  const uint8_t* x0 = (const uint8_t*)(X + (size_t)row * ld + g0);
+  const uint8_t* y0 = (const uint8_t*)(Y + (size_t)row * ld + g0);
+  const int offX = stage_async((uint8_t*)Xs, x0, 8 * early);
+  const int offY = stage_async((uint8_t*)Ys, y0, 8 * early);
+  const int n = max(0, min(n_in[row], C));  // a count: never past the row
+  unsigned long long cur0 = 0, cur1 = 0;
+  if (kDrain && threadIdx.x == 0) {
+    // the cursors, before this tile publishes anything: the last tile
+    // moves them only once it has seen every publication
+    cur1 = load_acquire(d.cursor + 1);
+    cur0 = load_acquire(d.cursor);
+  }
+  if (!kDrain) {  // the chunk's columns at or past n: all ones there
+    for (int t = max(c0, n) + threadIdx.x; t < c0 + ncols;
+         t += kChunkThreads) {
+      oX[base + t] = ~0ull;
+      oY[base + t] = ~0ull;
+    }
+  }
+  // block-uniform: a chunk past n has nothing below n and publishes
+  // nothing, but for reduce_wide_drain's chunk 0, which publishes its
+  // row's records (none)
+  const bool live = c0 < n;
+  if (!live) {
+    cp_async_wait_all();
+    if (!kDrain || j > 0) {
+      if (!kDrain && j == 0 && threadIdx.x == 0) count[row] = 0;
+      return;
+    }
+  }
+  const int nb = live ? min(kWRChunk, n - c0) : 0;  // columns below n
+  unsigned long long wx[kWRPer], wy[kWRPer];
+  uint32_t em[kWRPer];
+#pragma unroll
+  for (int q = 0; q < kWRPer; ++q) em[q] = 0;
+  if (live) {
+    const int E = c0 + nb - g0;
+    if (E > early) {  // the rest of the chunk below n
+      stage_rest((uint8_t*)Xs, offX, x0, 8 * early, 8 * E);
+      stage_rest((uint8_t*)Ys, offY, y0, 8 * early, 8 * E);
+    }
+    const unsigned long long* xs = Xs + offX / 8;  // xs[i]: column g0 + i
+    const unsigned long long* ys = Ys + offY / 8;
+    // the registers that hold a column below n (block-uniform)
+    const int nq = (nb + kChunkThreads - 1) / kChunkThreads;
+    cp_async_wait_all();
+    __syncthreads();
+
+    // each column's winner, where its window is whole
+    bool full[kWRPer];
+#pragma unroll
+    for (int q = 0; q < kWRPer; ++q) {
+      const int x = threadIdx.x + q * kChunkThreads, col = c0 + x;
+      full[q] = x < nb && col >= r - 1;
+      wx[q] = wy[q] = 0;
+      if (full[q]) {
+        const int b = window_winner64(xs, col - g0, col, r);
+        wx[q] = xs[b];
+        wy[q] = ys[b];
+      }
+      if (q < nq && lane == 31) edge[q * kChunkWarps + warp] = wy[q];
+    }
+    // column c0 - 1's winner, the previous one of the chunk's first column
+    unsigned long long before = 0;
+    if (threadIdx.x == 0 && c0 >= r)
+      before = ys[window_winner64(xs, c0 - 1 - g0, c0 - 1, r)];
+    __syncthreads();
+
+    // emitted columns by ballots in segments q * kChunkWarps + warp, which
+    // run in column order
+#pragma unroll
+    for (int q = 0; q < kWRPer; ++q) {
+      const int e = q * kChunkWarps + warp;
+      if (q < nq) {
+        unsigned long long prev = __shfl_up_sync(0xFFFFFFFFu, wy[q], 1);
+        if (lane == 0) prev = e > 0 ? edge[e - 1] : before;
+        const int col = c0 + threadIdx.x + q * kChunkThreads;
+        em[q] = __ballot_sync(0xFFFFFFFFu,
+                              full[q] && (col == r - 1 || wy[q] != prev));
+      }
+      if (lane == 0) seg[e] = __popc(em[q]);
+    }
+    __syncthreads();
+  }
+  if (warp == 0) {
+    const int agg = live ? segment_scan<kWRSegs>(seg, 0, Sum()) : 0;
+    if (kDrain) {
+      // the row's entries before this chunk, from the chunks before it
+      // (all live); the chunk of column n - 1 (chunk 0 where n == 0) has
+      // the row's count, publishes the row's records in the row-level
+      // look-back (row slots after the tile slots; row 0's with the
+      // cursor base, which its thread 0 read) and gets the records of the
+      // rows before it; another chunk of the row only reads that prefix
+      const int in_row =
+          chunks == 1 ? 0 : look_back(status, tile, j, agg, 0, Sum());
+      const bool last = live ? c0 + nb == n : true;
+      const long long recs = min(d.width, in_row + agg);
+      const int rows = (int)gridDim.x / chunks;
+      const long long before = look_back(
+          status + kSlot * gridDim.x, row, row,
+          row == 0 ? recs + (long long)cur0 : recs, 0LL, Sum64(), last);
+      if (lane == 0) {
+        shared_int = in_row;
+        row_base = row == 0 ? (long long)cur0 : before;
+        const unsigned long long slot = cur1;
+        if (last && d.counts_out != nullptr &&
+            slot < (unsigned long long)d.max_slots) {
+          d.counts_out[2 * slot * d.counts_ld + row] = d.c0[row];
+          d.counts_out[(2 * slot + 1) * d.counts_ld + row] = in_row + agg;
+        }
+        if (last && row == rows - 1) {  // after the whole look-back
+          store_release(d.cursor,
+                        (unsigned long long)(row_base + recs));
+          store_release(d.cursor + 1, slot + 1);
+        }
+      }
+    } else {
+      const int c =
+          chunks == 1 ? 0 : look_back(status, tile, j, agg, 0, Sum());
+      if (lane == 0) {
+        shared_int = c;
+        if (c0 + nb == n) count[row] = c + agg;  // the chunk of column n-1
+      }
+    }
+  }
+  __syncthreads();
+  const int pre = shared_int;  // emitted columns of the row before the chunk
+  if (kDrain) {
+    const long long at0 = row_base;
+#pragma unroll
+    for (int q = 0; q < kWRPer; ++q) {
+      if (em[q] >> lane & 1u) {
+        const int rank = pre + seg[q * kChunkWarps + warp] +
+                         __popc(em[q] & ((1u << lane) - 1u));
+        const long long at = at0 + rank;
+        if (rank < d.width && at < d.max_records)
+          d.out[at] = make_ulonglong2(wx[q], wy[q]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kWRPer; ++q) {
+      const int x = threadIdx.x + q * kChunkThreads;
+      if (x < nb) {
+        const int at = pre + seg[q * kChunkWarps + warp] +
+                       __popc(em[q] & ((1u << lane) - 1u));
+        if (em[q] >> lane & 1u) {
+          oX[base + at] = wx[q];
+          oY[base + at] = wy[q];
+        } else {
+          const size_t fill = base + n - 1 - (c0 + x - at);
+          oX[fill] = ~0ull;
+          oY[fill] = ~0ull;
+        }
+      }
+    }
+  }
+}
+
 // One reduction level on record rows, compacted (replaces the XLA code of
 // reduce_impl, peregrine_tpu/ops/reduce.py:26-61, with its compaction):
 // the winner of the r-wide trailing window at each column r - 1 <= col <
@@ -1923,15 +2150,21 @@ __device__ __forceinline__ int window_winner64(const unsigned long long* xs,
 // column's winner's; the emitted winners' x and y go to ox, oy at their
 // rank in the row, every column from the count to C gets all ones, and
 // count gets their number.  n is clamped to [0, C]; the values of x, y at
-// or past it are never read.
+// or past it are never used (the early staging below may read some).
+// The input rows lie ld >= C elements apart, so a level reads the first
+// C columns of wider planes (the sketch's, cut to the cap) in place.
 //
 // Bound: 16 bytes per column below n (x, y in) and 16 per column of the
 // output (the emitted winners and the fills): 16.9 MB, 5.0 us at a
 // --with-L0-index level (B=64, C=16,384, n ~ 370), where the fills are
-// nearly all of it.  Design: reduce_step's, on 64-bit records and with
-// the fills: chunks of kWRChunk columns, one block each (a row of one
-// chunk takes no ticket and publishes nothing); the chunk's columns below
-// n and an r-column halo staged in shared memory by cp.async; each
+// nearly all of it; 2.4 MB, 0.73 us at a capped level (C=2,048).
+// Design: reduce_step's, on 64-bit records and with the fills: chunks of
+// kWRChunk columns, one block each (a row of one chunk takes no ticket
+// and publishes nothing); a row's first kWREarly columns and an r-column
+// halo staged in shared memory by cp.async while n loads, the rest of the
+// columns below n after it (a later chunk, past n in most rows of a
+// level, stages nothing before it knows n), so a level (n ~ 370) waits
+// on one round trip to device memory before its stores, not two; each
 // column's winner is found once (r shared loads), the previous column's
 // comes from the neighbouring lane by a shuffle; ranks come from ballots,
 // popcounts, one warp's prefix over the 32-column segments and, across
@@ -1939,7 +2172,7 @@ __device__ __forceinline__ int window_winner64(const unsigned long long* xs,
 // (emitted columns before t) writes all ones at column n - 1 - d, which
 // puts the fills on [count, n) exactly once, and a column at or past n
 // writes them at its own column (count <= n), so no store waits on the
-// row's count; a chunk at or past n reads nothing and publishes nothing.
+// row's count; a chunk at or past n publishes nothing.
 __global__ void __launch_bounds__(kChunkThreads)
 reduce_wide_kernel(const unsigned long long* __restrict__ X,
                    const unsigned long long* __restrict__ Y,
@@ -1947,112 +2180,63 @@ reduce_wide_kernel(const unsigned long long* __restrict__ X,
                    int* __restrict__ stale, int stale_words,
                    unsigned long long* __restrict__ oX,
                    unsigned long long* __restrict__ oY,
-                   int32_t* __restrict__ count, int C, int r, int chunks) {
-  __shared__ __align__(16) unsigned long long Xs[kWRExt];
-  __shared__ __align__(16) unsigned long long Ys[kWRExt];
-  __shared__ int seg[kWRSegs];
-  __shared__ unsigned long long edge[kWRSegs];  // each segment's last y
-  __shared__ int shared_int;
-
-  // rows of one chunk need no look-back, and so no ticket
-  const int tile =
-      chunks == 1 ? (int)blockIdx.x : take_ticket(status, &shared_int);
-  clear_stale(stale, stale_words);
-  const int row = tile / chunks, j = tile - row * chunks;
-  const int c0 = j * kWRChunk, ncols = min(kWRChunk, C - c0);
-  const size_t base = (size_t)row * C;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = max(0, min(n_in[row], C));  // a count: never past the row
-  // the chunk's columns at or past n: all ones at their own column
-  for (int t = max(c0, n) + threadIdx.x; t < c0 + ncols; t += kChunkThreads) {
-    oX[base + t] = ~0ull;
-    oY[base + t] = ~0ull;
-  }
-  if (c0 >= n) {  // block-uniform: nothing below n, nothing to publish
-    if (j == 0 && threadIdx.x == 0) count[row] = 0;
-    return;
-  }
-  const int nb = min(kWRChunk, n - c0);  // the chunk's columns below n
-  const int g0 = max(0, c0 - r);
-  const int E = c0 + nb - g0;
-  const int offX = stage_async((uint8_t*)Xs, (const uint8_t*)(X + base + g0),
-                               8 * E);
-  const int offY = stage_async((uint8_t*)Ys, (const uint8_t*)(Y + base + g0),
-                               8 * E);
-  const unsigned long long* xs = Xs + offX / 8;  // xs[i], ys[i]: column g0+i
-  const unsigned long long* ys = Ys + offY / 8;
-  // the registers that hold a column below n (block-uniform)
-  const int nq = (nb + kChunkThreads - 1) / kChunkThreads;
-  cp_async_wait_all();
-  __syncthreads();
-
-  // each column's winner, where its window is whole
-  unsigned long long wx[kWRPer], wy[kWRPer];
-  bool full[kWRPer];
-#pragma unroll
-  for (int q = 0; q < kWRPer; ++q) {
-    const int x = threadIdx.x + q * kChunkThreads, col = c0 + x;
-    full[q] = x < nb && col >= r - 1;
-    wx[q] = wy[q] = 0;
-    if (full[q]) {
-      const int b = window_winner64(xs, col - g0, col, r);
-      wx[q] = xs[b];
-      wy[q] = ys[b];
-    }
-    if (q < nq && lane == 31) edge[q * kChunkWarps + warp] = wy[q];
-  }
-  // column c0 - 1's winner, the previous one of the chunk's first column
-  unsigned long long before = 0;
-  if (threadIdx.x == 0 && c0 >= r)
-    before = ys[window_winner64(xs, c0 - 1 - g0, c0 - 1, r)];
-  __syncthreads();
-
-  // emitted columns by ballots in segments q * kChunkWarps + warp, which
-  // run in column order
-  uint32_t em[kWRPer];
-#pragma unroll
-  for (int q = 0; q < kWRPer; ++q) {
-    const int e = q * kChunkWarps + warp;
-    em[q] = 0;
-    if (q < nq) {
-      unsigned long long prev = __shfl_up_sync(0xFFFFFFFFu, wy[q], 1);
-      if (lane == 0) prev = e > 0 ? edge[e - 1] : before;
-      const int col = c0 + threadIdx.x + q * kChunkThreads;
-      em[q] = __ballot_sync(0xFFFFFFFFu,
-                            full[q] && (col == r - 1 || wy[q] != prev));
-    }
-    if (lane == 0) seg[e] = __popc(em[q]);
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int agg = segment_scan<kWRSegs>(seg, 0, Sum());
-    const int c = chunks == 1 ? 0 : look_back(status, tile, j, agg, 0, Sum());
-    if (lane == 0) {
-      shared_int = c;
-      if (c0 + nb == n) count[row] = c + agg;  // the chunk of column n-1
-    }
-  }
-  __syncthreads();
-  const int pre = shared_int;
-#pragma unroll
-  for (int q = 0; q < kWRPer; ++q) {
-    const int x = threadIdx.x + q * kChunkThreads;
-    if (x < nb) {
-      // emitted columns of the row before this one
-      const int at = pre + seg[q * kChunkWarps + warp] +
-                     __popc(em[q] & ((1u << lane) - 1u));
-      if (em[q] >> lane & 1u) {
-        oX[base + at] = wx[q];
-        oY[base + at] = wy[q];
-      } else {
-        const size_t fill = base + n - 1 - (c0 + x - at);
-        oX[fill] = ~0ull;
-        oY[fill] = ~0ull;
-      }
-    }
-  }
+                   int32_t* __restrict__ count, int C, int ld, int r,
+                   int chunks) {
+  reduce_wide_level<false>(X, Y, n_in, status, stale, stale_words, oX, oY,
+                           count, C, ld, r, chunks, DrainArgs{});
 }
 
+// The final reduction level of stage 1's k > 16 batch step with the
+// record drain as its store stage (replaces reduce_impl,
+// peregrine_tpu/ops/reduce.py:26, followed by
+// peregrine_tpu/ops/index.py:_compact_drain (:66)): the level's emitted
+// winners of each row, the first min(count, width) of them, go as (x, y)
+// records to the tight stream at the device cursor, in (row, column)
+// order, exactly as reduce_wide followed by drain_records writes them
+// (writes at or past max_records dropped); (c0, count) goes to count slot
+// cursor[1]; the last row's last live chunk advances cursor[0] by the
+// batch's records and cursor[1] by one, so the launch has fixed arguments
+// for a CUDA graph.  The level's own planes, fills and counts are never
+// written.
+//
+// Bound: 16 bytes per column below n (x, y in), 16 per record out, 16 per
+// row (n, c0 in; two count words out): 0.14 MB, 0.04 us at the k=28
+// step's level 2 (B=64, n ~ 120), so the launch is a chain of latencies.
+// Design: reduce_wide_kernel's staging and ranking, unchanged, and a
+// store stage that places each record at once: every tile takes a
+// ticket; a chunk past n (all but chunk 0 of most rows: the level-2 rows
+// of an uncapped step have 8 chunks and ~120 entries) exits, publishing
+// nothing; a row's live chunks carry its entries across chunks by
+// reduce_wide's look-back, and the chunk of column n - 1 publishes the
+// row's records, min(count, width), in a second decoupled look-back
+// whose slots are rows, so a window of 32 lanes covers 32 rows however
+// many chunks a row has (a single chain over every chunk's tile, as
+// reduce_drain's, took 14.4 us on an H100 where the rows have 8 chunks,
+// against 7.0 us where they have one); each live chunk gets the records
+// of the
+// rows before it from that look-back and stores its records with no
+// further pass.  Each tile's thread 0 reads the cursors with acquire
+// loads before the tile publishes anything; only row 0 adds cursor[0] to
+// what it publishes, and the last row's last chunk, whose look-back has
+// seen every row's publication, moves both cursors with release stores,
+// so no tile reads a cursor that has moved.
+__global__ void __launch_bounds__(kChunkThreads)
+reduce_wide_drain_kernel(const unsigned long long* __restrict__ X,
+                         const unsigned long long* __restrict__ Y,
+                         const int32_t* __restrict__ n_in,
+                         const int32_t* __restrict__ c0,
+                         int* __restrict__ status, int* __restrict__ stale,
+                         int stale_words, unsigned long long* cursor,
+                         ulonglong2* __restrict__ out,
+                         int32_t* __restrict__ counts_out, int C, int ld,
+                         int r, int chunks, int width, long long max_records,
+                         int max_slots, int counts_ld) {
+  reduce_wide_level<true>(X, Y, n_in, status, stale, stale_words, nullptr,
+                          nullptr, nullptr, C, ld, r, chunks,
+                          DrainArgs{nullptr, c0, cursor, out, counts_out, 0,
+                                    width, max_records, max_slots,
+                                    counts_ld});
+}
 
 // --- gather_codes: windows of the packed seqdb as 2-bit codes -------------
 //
@@ -2247,22 +2431,52 @@ gather_build_stream_kernel(const uint8_t* __restrict__ fw, long long n_fw,
 // counts_ld apart) when counts_out is given; the last block to finish
 // advances cursor[0] by the batch's records and cursor[1] by one, so the
 // launch has fixed arguments and can be replayed from a CUDA graph.
-// cursor[2] counts the blocks done and returns to 0.  Bound: bytes, the
-// kept entries read once (8 or 16 bytes) and written once (16 bytes).
+// cursor[2] counts the blocks done and returns to 0.
+//
+// Bound: bytes, the kept entries read once (8 or 16 bytes) and written
+// once (16 bytes), and 8 bytes a row: 0.61 MB, 0.18 us at the level-0
+// stream of --with-L0-index (B=64, ~370 records a row), so the launch is
+// a chain of latencies.  Design: one block a row (B = 64 rows fill half
+// the SMs in one wave; several rows a block would put their stores on
+// fewer SMs and save nothing on the chain); every load a block needs is
+// issued at once, before any of them returns: each thread loads its row's
+// first kDrainPer columns (below C, whatever the count: they do not
+// depend on it), the row's count, and in warp 0 each lane the counts of
+// every 32nd row, which the warp sums by shuffles into the records before
+// this row and in all, while lane 0 reads the cursor; one barrier, then
+// the stores from registers (the columns past kDrainPer * kDrainThreads
+// of a longer row in a loop after them).  Thread 0 then counts its block
+// done with an acquire-release atomic, ordered after its cursor read; the
+// last block moves the cursors from the total its warp already holds.
 constexpr int kDrainThreads = 256;
+constexpr int kDrainPer = 2;  // columns a thread loads before its count
 
-__device__ __forceinline__ long long block_sum64(long long v,
-                                                 long long* scratch) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xFFFFFFFFu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  long long total = 0;
-  for (int i = 0; i < kDrainThreads / 32; ++i) total += scratch[i];
-  __syncthreads();
-  return total;
+__device__ __forceinline__ unsigned long long atomic_add_acq_rel(
+    unsigned long long* p, unsigned long long v) {
+  unsigned long long old;
+  asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], %2;\n"
+               : "=l"(old)
+               : "l"(p), "l"(v)
+               : "memory");
+  return old;
+}
+
+template <bool kPacked>
+__device__ __forceinline__ ulonglong2 drain_record(const void* pa,
+                                                   const void* pb, size_t at,
+                                                   unsigned long long rid_hi,
+                                                   int k) {
+  ulonglong2 rec;
+  if (kPacked) {
+    const uint32_t h = __ldg(static_cast<const uint32_t*>(pa) + at);
+    const uint32_t p = __ldg(static_cast<const uint32_t*>(pb) + at);
+    rec.x = (unsigned long long)h << 8 | (unsigned)k;
+    rec.y = rid_hi | (unsigned long long)(p >> 2) << 1 | (p >> 1 & 1u);
+  } else {
+    rec.x = __ldg(static_cast<const unsigned long long*>(pa) + at);
+    rec.y = __ldg(static_cast<const unsigned long long*>(pb) + at);
+  }
+  return rec;
 }
 
 template <bool kPacked>
@@ -2276,48 +2490,59 @@ drain_records_kernel(const void* __restrict__ pa, const void* __restrict__ pb,
                      int32_t* __restrict__ counts_out, int B, int C, int ld,
                      int k, long long max_records, int max_slots,
                      int counts_ld) {
-  __shared__ long long scratch[kDrainThreads / 32];
-  __shared__ long long s_base;
+  __shared__ long long s_pre;
   const int row = blockIdx.x;
-  long long pre = 0;
-  for (int i = threadIdx.x; i < row; i += kDrainThreads)
-    pre += min(max(count[i], 0), C);
-  pre = block_sum64(pre, scratch);
-  if (threadIdx.x == 0)
-    s_base = (long long)*(volatile unsigned long long*)cursor + pre;
-  __syncthreads();
-  const long long base = s_base;
-  const int n = min(max(count[row], 0), C);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t r0 = (size_t)row * ld;
+  unsigned long long cur0 = 0, slot = 0;
+  long long total = 0;
+  if (warp == 0) {
+    if (lane == 0) {
+      cur0 = *(volatile unsigned long long*)cursor;
+      slot = *(volatile unsigned long long*)(cursor + 1);
+    }
+    long long pre = 0;
+    for (int i = lane; i < B; i += 32) {
+      const long long v = min(max(count[i], 0), C);
+      total += v;
+      if (i < row) pre += v;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      total += __shfl_xor_sync(0xFFFFFFFFu, total, off);
+      pre += __shfl_xor_sync(0xFFFFFFFFu, pre, off);
+    }
+    if (lane == 0) s_pre = (long long)cur0 + pre;
+  }
   const unsigned long long rid_hi =
       kPacked ? (unsigned long long)rids[row] << 32 : 0;
-  for (int j = threadIdx.x; j < n && base + j < max_records;
-       j += kDrainThreads) {
-    ulonglong2 rec;
-    if (kPacked) {
-      const uint32_t h = static_cast<const uint32_t*>(pa)[r0 + j];
-      const uint32_t p = static_cast<const uint32_t*>(pb)[r0 + j];
-      rec.x = (unsigned long long)h << 8 | (unsigned)k;
-      rec.y = rid_hi | (unsigned long long)(p >> 2) << 1 | (p >> 1 & 1u);
-    } else {
-      rec.x = static_cast<const unsigned long long*>(pa)[r0 + j];
-      rec.y = static_cast<const unsigned long long*>(pb)[r0 + j];
-    }
-    out[base + j] = rec;
+  const int cnt = count[row], n = min(max(cnt, 0), C);
+  const int sketched = threadIdx.x == 0 && counts_out != nullptr ? c0[row] : 0;
+  ulonglong2 rec[kDrainPer];
+#pragma unroll
+  for (int q = 0; q < kDrainPer; ++q) {
+    const int j = threadIdx.x + q * kDrainThreads;
+    if (j < C) rec[q] = drain_record<kPacked>(pa, pb, r0 + j, rid_hi, k);
   }
+  __syncthreads();
+  const long long base = s_pre;
+#pragma unroll
+  for (int q = 0; q < kDrainPer; ++q) {
+    const int j = threadIdx.x + q * kDrainThreads;
+    if (j < n && base + j < max_records) out[base + j] = rec[q];
+  }
+  for (int j = threadIdx.x + kDrainPer * kDrainThreads;
+       j < n && base + j < max_records; j += kDrainThreads)
+    out[base + j] = drain_record<kPacked>(pa, pb, r0 + j, rid_hi, k);
   if (threadIdx.x == 0) {
-    const unsigned long long slot = *(volatile unsigned long long*)(cursor + 1);
     if (counts_out != nullptr && slot < (unsigned long long)max_slots) {
-      counts_out[(2 * slot) * counts_ld + row] = c0[row];
-      counts_out[(2 * slot + 1) * counts_ld + row] = count[row];
+      counts_out[(2 * slot) * counts_ld + row] = sketched;
+      counts_out[(2 * slot + 1) * counts_ld + row] = cnt;
     }
-    // every block reads the cursor before it counts itself done, so the
-    // last one may move it
-    __threadfence();
-    if (atomicAdd(cursor + 2, 1ull) == gridDim.x - 1) {
-      long long total = 0;
-      for (int i = 0; i < B; ++i) total += min(max(count[i], 0), C);
-      cursor[0] += (unsigned long long)total;
+    // every block reads the cursor before it counts itself done (the
+    // release), so the last one (the acquire) may move it
+    if (atomic_add_acq_rel(cursor + 2, 1ull) == gridDim.x - 1) {
+      cursor[0] = cur0 + (unsigned long long)total;
       cursor[1] = slot + 1;
       cursor[2] = 0;
     }
@@ -2449,15 +2674,37 @@ int pg_wide_emit(const void* sx, const void* sl, const void* n_in, void* emit,
 
 int pg_reduce_wide(const void* x, const void* y, const void* n_in,
                    void* status, void* stale, int stale_words, void* ox,
-                   void* oy, void* count, int B, int C, int r, void* stream) {
-  if (r < 1 || r > kMaxR || stale_words % kSlot)
+                   void* oy, void* count, int B, int C, int ld, int r,
+                   void* stream) {
+  if (r < 1 || r > kMaxR || stale_words % kSlot || ld < C)
     return (int)cudaErrorInvalidValue;
   const int chunks = (C + kWRChunk - 1) / kWRChunk;
   reduce_wide_kernel<<<B * chunks, kChunkThreads, 0, (cudaStream_t)stream>>>(
       (const unsigned long long*)x, (const unsigned long long*)y,
       (const int32_t*)n_in, (int*)status, (int*)stale, stale_words,
-      (unsigned long long*)ox, (unsigned long long*)oy, (int32_t*)count, C, r,
-      chunks);
+      (unsigned long long*)ox, (unsigned long long*)oy, (int32_t*)count, C, ld,
+      r, chunks);
+  return (int)cudaGetLastError();
+}
+
+int pg_reduce_wide_drain(const void* x, const void* y, const void* n_in,
+                         const void* c0, void* status, void* stale,
+                         int stale_words, void* cursor, void* out,
+                         void* counts_out, int B, int C, int ld, int r,
+                         int width, long long max_records, int max_slots,
+                         int counts_ld, void* stream) {
+  if (r < 1 || r > kMaxR || stale_words % kSlot || C < 1 || C >= (1 << 25) ||
+      ld < C || width < 0 || width > C || (counts_out && counts_ld < B) ||
+      ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (C + kWRChunk - 1) / kWRChunk;
+  reduce_wide_drain_kernel<<<B * chunks, kChunkThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const unsigned long long*)x, (const unsigned long long*)y,
+      (const int32_t*)n_in, (const int32_t*)c0, (int*)status, (int*)stale,
+      stale_words, (unsigned long long*)cursor, (ulonglong2*)out,
+      (int32_t*)counts_out, C, ld, r, chunks, width, max_records, max_slots,
+      counts_ld);
   return (int)cudaGetLastError();
 }
 

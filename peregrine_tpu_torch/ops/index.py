@@ -7,12 +7,13 @@ one jitted program: its (offset, length, rid) metas are copied in, the
 code windows gathered from the device-resident seqdb (gather_codes),
 sketched and reduced (index_planes), and the valid prefix of each row
 appended to a tight record stream on the device (drain_records, which
-replaces _compact_drain and assemble_records).  At k <= 16 the gather is
-the sketch's first kernel's load stage (gather_build_stream) and, with
-one level or more, the drain the final level's store stage
-(reduce_drain), so no codes plane and no final-level planes are
-written.  On a CUDA card the program is a CUDA graph captured once a
-shape (_Stage1Step), so a batch
+replaces _compact_drain and assemble_records).  With one level or more
+the drain is the final level's store stage (reduce_drain at k <= 16,
+reduce_wide_drain above), so no final-level planes are written; at
+k <= 16 the gather is also the sketch's first kernel's load stage
+(gather_build_stream), so no codes plane is written, and above it the
+first level reads the capped sketch in place.  On a CUDA card the
+program is a CUDA graph captured once a shape (_Stage1Step), so a batch
 costs the host one copy of its metas and one replay and no sync; the
 counts and the records of up to FETCH_GROUP batches come back in two
 copies, as the JAX package's two-phase grouped fetch does, and a batch
@@ -52,7 +53,7 @@ from ..io.seqdb import SeqDB
 from . import kernels as kn
 from .dbgather import PackedSeqDB, gather_codes, upload_seqdb
 from .kernels import (drain_records, gather_build_stream, reduce_drain,
-                      reduce_step)
+                      reduce_step, reduce_wide_drain)
 from .reduce import reduce_flat_np, reduce_impl
 from .sketch import (assemble_records, sketch_long_many_np, sketch_planes,
                      sketch_stream, sketch_wide)
@@ -122,10 +123,15 @@ def reduce_levels(a: torch.Tensor, b: torch.Tensor, c0: torch.Tensor, *,
                   keep_l0: bool = False):
     """index_planes after its sketch (a, b, c0): the cap, then `levels`
     reduction levels; returns (a, b, c, c0), with keep_l0 also the
-    sketch's planes."""
+    sketch's planes.  At k > 16 the capped planes are views, which
+    reduce_wide reads in place, and its first level clamps c0 itself; a
+    count of no level is clamped to the cap."""
     l0 = (a, b) if keep_l0 else ()
-    a, b = _capped(a, b, cap)
-    c = torch.clamp(c0, max=a.shape[1])
+    if k <= 16:
+        a, b = _capped(a, b, cap)
+    elif cap:
+        a, b = a[:, :cap], b[:, :cap]
+    c = c0 if k > 16 and levels else torch.clamp(c0, max=a.shape[1])
     for _ in range(levels):
         a, b, c = (reduce_step(a, b, c, r=r) if k <= 16
                    else reduce_impl(a, b, c, r=r))
@@ -242,10 +248,12 @@ class _Stage1Step:
     The step is the counterpart of the JAX package's index_step_db_meta:
     the metas [3, B] (offset, length, rid) go in, gather_codes,
     index_planes and drain_records run, and the records leave in a tight
-    stream with their counts in one slot a batch.  At k <= 16 the gather
-    and build_stream are one gather_build_stream launch and, where there
-    is a level, the final reduce_step and the drain one reduce_drain
-    launch (the level-0 stream of keep_l0 still drains alone).  On a CUDA
+    stream with their counts in one slot a batch.  Where there is a level,
+    the final level and the drain are one launch, reduce_drain at k <= 16
+    and reduce_wide_drain above (the level-0 stream of keep_l0 still
+    drains alone); at k <= 16 the gather and build_stream are one
+    gather_build_stream launch, and above it level 1 reads the capped
+    sketch in place.  On a CUDA
     card it is captured once as a CUDA graph (after an eager warm-up on
     its first
     batch, whose output the first replay writes again), with its own
@@ -287,9 +295,9 @@ class _Stage1Step:
     def _body(self, rows: int) -> None:
         goff, lens, rids = self.metas[:, :rows]
         w, k, r, levels = (self.step[key] for key in ("w", "k", "r", "levels"))
-        # k <= 16: the gather is build_stream's load stage, and the drain
-        # the final level's store stage
-        fused = k <= 16 and levels > 0
+        # the drain is the final level's store stage; at k <= 16 the
+        # gather is build_stream's load stage too
+        fused = levels > 0
         if k <= 16:
             a, b, c0 = sketch_stream(*gather_build_stream(
                 self.packed, goff, lens, self.pad, k=k), w=w, k=k)
@@ -301,12 +309,15 @@ class _Stage1Step:
         a, b, c, c0, *l0 = reduce_levels(a, b, c0, k=k, r=r,
                                          levels=levels - fused, cap=self.cap,
                                          keep_l0=self.keep_l0)
-        if fused:
+        if not fused:
+            drain_records(a, b, rids, c, c0, self.cursor, self.rec,
+                          self.counts, k=k, width=self.out_w)
+        elif k <= 16:
             reduce_drain(a, b, c, rids, c0, self.cursor, self.rec,
                          self.counts, r=r, k=k, width=self.out_w)
         else:
-            drain_records(a, b, rids, c, c0, self.cursor, self.rec,
-                          self.counts, k=k, width=self.out_w)
+            reduce_wide_drain(a, b, c, c0, self.cursor, self.rec,
+                              self.counts, r=r, width=self.out_w)
         if self.keep_l0:
             drain_records(*l0, rids, c0, c0, self.cursor0, self.rec0, None,
                           k=k, width=self.pad)
@@ -315,8 +326,9 @@ class _Stage1Step:
         dev = self.device
         kn.library()
         # two halves, each for any chunked launch of the step: the final
-        # level's reduce_drain takes a ticket and a slot a tile even where
-        # a row fits one chunk (status_words counts the smallest chunk)
+        # level's fused drain takes a ticket and a slot a tile even where
+        # a row fits one chunk, reduce_wide_drain also a slot a row
+        # (status_words counts the smallest chunk and the row slots)
         self.status = torch.zeros(2 * kn.status_words(self.rows, self.pad),
                                   dtype=torch.int32, device=dev)
         stream = torch.cuda.Stream(dev)

@@ -28,11 +28,16 @@ package's XLA code around the kernels:
   gather_codes    <- peregrine_tpu/ops/dbgather.py:gather_codes (:233),
                      re-exported by ops/dbgather.py with GUARD_BASES
 
-and two fuse those into their neighbours on the k <= 16 main path, where
-the step runs them in place of the pairs they compute:
+and three fuse those into their neighbours, where the step runs them in
+place of the pairs they compute, two on the k <= 16 main path:
 
   gather_build_stream <- gather_codes then build_stream (pallas_call :243)
   reduce_drain        <- the final reduce_step (pallas_call :464) then
+                         drain_records
+
+and one on the k > 16 path:
+
+  reduce_wide_drain   <- the final reduce_wide (reduce_impl) level then
                          drain_records
 
 On a CUDA tensor a function launches its kernel from
@@ -45,12 +50,13 @@ device raises.
 
 What bounds the kernels on an H100: device-memory bytes (each reads and
 writes a few bytes per column once).  build_stream, emit_mask,
-reduce_step, compact_planes, wide_stream, reduce_wide and the fused pair
-split rows into chunks (CHUNK columns, REDUCE_CHUNK for reduce_step and
-reduce_drain, COMPACT_CHUNK for compact_planes, REDUCE_WIDE_CHUNK for
-reduce_wide), one block each, and carry row prefixes across chunks by a
-decoupled look-back over a zeroed status buffer (reduce_drain across
-the batch's rows too); each launch zeroes the one the launch before it
+reduce_step, compact_planes, wide_stream, reduce_wide and the fused
+kernels split rows into chunks (CHUNK columns, REDUCE_CHUNK for
+reduce_step and reduce_drain, COMPACT_CHUNK for compact_planes,
+REDUCE_WIDE_CHUNK for reduce_wide and reduce_wide_drain), one block
+each, and carry row prefixes across chunks by a decoupled look-back over
+a zeroed status buffer (the two fused final levels across the batch's
+rows too); each launch zeroes the one the launch before it
 used, so the wrappers alternate two (`_call_chunked`).  wide_emit needs
 no row prefix.  See the source note in the .cu file.
 
@@ -103,7 +109,7 @@ SIGNATURES = {
     + [_INT] * 5 + [_VP],
     "pg_wide_stream": [_VP] * 5 + [_INT] + [_VP] * 4 + [_INT] * 3 + [_VP],
     "pg_wide_emit": [_VP] * 4 + [_INT] * 4 + [_VP],
-    "pg_reduce_wide": [_VP] * 5 + [_INT] + [_VP] * 3 + [_INT] * 3 + [_VP],
+    "pg_reduce_wide": [_VP] * 5 + [_INT] + [_VP] * 3 + [_INT] * 4 + [_VP],
     "pg_gather_codes": [_VP, _I64, _VP, _I64] + [_VP] * 4 + [_INT] * 3
     + [_VP],
     "pg_drain_records": [_VP] * 8 + [_INT] * 5 + [_I64] + [_INT] * 2 + [_VP],
@@ -111,6 +117,8 @@ SIGNATURES = {
     + [_VP] * 4 + [_INT] * 3 + [_VP],
     "pg_reduce_drain": [_VP] * 7 + [_INT] + [_VP] * 3 + [_INT] * 5 + [_I64]
     + [_INT] * 2 + [_VP],
+    "pg_reduce_wide_drain": [_VP] * 6 + [_INT] + [_VP] * 3 + [_INT] * 5
+    + [_I64] + [_INT] * 2 + [_VP],
 }
 # The chunked kernels' layout (kChunk, kRChunk, kCChunk, kWRChunk and
 # kSlot in the .cu file; tests check they agree): columns per block of
@@ -165,6 +173,36 @@ def _check(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str):
                          f"{t.dtype} {tuple(t.shape)}")
 
 
+def _rows(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype, B: int,
+          C: int, name: str) -> int:
+    """Check two [B, C] planes of `dtype` whose rows may lie apart in
+    larger buffers (a [:, :C] view of wider planes): adjacent columns,
+    one row stride ld >= C for both.  Returns ld."""
+    for t, which in ((a, f"{name} a"), (b, f"{name} b")):
+        if t.dtype != dtype or tuple(t.shape) != (B, C):
+            raise ValueError(f"{which}: want {dtype} {(B, C)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    ld = a.stride(0) if B > 1 else C
+    cols = C < 2 or a.stride(1) == b.stride(1) == 1
+    if B and C and not (cols and (B < 2 or b.stride(0) == ld) and ld >= C):
+        raise ValueError(f"{name}: want rows of adjacent columns, one row "
+                         f"stride >= {C} for both planes, got strides "
+                         f"{a.stride()} and {b.stride()}")
+    return ld
+
+
+def _count_slots(counts_out, B: int) -> list:
+    """Check the drains' count slots, [S, 2, B'] int32 with B' >= B, or
+    None; returns them as a list of the tensors to route by."""
+    if counts_out is None:
+        return []
+    S, _, Bc = counts_out.shape
+    if Bc < B:
+        raise ValueError(f"counts_out: {Bc} counts a slot, {B} rows")
+    _check(counts_out, torch.int32, (S, 2, Bc), "counts_out")
+    return [counts_out]
+
+
 def _call(fn, *args) -> None:
     """Launch C entry fn on the current stream of its tensors' card, with
     that card current (the entry points never pick a device themselves);
@@ -185,14 +223,15 @@ def _call(fn, *args) -> None:
 
 
 def _call_chunked(fn, B: int, L: int, device, inputs, outputs, *tail,
-                  chunk: int = CHUNK):
+                  chunk: int = CHUNK, row_slots: bool = False):
     """Launch chunked kernel fn(*inputs, status, stale, stale_words,
     *outputs, *tail) on rows of `chunk`-column chunks: status is zeroed
-    look-back status for this launch, and the kernel zeroes the first
-    stale_words of stale, the status of the last launch on this stream,
-    which then serves the next.  The two buffers start as zeros and are
-    replaced by larger ones as needed."""
-    words = STATUS_SLOT * (1 + B * -(-L // chunk))
+    look-back status for this launch (a slot a chunk, and with row_slots
+    one more a row), and the kernel zeroes the first stale_words of stale,
+    the status of the last launch on this stream, which then serves the
+    next.  The two buffers start as zeros and are replaced by larger ones
+    as needed."""
+    words = STATUS_SLOT * (1 + B * (-(-L // chunk) + row_slots))
     key = (device, torch.cuda.current_stream(device).cuda_stream
            if device.type == "cuda" else None)
     pair = _status_pairs.get(key)
@@ -209,9 +248,9 @@ def _call_chunked(fn, B: int, L: int, device, inputs, outputs, *tail,
 
 def status_words(rows: int, L: int) -> int:
     """Look-back status words that any chunked launch on `rows` rows of
-    at most L columns takes."""
+    at most L columns takes (reduce_wide_drain's row slots included)."""
     chunk = min(CHUNK, REDUCE_CHUNK, COMPACT_CHUNK, REDUCE_WIDE_CHUNK)
-    return STATUS_SLOT * (1 + rows * -(-L // chunk))
+    return STATUS_SLOT * (1 + rows * (-(-L // chunk) + 1))
 
 
 @contextlib.contextmanager
@@ -789,22 +828,23 @@ def reduce_wide(x: torch.Tensor, y: torch.Tensor, count: torch.Tensor, *,
     launch: the window winner at each column j < count minimizes the key
     (x & ~0xFF) | (j % r) over its r trailing columns in unsigned order;
     winners are deduplicated against the previous column and compacted.
-    Returns (x', y', count'), INF at and past count'; the values of x, y
-    at or past count are never read."""
+    Returns (x', y', count'), contiguous, INF at and past count'; the
+    values of x, y at or past count are never used, and a count past the
+    rows' C columns counts as C.  x, y may be [:, :C] views of wider
+    planes, read in place (rows of adjacent columns, one row stride)."""
     B, C = x.shape
     if not 0 < r < 256:
         raise ValueError(f"reduce_wide: r={r} outside 1..255")
-    _check(x, torch.int64, (B, C), "x")
-    _check(y, torch.int64, (B, C), "y")
+    ld = _rows(x, y, torch.int64, B, C, "reduce_wide")
     _check(count, torch.int32, (B,), "count")
     if _route(x, y, count) == "cpu":
         return reduce_wide_plain(x, y, count, r)
-    ox = torch.empty_like(x)
-    oy = torch.empty_like(y)
+    ox = torch.empty((B, C), dtype=torch.int64, device=x.device)
+    oy = torch.empty_like(ox)
     ocount = torch.empty(B, dtype=torch.int32, device=x.device)
     if B and C:  # the chunk of each row's column count - 1 writes ocount
         _call_chunked(library().pg_reduce_wide, B, C, x.device,
-                      (x, y, count), (ox, oy, ocount), B, C, r,
+                      (x, y, count), (ox, oy, ocount), B, C, ld, r,
                       chunk=REDUCE_WIDE_CHUNK)
         reduce_wide.launches += 1
     else:
@@ -974,8 +1014,10 @@ def drain_records(a: torch.Tensor, b: torch.Tensor, rids, count: torch.Tensor,
                   counts_out, *, k: int, width: int) -> None:
     """Append a batch's records to a tight stream, in one launch.
 
-    a, b: [B, ld] planes, (H, P) int32 (records assembled with rids [B]
-    int64 and span k) or (x, y) int64 records; count [B] int32: each row's
+    a, b: [B, C] planes (rows of adjacent columns, one row stride, so
+    [:, :C] views of wider planes are read in place), (H, P) int32
+    (records assembled with rids [B] int64 and span k) or (x, y) int64
+    records; count [B] int32: each row's
     valid entries, of which the first min(count, width) columns go out,
     in (row, column) order; c0 [B] int32: the sketch counts.  cursor [3]
     int64 on the device: the stream's length, the next count slot, and
@@ -984,12 +1026,11 @@ def drain_records(a: torch.Tensor, b: torch.Tensor, rids, count: torch.Tensor,
     counts_out [S, 2, B'] int32 (B' >= B) or None: slot cursor[1] gets
     (c0, count).  The launch advances both cursors, so its arguments do
     not change from batch to batch."""
-    B, ld = a.shape
-    if a.dtype not in (torch.int32, torch.int64) or not 0 <= width <= ld:
+    B, C = a.shape
+    if a.dtype not in (torch.int32, torch.int64) or not 0 <= width <= C:
         raise ValueError(f"drain_records: int32 or int64 planes of at least "
-                         f"width {width} columns, got {a.dtype} [{B}, {ld}]")
-    _check(a, a.dtype, (B, ld), "a")
-    _check(b, a.dtype, (B, ld), "b")
+                         f"width {width} columns, got {a.dtype} [{B}, {C}]")
+    ld = _rows(a, b, a.dtype, B, C, "drain_records")
     packed = a.dtype == torch.int32
     if packed:
         _check(rids, torch.int64, (B,), "rids")
@@ -998,12 +1039,7 @@ def drain_records(a: torch.Tensor, b: torch.Tensor, rids, count: torch.Tensor,
     _check(cursor, torch.int64, (3,), "cursor")
     _check(out, torch.int64, (out.shape[0], 2), "out")
     extra = [rids] if packed else []
-    if counts_out is not None:
-        S, _, Bc = counts_out.shape
-        if Bc < B:
-            raise ValueError(f"counts_out: {Bc} counts a slot, {B} rows")
-        _check(counts_out, torch.int32, (S, 2, Bc), "counts_out")
-        extra.append(counts_out)
+    extra += _count_slots(counts_out, B)
     if _route(a, b, count, c0, cursor, out, *extra) == "cpu":
         return drain_records_plain(a, b, rids, count, c0, cursor, out,
                                    counts_out, k=k, width=width)
@@ -1056,13 +1092,7 @@ def reduce_drain(H: torch.Tensor, P: torch.Tensor, n: torch.Tensor,
     _check(c0, torch.int32, (B,), "c0")
     _check(cursor, torch.int64, (3,), "cursor")
     _check(out, torch.int64, (out.shape[0], 2), "out")
-    extra = []
-    if counts_out is not None:
-        S, _, Bc = counts_out.shape
-        if Bc < B:
-            raise ValueError(f"counts_out: {Bc} counts a slot, {B} rows")
-        _check(counts_out, torch.int32, (S, 2, Bc), "counts_out")
-        extra.append(counts_out)
+    extra = _count_slots(counts_out, B)
     if _route(H, P, n, rids, c0, cursor, out, *extra) == "cpu":
         return reduce_drain_plain(H, P, n, rids, c0, cursor, out, counts_out,
                                   r=r, k=k, width=width)
@@ -1082,9 +1112,68 @@ def reduce_drain(H: torch.Tensor, P: torch.Tensor, n: torch.Tensor,
 
 reduce_drain.launches = 0
 
+
+def reduce_wide_drain_plain(x, y, n, c0, cursor, out, counts_out, *, r: int,
+                            width: int) -> None:
+    """Plain version of reduce_wide_drain: the two plain versions."""
+    ox, oy, count = reduce_wide_plain(x, y, n, r)
+    drain_records_plain(ox, oy, None, count, c0, cursor, out, counts_out,
+                        k=0, width=width)
+
+
+def reduce_wide_drain(x: torch.Tensor, y: torch.Tensor, n: torch.Tensor,
+                      c0: torch.Tensor, cursor: torch.Tensor,
+                      out: torch.Tensor, counts_out, *, r: int,
+                      width: int) -> None:
+    """reduce_wide(x, y, n, r=r) followed by drain_records of its output
+    (c0, cursor, out, counts_out, width as there), in one launch: the
+    level's first min(count, width) winners of each row go to the tight
+    (x, y) stream at cursor[0], slot cursor[1] of counts_out gets (c0,
+    count), both cursors advance, and the level's planes are never
+    written.  x, y: [B, C] int64 records, which may be [:, :C] views of
+    wider planes (read in place), n: [B] int32 (a count past C counts as
+    C), C >= width; out [N, 2] int64 on a 16-byte boundary.  On a CUDA
+    card one pg_reduce_wide_drain launch (counted in
+    reduce_wide_drain.launches), with a look-back across the batch's rows
+    (its status a slot a chunk and a slot a row); on the CPU
+    reduce_wide_drain_plain."""
+    B, C = x.shape
+    if not 0 < r < 256:
+        raise ValueError(f"reduce_wide_drain: r={r} outside 1..255")
+    if not 0 <= width <= C or (B and not 0 < C < 1 << 25):
+        raise ValueError(f"reduce_wide_drain: width {width} of [{B}, {C}] "
+                         "planes (rows of 1..2^25 - 1 columns)")
+    ld = _rows(x, y, torch.int64, B, C, "reduce_wide_drain")
+    _check(n, torch.int32, (B,), "n")
+    _check(c0, torch.int32, (B,), "c0")
+    _check(cursor, torch.int64, (3,), "cursor")
+    _check(out, torch.int64, (out.shape[0], 2), "out")
+    if out.data_ptr() % 16:
+        raise ValueError("reduce_wide_drain: out must start on a 16-byte "
+                         "boundary (one record a 16-byte store)")
+    extra = _count_slots(counts_out, B)
+    if _route(x, y, n, c0, cursor, out, *extra) == "cpu":
+        return reduce_wide_drain_plain(x, y, n, c0, cursor, out, counts_out,
+                                       r=r, width=width)
+    if not B:  # the plain version's empty batch: one more slot
+        cursor[1] += 1
+    else:
+        slots = 0 if counts_out is None else counts_out.shape[0]
+        _call_chunked(library().pg_reduce_wide_drain, B, C, x.device,
+                      (x, y, n, c0),
+                      (cursor, out, 0 if counts_out is None else counts_out),
+                      B, C, ld, r, width, out.shape[0], slots,
+                      0 if counts_out is None else counts_out.shape[2],
+                      chunk=REDUCE_WIDE_CHUNK, row_slots=True)
+        reduce_wide_drain.launches += 1
+    return None
+
+
+reduce_wide_drain.launches = 0
+
 KERNELS = (build_stream, move_plane, emit_mask, reduce_step, compact_planes,
            wide_stream, wide_emit, reduce_wide, gather_codes, drain_records,
-           gather_build_stream, reduce_drain)
+           gather_build_stream, reduce_drain, reduce_wide_drain)
 
 
 def reset_launches() -> None:

@@ -23,7 +23,10 @@ gather_build_stream on packed planes (padded, and cut to the data at a
 byte offset into larger buffers) at every gather residue mod 32 with N
 runs across chunk boundaries, reduce_drain with each tile's look-back
 publication decoded (one chain across the batch's rows), 64 batches
-through one cursor against reduce_step and drain_records.
+through one cursor against reduce_step and drain_records; the k > 16
+step's reduce_wide_drain the same way against reduce_wide and
+drain_records (every chunk and row slot of its two look-backs decoded,
+views of wider planes), and drain_records twenty times on one cursor.
 move_plane and reduce_step write only the columns below their
 counts, so the columns past them keep the canary; compact_planes writes
 every column, the fills past the count included.  The mesh tests put a
@@ -610,7 +613,7 @@ def _reduce_wide(x, y, n, r, statuses=None):
     (sbuf, status), (xbuf, stale) = statuses or (
         _status(L, chunk=WC, rows=rows), _status(L, -1, chunk=WC, rows=rows))
     _launch("pg_reduce_wide", bufs + [cbuf, sbuf, xbuf], x, y, n, status,
-            stale, stale.numel(), *outs, count, rows, L, r)
+            stale, stale.numel(), *outs, count, rows, L, x.stride(0), r)
     *want, wc = kn.reduce_wide_plain(x, y, n, r)
     assert torch.equal(count, wc)
     for got, ref in zip(outs, want):
@@ -1469,6 +1472,236 @@ def test_reduce_drain_through_one_cursor_equals_drain_records():
     assert streams[0][2][1] == 64
 
 
+# --- the wide tail: reduce_wide on views, reduce_wide_drain, drain_records
+
+
+def _wide_rows(L, r, ties, seed, rows=B, cols=None):
+    """wide_reduce_rows on the card: (x, y, n) of `rows` rows of L
+    columns, as [:, :L] views of planes of `cols` columns (the columns
+    past L random records, which nothing may read) where cols is given."""
+    rng = np.random.default_rng(seed)
+    x, y, n = kernel_cases.wide_reduce_rows(rng, rows, L, r, WC, ties)
+    if cols is not None:
+        pad = rng.integers(-2**63, 2**63 - 1, (2, rows, cols - L))
+        x = np.concatenate([x.view(np.int64), pad[0]], 1)
+        y = np.concatenate([y.view(np.int64), pad[1]], 1)
+    x, y, n = (torch.from_numpy(np.ascontiguousarray(v).view(np.int64))
+               .cuda() if v.dtype != np.int32 else torch.from_numpy(v).cuda()
+               for v in (x, y, n))
+    return x[:, :L], y[:, :L], n
+
+
+@pytest.mark.parametrize("L", [WC - 1, WC + 1, 5000])
+@pytest.mark.parametrize("r", [2, R, 255])
+def test_reduce_wide_reads_views_in_place(L, r):
+    """reduce_wide on [:, :L] views of planes 1,000 columns wider (junk
+    past L, and counts past L, as the step's capped sketch holds them)
+    equals its plain version on whole rows and the launch on contiguous
+    copies, with every look-back slot and the canary margins checked."""
+    x, y, n = _wide_rows(L, r, False, L + r, cols=L + 1000)
+    n[10:20] = L + 300
+    assert x.stride(0) == L + 1000
+    got = _reduce_wide(x, y, n, r)
+    for a, b in zip(got, _reduce_wide(x.contiguous(), y.contiguous(), n, r)):
+        assert torch.equal(a, b)
+
+
+def _wide_drain_statuses(L, rows=B):
+    """reduce_wide_drain's status, a slot a chunk and a slot a row, and an
+    earlier one of junk, inside canary margins."""
+    return tuple(_status(L + WC, fill, chunk=WC, rows=rows)
+                 for fill in (0, -1))
+
+
+def _check_wide_drain_status(status, x, y, n, r, width, base):
+    """Every tile (chunk j of row b is tile b * chunks + j) took a ticket.
+    Where a row has more than one chunk, its chunk 0 published its
+    emitted entries as its inclusive prefix and each later chunk below n
+    its entries as its aggregate and the row's running sum as its
+    inclusive prefix; chunks past n published nothing.  Then a slot a
+    row: each row's last chunk published the row's records min(count,
+    width) as its aggregate (but row 0) and the running sum of the
+    records from the cursor base as its inclusive prefix; all as count
+    words with bit 0 set.  Returns the last row's inclusive prefix."""
+    rows, L = x.shape
+    chunks = -(-L // WC)
+    emit = kn.reduce_wide_columns_plain(x, y, n, r)[2]
+    e = _chunk_counts(emit.int() - 1, L, WC).cpu().tolist()
+    nn = n.clamp(0, L).cpu().tolist()
+    st = status.view(torch.int64).view(-1, SLOT // 2).cpu().tolist()
+    tiles = rows * chunks
+    assert st[0][0] == tiles and not any(st[0][1:])
+
+    def word(v):
+        return [2 * v + 1, 1]
+
+    acc = base
+    for b in range(rows):
+        run = 0
+        for j in range(chunks):
+            got = st[1 + b * chunks + j]
+            run += e[b][j]
+            if chunks == 1 or (j > 0 and j * WC >= nn[b]):
+                assert not any(got), (b, j)
+            else:
+                assert got == ([0, 0] if j == 0 else word(e[b][j])) + word(
+                    run), (b, j)
+        recs = min(width, run)
+        acc += recs
+        assert st[1 + tiles + b] == ([0, 0] if b == 0 else word(recs)) + \
+            word(acc), b
+    assert not any(any(w) for w in st[1 + tiles + rows:])
+    return acc
+
+
+def _reduce_wide_drain(x, y, n, r, width, base=0, statuses=None, slots=4):
+    """One guarded pg_reduce_wide_drain launch into a stream and count
+    slots inside canary margins, its cursor at `base` and slot 1, checked
+    against reduce_wide_drain_plain (the stream, its untouched tail, the
+    slots and the cursors) and its status (every look-back slot decoded),
+    and the earlier status checked zeroed; returns (stream, counts,
+    cursor)."""
+    rows, L = x.shape
+    c0 = n + 11
+    size = base + rows * width + 5
+    (obuf, out), (cbuf, counts) = (_guarded(size, 2, dtype=torch.int64),
+                                   _guarded(slots, 2, rows + 3))
+    cursor = torch.tensor([base, 1, 0], dtype=torch.int64, device="cuda")
+    (sbuf, status), (xbuf, stale) = statuses or _wide_drain_statuses(L,
+                                                                     rows)
+    _launch("pg_reduce_wide_drain", [obuf, cbuf, sbuf, xbuf], x, y, n, c0,
+            status, stale, stale.numel(), cursor, out, counts, rows, L,
+            x.stride(0), r, width, size, slots, rows + 3)
+    want = (out.clone().fill_(CANARY), counts.clone().fill_(CANARY),
+            torch.tensor([base, 1, 0], dtype=torch.int64, device="cuda"))
+    kn.reduce_wide_drain_plain(x, y, n, c0, want[2], want[0], want[1], r=r,
+                               width=width)
+    for got, ref in zip((out, counts, cursor), want):
+        assert torch.equal(got, ref)
+    end = _check_wide_drain_status(status, x, y, n, r, width, base)
+    assert cursor.tolist() == [end, 2, 0]
+    assert not stale.any()
+    return out, counts, cursor
+
+
+@pytest.mark.parametrize("L", WIDE_REDUCE_L)
+@pytest.mark.parametrize("r", [2, R, 255])
+@pytest.mark.parametrize("ties", [False, True])
+def test_reduce_wide_drain_across_chunks(L, r, ties):
+    """pg_reduce_wide_drain equals reduce_wide then drain_records (plain)
+    on wide_reduce_rows' rows (counts 0, r - 2, r - 1, on and beside a
+    REDUCE_WIDE_CHUNK boundary, L; the least hash before each boundary;
+    equal records; equal y; hashes >= 2^55), at a width below the counts
+    and at the full width, from a cursor that is not 0; at L = 5000 also
+    on [:, :L] views of wider planes."""
+    x, y, n = _wide_rows(L, r, ties, L + r)
+    for width in (min(L, 40), L):
+        _reduce_wide_drain(x, y, n, r, width, base=123)
+    if L == 5000:
+        xv, yv, _ = _wide_rows(L, r, ties, L + r, cols=L + 777)
+        assert torch.equal(xv, x) and xv.stride(0) == L + 777
+        _reduce_wide_drain(xv, yv, n, r, 40, base=5)
+
+
+def test_reduce_wide_drain_at_the_step_level():
+    """The k=28 step's final level: level 2 of random codes' capped wide
+    sketch at the main path's shape (B=64, L=16,384, cap 2,048, out_cap
+    columns), level 1 read from the sketch's planes in place."""
+    from peregrine_tpu_torch.ops.index import index_planes
+    rng = np.random.default_rng(6)
+    codes, lens = _codes(rng, 16384)
+    x, y, c, _ = index_planes(codes, lens, torch.arange(
+        B, dtype=torch.int64, device="cuda"), w=W, k=28, r=R, levels=1,
+        cap=2048)
+    out_w = max(64, 2048 // int((R / 2) ** 2))
+    _reduce_wide_drain(x, y, c, R, out_w)
+
+
+def test_reduce_wide_drain_repeated_launches_are_identical():
+    """Twenty launches on the same rows of L = 40,960 (twenty chunks a
+    row, one chain across the batch), on two status buffers in turn
+    (each launch zeroes the one before it used)."""
+    L = 40960
+    x, y, n = _wide_rows(L, R, True, 9)
+    a, b = _wide_drain_statuses(L)
+    turns = [(a, b), (b, a)]
+    first = _reduce_wide_drain(x, y, n, R, 300, statuses=turns[0])
+    for i in range(1, 20):
+        for got, ref in zip(_reduce_wide_drain(x, y, n, R, 300,
+                                               statuses=turns[i % 2]), first):
+            assert torch.equal(got, ref)
+
+
+def test_reduce_wide_drain_through_one_cursor_equals_drain_records():
+    """64 batches of 64 rows, read as [:, :2048] views of 3,000-column
+    planes, through one cursor and 64 count slots: the wrapper's stream,
+    slots and cursor equal reduce_wide followed by drain_records, both
+    launched on the card, through another; one launch a batch."""
+    rng = np.random.default_rng(64)
+    L, width = 2048, 227
+    n_rec = 64 * B * width
+    streams = [(torch.full((n_rec, 2), 7, dtype=torch.int64, device="cuda"),
+                torch.full((64, 2, B), -5, dtype=torch.int32, device="cuda"),
+                torch.zeros(3, dtype=torch.int64, device="cuda"))
+               for _ in range(2)]
+    before = kn.reduce_wide_drain.launches
+    for g in range(64):
+        x, y, n = _wide_rows(L, R, g % 3 == 0, int(rng.integers(1 << 30)),
+                             cols=3000)
+        c0 = n + 3
+        out, counts, cursor = streams[0]
+        kn.reduce_wide_drain(x, y, n, c0, cursor, out, counts, r=R,
+                             width=width)
+        out, counts, cursor = streams[1]
+        ox, oy, c = kn.reduce_wide(x, y, n, r=R)
+        kn.drain_records(ox, oy, None, c, c0, cursor, out, counts, k=28,
+                         width=width)
+    torch.cuda.synchronize()
+    assert kn.reduce_wide_drain.launches == before + 64
+    for got, ref in zip(*streams):
+        assert torch.equal(got, ref)
+    assert streams[0][2][1] == 64
+
+
+@pytest.mark.parametrize("k", [16, 28])
+@pytest.mark.parametrize("Cw", [1000, 16384])
+def test_drain_records_repeated_launches_on_one_cursor(k, Cw):
+    """pg_drain_records twenty times on one cursor (the level-0 stream's
+    width of 16,384 and rows longer than the columns a block loads before
+    its count, at 1,000), from a stream inside canary margins and count
+    slots past which nothing is written: the stream, slots and cursors
+    equal drain_records_plain's twenty times over; rows of count 0,
+    exactly the width and past it; the planes as [:, :Cw + 1] views of
+    wider ones; (H, P) planes at k=16, int64 records at k=28."""
+    a, b, c, c0, rids = kernel_cases.drain_batches(k, 1, B, Cw)[0]
+    c[3:9] = 0
+    dt = np.int32 if k <= 16 else np.int64
+    total = int(np.minimum(c, Cw).sum())
+    reps, slots = 20, 24
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        pa, pb = (torch.from_numpy(p.view(dt)).to(dev)[:, :Cw + 1]
+                  for p in (a, b))
+        buf = torch.full((reps * total + 2 * GUARD, 2), CANARY,
+                         dtype=torch.int64, device=dev)
+        out = buf[GUARD:GUARD + reps * total]
+        counts = torch.full((slots, 2, B), -5, dtype=torch.int32, device=dev)
+        cursor = torch.zeros(3, dtype=torch.int64, device=dev)
+        for _ in range(reps):
+            kn.drain_records(pa, pb, torch.from_numpy(rids).to(dev),
+                             torch.from_numpy(c).to(dev),
+                             torch.from_numpy(c0).to(dev), cursor, out,
+                             counts, k=k, width=Cw)
+        outs[dev] = (buf, counts, cursor)
+    torch.cuda.synchronize()
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(got.cpu(), want)
+    buf, counts, cursor = outs["cuda"]
+    assert (buf[:GUARD] == CANARY).all() and (buf[-GUARD:] == CANARY).all()
+    assert cursor.tolist() == [reps * total, reps, 0]
+    assert (counts[reps:] == -5).all()
+
+
 def _stage1_steps(dev, packed, batches):
     """The two shapes the captured-step test alternates: k=16 at pad 2048
     (capped) and k=28 at pad 4096 with the level-0 stream, four rows."""
@@ -1523,14 +1756,16 @@ def test_captured_steps_match_the_eager_steps():
     names = {fn.__name__: n for fn, n in runs["cuda"][0].per_replay.items()}
     assert names == {"gather_build_stream": 1, "move_plane": 2,
                      "emit_mask": 1, "reduce_step": 1, "reduce_drain": 1}
+    # k=28: level 2 and the drain fused, the level-0 stream drained alone
     names = {fn.__name__: n for fn, n in runs["cuda"][1].per_replay.items()}
     assert names == {"gather_codes": 1, "wide_stream": 1,
-                     "compact_planes": 1, "wide_emit": 1, "reduce_wide": 2,
-                     "drain_records": 2}
+                     "compact_planes": 1, "wide_emit": 1, "reduce_wide": 1,
+                     "reduce_wide_drain": 1, "drain_records": 1}
     # ten replays of each graph and one eager warm-up of each shape
     assert launches["gather_build_stream"] == launches["wide_stream"] == 11
     assert launches["reduce_drain"] == 11 and launches["build_stream"] == 0
-    assert launches["gather_codes"] == 11 and launches["drain_records"] == 22
+    assert launches["gather_codes"] == 11 and launches["drain_records"] == 11
+    assert launches["reduce_wide_drain"] == 11
     assert not any(bool(pair[0].any()) for pair in kn._status_pairs.values())
 
 

@@ -227,6 +227,7 @@ def test_wrappers_launch_with_the_c_arguments(monkeypatch):
     assert args[2] == 0 and args[7] == 0 and args[8:] == (2, 12, 12, 8, 28,
                                                           50, 0, 0)
     after = [fn.launches for fn in kn.KERNELS]
-    assert [a - b for a, b in zip(after, before)] == [0] * 8 + [1, 2, 0, 0]
+    assert [a - b for a, b in zip(after, before)] == [0] * 8 + [1, 2, 0, 0,
+                                                            0]
     with pytest.raises(ValueError):  # past the planes' width
         kn.drain_records(x, x, None, c, c, cursor, rec, None, k=28, width=13)

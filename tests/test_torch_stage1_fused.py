@@ -283,16 +283,22 @@ def test_step_at_k16_launches_the_fused_pair(monkeypatch):
                    "pg_reduce_drain", "pg_drain_records"]),
     (28, 2, False, ["pg_gather_codes", "pg_wide_stream", "pg_wide_emit",
                     "pg_compact_planes", "pg_reduce_wide",
-                    "pg_reduce_wide", "pg_drain_records"]),
+                    "pg_reduce_wide_drain"]),
     (28, 2, True, ["pg_gather_codes", "pg_wide_stream", "pg_wide_emit",
                    "pg_compact_planes", "pg_reduce_wide",
-                   "pg_reduce_wide", "pg_drain_records", "pg_drain_records"]),
+                   "pg_reduce_wide_drain", "pg_drain_records"]),
+    (28, 0, False, ["pg_gather_codes", "pg_wide_stream", "pg_wide_emit",
+                    "pg_compact_planes", "pg_drain_records"]),
 ])
 def test_step_keeps_the_standalone_kernels_elsewhere(monkeypatch, k, levels,
                                                      keep_l0, want):
-    """With no level the k=16 step drains the sketch with
-    pg_drain_records; the level-0 stream of keep_l0 drains alone; k=28
-    gathers with pg_gather_codes and drains with pg_drain_records."""
+    """With no level the step drains the sketch with pg_drain_records;
+    the level-0 stream of keep_l0 drains alone; k=28 gathers with
+    pg_gather_codes, and with a level its final level drains as
+    pg_reduce_wide_drain.  At k=28 nothing copies the capped sketch:
+    level 1 (or the drain of no level) reads the first `cap` columns of
+    compact_planes' output in place, at its row stride, and takes its
+    count c0 unclamped (the kernel clamps it)."""
     launches = _Launches(monkeypatch)
     step = _step(k, levels, keep_l0)
     step._body(4)
@@ -301,3 +307,41 @@ def test_step_keeps_the_standalone_kernels_elsewhere(monkeypatch, k, levels,
         fn, args = launches.calls[-1]
         assert args[5] is step.cursor0 and args[6] is step.rec0
         assert args[7] == 0 and args[9] == 4096
+    if k > 16:
+        calls = dict(launches.calls[:4])
+        sx, sy = calls["pg_compact_planes"][7:9]
+        c0 = calls["pg_compact_planes"][10]
+        fn, args = launches.calls[4]
+        cols = 4096 if keep_l0 else 512
+        assert args[0].data_ptr() == sx.data_ptr()
+        assert args[1].data_ptr() == sy.data_ptr()
+        assert args[0].shape == (4, cols) and args[0].stride() == (4096, 1)
+        if fn == "pg_reduce_wide":
+            assert args[2] is c0 and args[9:12] == (4, cols, 4096)
+        else:  # pg_drain_records of no level: the count clamped to the cap
+            assert args[4] is c0 and args[8:11] == (4, cols, 4096)
+            assert torch.equal(args[3], c0.clamp(max=cols))
+
+
+def test_wide_step_fuses_the_final_level_and_the_drain(monkeypatch):
+    """At k=28 with two levels a batch's final level is one
+    pg_reduce_wide_drain launch on level 1's output, with the sketch
+    count, the step's cursor, stream and count slots, the look-back
+    status and the arguments of its C prototype."""
+    launches = _Launches(monkeypatch)
+    step = _step(28, 2, False)
+    before = {fn.__name__: fn.launches for fn in kn.KERNELS}
+    step._body(4)
+    after = {fn.__name__: fn.launches for fn in kn.KERNELS}
+    assert {n: after[n] - before[n] for n in after if after[n] > before[n]} \
+        == {"gather_codes": 1, "wide_stream": 1, "wide_emit": 1,
+            "compact_planes": 1, "reduce_wide": 1, "reduce_wide_drain": 1}
+    for fn, args in launches.calls:
+        assert len(args) + 1 == len(kn.SIGNATURES[fn]), fn
+    (_, cp), (_, red), (_, dr) = launches.calls[3:]
+    assert dr[:2] == red[6:8] and dr[2] is red[8] and dr[3] is cp[10]
+    assert dr[4].numel() >= kn.STATUS_SLOT * (1 + 4)
+    assert dr[7] is step.cursor and dr[8] is step.rec
+    assert dr[9] is step.counts
+    assert dr[10:] == (4, 512, 512, 4, step.out_w, step.rec.shape[0],
+                       step.group, 4)

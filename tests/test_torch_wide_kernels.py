@@ -301,10 +301,10 @@ def test_each_wrapper_is_one_launch(monkeypatch):
     [(fn, args)] = launches.calls
     assert fn == "pg_reduce_wide" and args[0] is xr and args[2] is lens
     assert args[3].numel() == kn.STATUS_SLOT * (1 + Bq * 2)
-    assert args[6:] == (ox, oy, count, Bq, C, 6)
+    assert args[6:] == (ox, oy, count, Bq, C, C, 6)
     after = [fn.launches for fn in kn.KERNELS]
     assert [a - b for a, b in zip(after, before)] == ([0] * 5 + [1, 1, 1]
-                                                      + [0, 0, 0, 0])
+                                                      + [0, 0, 0, 0, 0])
 
 
 def test_sketch_wide_and_reduce_impl_are_kernel_launches_only(monkeypatch):
