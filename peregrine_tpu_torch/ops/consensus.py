@@ -1,7 +1,9 @@
 """FALCON-style alignment-tag-pileup consensus.
 
 A copy of peregrine_tpu/ops/consensus.py (host numpy and the native
-window core; unchanged).
+window core); the one change: consensus_windows runs each window under a
+span (peregrine_tpu_torch.trace), whose attrs window_consensus's `times`
+fills.
 
 Re-implementation of the reference consensus core (falcon/falcon.c) and its
 driver (py/scripts/pg_asm_cns.py): reads mapped to a draft contig are
@@ -16,8 +18,11 @@ device version (scatter-add + scan DP) plugs in behind the same interface.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
+from .. import trace
 from ..config import AsmConfig
 from ..io.seqdb import SeqDB, decode_biseq
 from ..native import dw_align
@@ -199,12 +204,16 @@ def plan_windows(ref_len_total: int, mapped_rows: np.ndarray,
 
 def window_consensus(read_db: SeqDB, ref_db: SeqDB, ctg_rid: int,
                      left: int, right: int, reads, cfg: AsmConfig,
-                     use_native: bool = True) -> bytes:
+                     use_native: bool = True, times: dict | None = None
+                     ) -> bytes:
     """Consensus of one template window (reference pg_asm_cns.py:109-249).
 
     use_native routes the whole window (alignments + pileup + DP) through
     the C++ core (native/consensus.cpp); the Python path below is the
-    semantic reference used for cross-checking."""
+    semantic reference used for cross-checking.  With use_native, `times`
+    takes the seconds of the Python decode (decode_s) and of the native
+    call (native_s)."""
+    t0 = time.perf_counter()
     ref_len = right - left
     ref_seq = decode_biseq(ref_db.packed(ctg_rid)[left:left + ref_len], 0)
 
@@ -213,8 +222,13 @@ def window_consensus(read_db: SeqDB, ref_db: SeqDB, ctg_rid: int,
         read_seqs = [decode_biseq(read_db.packed(rid), strand)
                      for rid, strand, _ in reads]
         shifts = [shift for _, _, shift in reads]
-        return window_cns(ref_seq, read_seqs, shifts,
-                          cfg.cns_aln_band, cfg.cns_min_cov)
+        t1 = time.perf_counter()
+        out = window_cns(ref_seq, read_seqs, shifts,
+                         cfg.cns_aln_band, cfg.cns_min_cov)
+        if times is not None:
+            times.update(decode_s=t1 - t0,
+                         native_s=time.perf_counter() - t1)
+        return out
 
     # backbone self-alignment anchors the template
     # (reference pg_asm_cns.py:152-166)
@@ -305,7 +319,11 @@ def consensus_windows(read_db: SeqDB, ref_db: SeqDB, plans: dict[int, list],
     With shard=(rank, nranks) only jobs with job_index % nranks == rank
     are computed — the reference's own distribution scheme one grain
     finer (pg_asm_cns.py:59 shards whole contigs by ctg_id %
-    total_chunks; windows balance better when contig sizes skew)."""
+    total_chunks; windows balance better when contig sizes skew).
+
+    Spans: consensus.windows (attrs windows, workers) over the pool, and
+    one consensus.window under it a window, in its worker thread (attrs
+    reads, decode_s, native_s)."""
     import concurrent.futures as cf
 
     jobs = [(rid, i, spec) for rid, specs in plans.items()
@@ -314,9 +332,18 @@ def consensus_windows(read_db: SeqDB, ref_db: SeqDB, plans: dict[int, list],
         rank, nranks = shard
         jobs = jobs[rank::nranks]
     results: dict[tuple[int, int], bytes] = {}
-    with cf.ThreadPoolExecutor(max_workers=max(1, n_workers)) as ex:
-        futs = {ex.submit(window_consensus, read_db, ref_db, rid,
-                          spec[0], spec[1], spec[2], cfg): (rid, i)
+    n_workers = max(1, n_workers)
+
+    def window(parent, rid, spec):
+        with trace.span("consensus.window", parent=parent,
+                        reads=len(spec[2])) as sp:
+            return window_consensus(read_db, ref_db, rid, spec[0], spec[1],
+                                    spec[2], cfg, times=sp.attrs)
+
+    with trace.span("consensus.windows", windows=len(jobs),
+                    workers=n_workers) as sp, \
+            cf.ThreadPoolExecutor(max_workers=n_workers) as ex:
+        futs = {ex.submit(window, sp, rid, spec): (rid, i)
                 for rid, i, spec in jobs}
         for f in cf.as_completed(futs):
             results[futs[f]] = f.result()

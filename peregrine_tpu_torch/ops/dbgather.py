@@ -153,8 +153,7 @@ class SeqDBUploader:
         self.stats = dict(bases=0, chunks=0, pieces=0, init_s=0.0,
                           pack_s=0.0, stage_s=0.0, wait_s=0.0, alloc_s=0.0,
                           copied_bytes=0, elided_bytes=0, pad_bytes=0,
-                          peak_plane_bytes=0, finish_wait_s=0.0,
-                          feed_to_finish_s=0.0)
+                          peak_plane_bytes=0, feed_to_finish_s=0.0)
         self._t = threading.Thread(target=self._worker, name="seqdb-upload",
                                    daemon=True)
         self._t.start()
@@ -177,11 +176,9 @@ class SeqDBUploader:
 
     def finish(self) -> PackedSeqDB:
         """Join the worker and return the planes (see the class)."""
-        t = time.perf_counter()
         self._q.put(None)
         self._t.join()
         st = self.stats
-        st["finish_wait_s"] = time.perf_counter() - t
         if self._err is not None:
             raise self._err
         fw, amb = self._dev["fw"], self._dev["amb"]

@@ -41,12 +41,12 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import AsmConfig
 from ..io import formats
 from ..io.seqdb import SeqDB
@@ -79,12 +79,13 @@ def reset_stats() -> None:
 
 @contextlib.contextmanager
 def _timed(part: str):
-    t = time.perf_counter()
+    """The span index.<part>, its seconds added to STATS["host_s"][part]."""
     try:
-        yield
+        with trace.span("index." + part) as sp:
+            yield
     finally:
         host = STATS["host_s"]
-        host[part] = host.get(part, 0.0) + time.perf_counter() - t
+        host[part] = host.get(part, 0.0) + sp.seconds
 
 
 def _capped(a: torch.Tensor, b: torch.Tensor, cap: int):
@@ -562,17 +563,22 @@ def build_index(db: SeqDB, cfg: AsmConfig, device,
         # the level-0 records leave uncapped, as in the JAX package
         cap = 0 if keep_l0 else max(256, pad // 8)
         rows = min(bsz, len(batch_rids))
-        batch = _Stage1Step(packed, device, pad, rows, cap, keep_l0, step,
-                            -(-len(batch_rids) // bsz))
-        for i in range(0, len(batch_rids), bsz):
-            part = batch_rids[i:i + bsz]
-            meta = np.stack([db.offsets[part].astype(np.int64) - win_lo,
-                             db.lengths[part].astype(np.int64),
-                             part.astype(np.int64)])
-            if batch.run(meta, part):
-                batch.fetch(xs, ys, l0xs, l0ys, _retry_exact)
-        batch.fetch(xs, ys, l0xs, l0ys, _retry_exact)
-        del batch  # its streams and graph, before the next bucket's
+        n_batches = -(-len(batch_rids) // bsz)
+        # a bucket's batches under one span: its own seconds are the
+        # host work outside the parts (the step's buffers made and freed,
+        # each batch's metas built)
+        with trace.span("index.bucket", pad=pad, batches=n_batches):
+            batch = _Stage1Step(packed, device, pad, rows, cap, keep_l0,
+                                step, n_batches)
+            for i in range(0, len(batch_rids), bsz):
+                part = batch_rids[i:i + bsz]
+                meta = np.stack([db.offsets[part].astype(np.int64) - win_lo,
+                                 db.lengths[part].astype(np.int64),
+                                 part.astype(np.int64)])
+                if batch.run(meta, part):
+                    batch.fetch(xs, ys, l0xs, l0ys, _retry_exact)
+            batch.fetch(xs, ys, l0xs, l0ys, _retry_exact)
+            del batch  # its streams and graph, before the next bucket's
 
     with _timed("index_of"):
         idx = _index_of(xs, ys)

@@ -1,7 +1,9 @@
 """Read-to-reference SHIMMER mapping (reference src/shmr_map.c).
 
-A copy of peregrine_tpu/ops/mapping.py (host numpy; the logger's name
-is the one change to the code).
+A copy of peregrine_tpu/ops/mapping.py (host numpy); the changes: the
+logger's name, and the pair map's rebuild runs under the span
+mapping.pairs (peregrine_tpu_torch.trace; attr entries), whose seconds
+its log line gives.
 
 Builds the oriented pair map over the *read* index (sorted arrays, see
 ops/overlap.py), then walks the *reference* SHIMMER list: every adjacent
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import trace
 from ..config import AsmConfig
 from .index import ShimmerIndex
 from .overlap import build_pairs
@@ -149,15 +152,15 @@ def _matched_buckets(read_idx: ShimmerIndex, read_lengths: np.ndarray,
         # rebuilds it) must not reintroduce the ~33 B/entry map as anon RSS:
         # spill the rebuild exactly like the stage-2 build does.
         import logging
-        import time as _t
-        _tr = _t.time()
-        key0, key1, y0a, y1a, dira = build_pairs(
-            read_idx, read_lengths, chunk, total_chunk,
-            cfg.mc_lower, cfg.mc_upper, cfg.min_anchor_dist,
-            spill_dir=cfg.spill_dir)
+        with trace.span("mapping.pairs") as sp:
+            key0, key1, y0a, y1a, dira = build_pairs(
+                read_idx, read_lengths, chunk, total_chunk,
+                cfg.mc_lower, cfg.mc_upper, cfg.min_anchor_dist,
+                spill_dir=cfg.spill_dir)
+            sp.attrs["entries"] = len(key0)
         logging.getLogger("peregrine_tpu_torch").info(
             "mapping: pair map rebuilt (%.1fs, %d entries%s)",
-            _t.time() - _tr, len(key0),
+            sp.seconds, len(key0),
             ", spilled" if cfg.spill_dir else "")
 
     rx, ry = ref_idx.x, ref_idx.y

@@ -33,6 +33,7 @@ import contextlib
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import AsmConfig
 from ..io.seqdb import SeqDB
 from .index import ShimmerIndex
@@ -350,6 +351,13 @@ def _align_lanes(seqdb_dev, cols: np.ndarray):
     return tuple(o.cpu().numpy() for o in out)
 
 
+def _launches() -> int:
+    """The device aligner's launches so far (myers_batch_db.launches; 0
+    where the aligner in its place counts none)."""
+    from . import device_align
+    return getattr(device_align.myers_batch_db, "launches", 0)
+
+
 def _on_device(seqdb_dev):
     """A context that makes seqdb_dev's device the current one, for a
     worker thread that launches there (nothing on the CPU)."""
@@ -484,7 +492,6 @@ def overlap_all_spec(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     """
     import logging
     import os as _os
-    import time as _t
 
     from ..native import spec_enum
 
@@ -494,17 +501,23 @@ def overlap_all_spec(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
                          "and window=0")
     if n_workers is None:
         n_workers = _os.cpu_count() or 1
-    _t0 = _t.time()
-    key0, key1, y0a, y1a, dira = pairs if pairs is not None else build_pairs(
-        idx, db.lengths, 1, 1,
-        cfg.mc_lower, cfg.mc_upper, cfg.min_anchor_dist,
-        spill_dir=cfg.spill_dir)
-    _t1 = _t.time()
-    stream = bucket_stream(key0, key1, y0a, dira, cfg.ovlp_upper,
-                           spill_dir=cfg.spill_dir)
+    t_pairs = 0.0
+    if pairs is None:
+        with trace.span("overlap.pairs") as sp:
+            key0, key1, y0a, y1a, dira = build_pairs(
+                idx, db.lengths, 1, 1,
+                cfg.mc_lower, cfg.mc_upper, cfg.min_anchor_dist,
+                spill_dir=cfg.spill_dir)
+            sp.attrs["entries"] = len(key0)
+        t_pairs = sp.seconds
+    else:
+        key0, key1, y0a, y1a, dira = pairs
+    with trace.span("overlap.stream") as sp:
+        stream = bucket_stream(key0, key1, y0a, dira, cfg.ovlp_upper,
+                               spill_dir=cfg.spill_dir)
     log2.info("overlap dedup: pair map %.1fs (%d entries)%s + stream %.1fs",
-              _t1 - _t0, len(key0), " [shared]" if pairs is not None else "",
-              _t.time() - _t1)
+              t_pairs, len(key0), " [shared]" if pairs is not None else "",
+              sp.seconds)
     if pairs is None:
         # the replay stream fully replaces the pair map from here on;
         # freeing the five columns now (not at function exit) drops
@@ -518,16 +531,26 @@ def overlap_all_spec(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     seqdb_dev = None
     if backend in ("device", "hybrid"):
         from .dbgather import upload_seqdb
-        seqdb_dev = upload_seqdb(db.data, torch.device(device))
+        with trace.span("overlap.upload"):
+            seqdb_dev = upload_seqdb(db.data, torch.device(device))
 
     def align_round(rr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        if backend == "device":
-            return _align_device(rr, db, cfg, seqdb_dev)
-        if backend == "hybrid":
-            return _align_hybrid(rr, db, db_data, cfg, seqdb_dev,
-                                 cfg.aln_batch, n_workers)
-        return (_align_parallel(rr, db, db_data, cfg.aln_bw, n_workers),
-                np.ones(len(rr), bool))
+        """The round's alignments under the span overlap.align (attrs:
+        the device's lanes and the aligner's launches)."""
+        with trace.span("overlap.align") as sp:
+            launches = _launches()
+            if backend == "device":
+                rres, rhave = _align_device(rr, db, cfg, seqdb_dev)
+                sp.attrs["lanes"] = int(rhave.sum())
+            elif backend == "hybrid":
+                rres, rhave = _align_hybrid(rr, db, db_data, cfg, seqdb_dev,
+                                            cfg.aln_batch, n_workers)
+            else:
+                rres, rhave = (_align_parallel(rr, db, db_data, cfg.aln_bw,
+                                               n_workers),
+                               np.ones(len(rr), bool))
+            sp.attrs["launches"] = _launches() - launches
+        return rres, rhave
 
     arena = _CacheArena(cfg.spill_dir)
 
@@ -546,12 +569,16 @@ def overlap_all_spec(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     failed: set[tuple[int, int]] = set()
     total_aligned = 0
     if window > 0:  # optional spec_enum pre-seed (measured worse; kept)
-        reqs = spec_enum(sys_, sdirs, spos, sbs, sbe, window, per_pair)
-        rres, rhave = align_round(reqs)
-        merge(reqs, rres, rhave)
-        if not rhave.all():
-            pka, pkb = _req_keys(reqs)
-            failed.update(zip(pka[~rhave].tolist(), pkb[~rhave].tolist()))
+        with trace.span("overlap.round", round=0) as rsp:
+            reqs = spec_enum(sys_, sdirs, spos, sbs, sbe, window, per_pair)
+            rres, rhave = align_round(reqs)
+            with trace.span("overlap.merge"):
+                merge(reqs, rres, rhave)
+            if not rhave.all():
+                pka, pkb = _req_keys(reqs)
+                failed.update(zip(pka[~rhave].tolist(),
+                                  pkb[~rhave].tolist()))
+            rsp.attrs.update(misses=len(reqs), aligned=int(rhave.sum()))
         total_aligned += int(rhave.sum())
 
     # iterative miss harvest: collect -> parallel align -> merge -> re-run
@@ -563,55 +590,68 @@ def overlap_all_spec(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     prev_miss = cap0
     my_aligned = 0
     for rnd in range(max_rounds):
+        # a round's span: attrs round, misses, aligned; on the host
+        # backend also workers and the aligner threads' summed busy_s and
+        # wait_s (set by _collect_align_streaming)
         if backend == "host":
-            _tr = _t.time()
-            cap = int(min(cap0, max(prev_miss, 1 << 16)))
-            miss, missreqs, rres, mine = _collect_align_streaming(
-                db, cfg, stream, arena.view(), db_data, n_workers, cap,
-                shard=shard)
-            if miss == 0:
-                break
-            _ta = _t.time()
-            my_aligned += int(mine.sum())
-            if exchange is not None:
-                rres = exchange(rnd, missreqs, rres, mine)
-            rhave = np.ones(len(missreqs), bool)
-            merge(missreqs, rres, rhave)
+            with trace.span("overlap.round", round=rnd + 1, misses=0,
+                            aligned=0, workers=n_workers) as rsp:
+                cap = int(min(cap0, max(prev_miss, 1 << 16)))
+                miss, missreqs, rres, mine = _collect_align_streaming(
+                    db, cfg, stream, arena.view(), db_data, n_workers, cap,
+                    shard=shard, parent=rsp)
+                rsp.attrs["misses"] = miss
+                if miss == 0:
+                    break
+                my_aligned += int(mine.sum())
+                with trace.span("overlap.merge") as msp:
+                    if exchange is not None:
+                        rres = exchange(rnd, missreqs, rres, mine)
+                    rhave = np.ones(len(missreqs), bool)
+                    merge(missreqs, rres, rhave)
+                rsp.attrs["aligned"] = len(missreqs)
             total_aligned += len(missreqs)
             prev_miss = miss
             log2.info("overlap dedup round %d: %d misses harvested "
                       "(streamed, %.1fs + merge %.1fs)", rnd + 1, miss,
-                      _ta - _tr, _t.time() - _ta)
+                      msp.t0 - rsp.t0, msp.seconds)
             if miss < max(5000, total_aligned // 50):
                 # the next collect pass would cost a full replay wall
                 # (~13 s at Drosophila scale) to find a yet-smaller tail
                 # the final pass can align inline — stop iterating
                 break
             continue
-        _, _, miss, missreqs = _replay(db, cfg, stream, arena.view(),
-                                       db_data, collect=True)
-        if miss == 0:
-            break
-        if rnd > 0 and miss < max(5000, total_aligned // 50):
-            # tail harvests cost a full replay pass each (~13 s at
-            # Drosophila scale) to collect work the final pass can align
-            # inline in a fraction of that — stop iterating
-            log2.info("overlap dedup: %d residual misses left to the "
-                      "final pass", miss)
-            break
-        if failed:
-            mka, mkb = _req_keys(missreqs)
-            new = np.fromiter((k not in failed for k in
-                               zip(mka.tolist(), mkb.tolist())),
-                              bool, len(missreqs))
-            if not new.any():
-                break  # only backend-unalignable requests remain
-            missreqs = missreqs[new]
-        rres, rhave = align_round(missreqs)
-        merge(missreqs, rres, rhave)
-        if not rhave.all():
-            mka, mkb = _req_keys(missreqs)
-            failed.update(zip(mka[~rhave].tolist(), mkb[~rhave].tolist()))
+        with trace.span("overlap.round", round=rnd + 1, misses=0,
+                        aligned=0) as rsp:
+            with trace.span("overlap.collect"):
+                _, _, miss, missreqs = _replay(db, cfg, stream, arena.view(),
+                                               db_data, collect=True)
+            rsp.attrs["misses"] = miss
+            if miss == 0:
+                break
+            if rnd > 0 and miss < max(5000, total_aligned // 50):
+                # tail harvests cost a full replay pass each (~13 s at
+                # Drosophila scale) to collect work the final pass can
+                # align inline in a fraction of that — stop iterating
+                log2.info("overlap dedup: %d residual misses left to the "
+                          "final pass", miss)
+                break
+            if failed:
+                mka, mkb = _req_keys(missreqs)
+                new = np.fromiter((k not in failed for k in
+                                   zip(mka.tolist(), mkb.tolist())),
+                                  bool, len(missreqs))
+                if not new.any():
+                    break  # only backend-unalignable requests remain
+                missreqs = missreqs[new]
+            rres, rhave = align_round(missreqs)
+            with trace.span("overlap.merge"):
+                merge(missreqs, rres, rhave)
+            if not rhave.all():
+                mka, mkb = _req_keys(missreqs)
+                failed.update(zip(mka[~rhave].tolist(),
+                                  mkb[~rhave].tolist()))
+            rsp.attrs["aligned"] = int(rhave.sum())
         total_aligned += int(rhave.sum())
         log2.info("overlap dedup round %d: %d misses harvested", rnd + 1,
                   len(missreqs))
@@ -621,19 +661,21 @@ def overlap_all_spec(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
                   my_aligned, total_aligned)
     if not run_final:
         return None
-    _tf = _t.time()
-    recs, miss = overlap_chunk_native(db, idx, cfg, stream=stream[:5],
-                                      cache=arena.view())
+    with trace.span("overlap.final") as sp:
+        recs, miss = overlap_chunk_native(db, idx, cfg, stream=stream[:5],
+                                          cache=arena.view())
+        sp.attrs["inline"] = miss
     total_aligned += miss
     log2.info("overlap dedup [%s]: %d alignments total on %d workers "
               "(%d inline in the final pass, %.1fs)", backend,
-              total_aligned, n_workers, miss, _t.time() - _tf)
+              total_aligned, n_workers, miss, sp.seconds)
     return recs
 
 
 def _collect_align_streaming(db: SeqDB, cfg: AsmConfig, stream, cache,
                              db_data, n_workers: int, cap: int,
-                             shard: tuple[int, int] | None = None):
+                             shard: tuple[int, int] | None = None,
+                             parent: trace.Span | None = None):
     """One collect-mode replay pass with CONCURRENT alignment of the
     streamed misses: the single-core replay writes requests into a shared
     buffer behind an atomic progress counter while n_workers aligner
@@ -650,6 +692,11 @@ def _collect_align_streaming(db: SeqDB, cfg: AsmConfig, stream, cache,
     peers' rows zeroed for the caller's exchange to fill.  Ownership is
     a pure function of row index, so every rank can reconstruct every
     other rank's mask from the (deterministic) collected order.
+
+    The replay thread's span is overlap.collect, each aligner thread's
+    overlap.aligner (attrs: busy_s in align_spec, wait_s in its 2 ms
+    polls), all under `parent`, whose attrs take the threads' summed
+    busy_s and wait_s when they join.
 
     Returns (n_miss, requests, results[n, 8], mine) where `mine` marks
     the rows this rank aligned (all True without shard)."""
@@ -668,11 +715,13 @@ def _collect_align_streaming(db: SeqDB, cfg: AsmConfig, stream, cache,
 
     def run_replay():
         try:
-            out["r"] = overlap_replay(
-                sys_, sdirs, spos, sbs, sbe, db_data, db.offsets,
-                db.lengths, cfg.best_n_ovlp, cfg.read_end_fuzz,
-                cfg.min_ovlp_aln, cfg.aln_bw, *cache, collect_misses=True,
-                stream_buf=buf, stream_progress=prog)
+            with trace.span("overlap.collect", parent=parent):
+                out["r"] = overlap_replay(
+                    sys_, sdirs, spos, sbs, sbe, db_data, db.offsets,
+                    db.lengths, cfg.best_n_ovlp, cfg.read_end_fuzz,
+                    cfg.min_ovlp_aln, cfg.aln_bw, *cache,
+                    collect_misses=True, stream_buf=buf,
+                    stream_progress=prog)
         except BaseException as e:  # surfaced after join
             out["err"] = e
         finally:
@@ -687,32 +736,41 @@ def _collect_align_streaming(db: SeqDB, cfg: AsmConfig, stream, cache,
     est = 4 * cfg.best_n_ovlp * len(db.lengths)
     chunk = int(min(4096, max(256, est // (16 * nranks))))
 
+    spent = []
+
     def aligner():
-        while True:
-            with lock:
-                # read the progress counter under the lock: the mutex
-                # acquire is the acquire barrier pairing the C++ side's
-                # release store on weakly-ordered CPUs (plain loads are
-                # only safe on x86-TSO)
-                avail = int(prog[0])
-                fin = done.is_set()
-                lo = cursor[0]
-                if nranks > 1:
-                    # skip blocks owned by other ranks; never let one
-                    # align call cross a block boundary
-                    while (lo // chunk) % nranks != rank:
-                        lo = (lo // chunk + 1) * chunk
-                    hi = min(avail, (lo // chunk + 1) * chunk)
-                else:
-                    hi = min(avail, lo + chunk)
-                cursor[0] = hi if hi > lo else lo
-            if hi > lo:
-                align_spec(buf, lo, hi, db_data, db.offsets, db.lengths,
-                           cfg.aln_bw, res)
-                continue
-            if fin and lo >= int(prog[0]):
-                break
-            _time.sleep(0.002)
+        busy = wait = 0.0
+        with trace.span("overlap.aligner", parent=parent) as sp:
+            while True:
+                with lock:
+                    # read the progress counter under the lock: the mutex
+                    # acquire is the acquire barrier pairing the C++
+                    # side's release store on weakly-ordered CPUs (plain
+                    # loads are only safe on x86-TSO)
+                    avail = int(prog[0])
+                    fin = done.is_set()
+                    lo = cursor[0]
+                    if nranks > 1:
+                        # skip blocks owned by other ranks; never let one
+                        # align call cross a block boundary
+                        while (lo // chunk) % nranks != rank:
+                            lo = (lo // chunk + 1) * chunk
+                        hi = min(avail, (lo // chunk + 1) * chunk)
+                    else:
+                        hi = min(avail, lo + chunk)
+                    cursor[0] = hi if hi > lo else lo
+                t = _time.perf_counter()
+                if hi > lo:
+                    align_spec(buf, lo, hi, db_data, db.offsets, db.lengths,
+                               cfg.aln_bw, res)
+                    busy += _time.perf_counter() - t
+                    continue
+                if fin and lo >= int(prog[0]):
+                    break
+                _time.sleep(0.002)
+                wait += _time.perf_counter() - t
+            sp.attrs.update(busy_s=busy, wait_s=wait)
+        spent.append((busy, wait))
 
     threads = [threading.Thread(target=run_replay)]
     threads += [threading.Thread(target=aligner) for _ in range(n_workers)]
@@ -720,6 +778,9 @@ def _collect_align_streaming(db: SeqDB, cfg: AsmConfig, stream, cache,
         t.start()
     for t in threads:
         t.join()
+    if parent is not None:
+        parent.attrs.update(busy_s=sum(b for b, _ in spent),
+                            wait_s=sum(w for _, w in spent))
     if "err" in out:
         raise out["err"]
     _, _, n_miss, overflow = out["r"]
@@ -739,8 +800,9 @@ def _collect_align_streaming(db: SeqDB, cfg: AsmConfig, stream, cache,
                        if (lo // ob) % nranks == rank]
             mine[streamed:] = \
                 (np.arange(len(overflow)) // ob) % nranks == rank
-        ores = _align_parallel(overflow, db, db_data, cfg.aln_bw,
-                               n_workers, slices=oslices)
+        with trace.span("overlap.overflow", rows=len(overflow)):
+            ores = _align_parallel(overflow, db, db_data, cfg.aln_bw,
+                                   n_workers, slices=oslices)
         reqs = np.concatenate([reqs, overflow])
         rres = np.concatenate([rres, ores])
     return n_miss, reqs, rres, mine
@@ -981,16 +1043,15 @@ def overlap_chunk_device(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     device-memory budget per 8 kb length class; the result is the same.  A failed launch or exchange raises: there is no host fallback.
     """
     import logging
-    import time as _time
 
     from ..native import spec_enum
 
     log = logging.getLogger("peregrine_tpu_torch")
-    _t0 = _time.time()
-    key0, key1, y0a, y1a, dira = build_pairs(
-        idx, db.lengths, chunk, total_chunk,
-        cfg.mc_lower, cfg.mc_upper, cfg.min_anchor_dist, cand=cand)
-    _t_pairs = _time.time() - _t0
+    with trace.span("overlap.pairs") as pairs_sp:
+        key0, key1, y0a, y1a, dira = build_pairs(
+            idx, db.lengths, chunk, total_chunk,
+            cfg.mc_lower, cfg.mc_upper, cfg.min_anchor_dist, cand=cand)
+        pairs_sp.attrs["entries"] = len(key0)
 
     # One request per RID PAIR at its first occurrence in replay order
     # (buckets in canonical order; anchors walk the descending-position
@@ -998,40 +1059,47 @@ def overlap_chunk_device(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     # dedup that lets the reference align each pair once
     # (src/shmr_overlap.c:101-107).  Self-read runs longer than the
     # window's slack make the replay miss the cache and align natively.
-    sys_, sdirs, spos, sbs, sbe = bucket_stream(
-        key0, key1, y0a, dira, cfg.ovlp_upper)
-    reqs = spec_enum(sys_, sdirs, spos, sbs, sbe,
-                     spec_window + 4, spec_per_pair)
-    key_a, key_b = _req_keys(reqs)
-    cols, mlen = _request_columns(db, reqs["rid0"], reqs["rid1"],
-                                  reqs["pos0"], reqs["pos1"],
-                                  reqs["strand0"], reqs["strand1"])
-    got = np.flatnonzero(mlen <= cfg.aln_max_len)  # longer: native replay
-    t_enum = _time.time()
+    with trace.span("overlap.stream") as enum_sp:
+        sys_, sdirs, spos, sbs, sbe = bucket_stream(
+            key0, key1, y0a, dira, cfg.ovlp_upper)
+        reqs = spec_enum(sys_, sdirs, spos, sbs, sbe,
+                         spec_window + 4, spec_per_pair)
+        key_a, key_b = _req_keys(reqs)
+        cols, mlen = _request_columns(db, reqs["rid0"], reqs["rid1"],
+                                      reqs["pos0"], reqs["pos1"],
+                                      reqs["strand0"], reqs["strand1"])
+        got = np.flatnonzero(mlen <= cfg.aln_max_len)  # longer: native
     if cfg.shard_overlap and mesh is not None and mesh.n > 1:
-        d, qe, te = _align_sharded(db, mesh, reqs["rid0"][got],
-                                   reqs["rid1"][got], cols[got], mlen[got])
+        with trace.span("overlap.align", lanes=len(got)) as dev_sp:
+            d, qe, te = _align_sharded(db, mesh, reqs["rid0"][got],
+                                       reqs["rid1"][got], cols[got],
+                                       mlen[got])
     else:
         if seqdb_dev is None:
             from .dbgather import upload_seqdb
-            seqdb_dev = upload_seqdb(db.data, torch.device(device))
-        d, qe, te = _align_lanes(seqdb_dev, cols[got])
-    t_dev = _time.time()
+            with trace.span("overlap.upload"):
+                seqdb_dev = upload_seqdb(db.data, torch.device(device))
+        with trace.span("overlap.align", lanes=len(got)) as dev_sp:
+            launches = _launches()
+            d, qe, te = _align_lanes(seqdb_dev, cols[got])
+            dev_sp.attrs["launches"] = _launches() - launches
 
     # replay in C++ against the result cache; the device kernel reports
     # (dist, q_end, t_end) and _device_fill derives the other fields
-    cvals = np.zeros((len(got), 8), np.int32)
-    _device_fill(cvals, np.arange(len(got)), d, qe, te)
-    order = np.lexsort((key_b[got], key_a[got]))
-    result, misses = overlap_chunk_native(
-        db, idx, cfg, chunk, total_chunk,
-        stream=(sys_, sdirs, spos, sbs, sbe),
-        cache=(key_a[got][order], key_b[got][order], cvals[order]))
+    with trace.span("overlap.final") as final_sp:
+        cvals = np.zeros((len(got), 8), np.int32)
+        _device_fill(cvals, np.arange(len(got)), d, qe, te)
+        order = np.lexsort((key_b[got], key_a[got]))
+        result, misses = overlap_chunk_native(
+            db, idx, cfg, chunk, total_chunk,
+            stream=(sys_, sdirs, spos, sbs, sbe),
+            cache=(key_a[got][order], key_b[got][order], cvals[order]))
+        final_sp.attrs["inline"] = misses
     log.info(
         "device overlap: %d cached alignments, %d native fallbacks "
         "(pairs %.1fs, enum %.1fs, device %.1fs, replay %.1fs)",
-        len(got), misses, _t_pairs, t_enum - _t0 - _t_pairs,
-        t_dev - t_enum, _time.time() - t_dev)
+        len(got), misses, pairs_sp.seconds, enum_sp.seconds,
+        dev_sp.seconds, final_sp.seconds)
     return result
 
 

@@ -38,11 +38,11 @@ import logging
 import os
 import resource
 import threading
-import time
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import AsmConfig
 from ..graph.contig import tiling_to_contigs
 from ..graph.layout import assemble_graph
@@ -51,7 +51,7 @@ from ..graph.tiling import tiling_paths
 from ..io.seqdb import SeqDB, read_fastx
 from ..ops.index import ShimmerIndex, build_index, build_index_segmented
 from ..ops.kernels import require_device
-from ..ops.overlap import overlap_all
+from ..ops.overlap import overlap_all, write_ovl_file
 from ..parallel.mesh import Mesh, make_mesh
 
 log = logging.getLogger("peregrine_tpu_torch")
@@ -213,8 +213,10 @@ def _write_lines(path: str, lines) -> None:
 class Assembly:
     """Per-stage state of one assembly; file outputs double as checkpoints.
 
-    Each stage's log record carries `stage_wall` = (stage, seconds) for
-    callers that collect stage walls (chip_smoke.py)."""
+    Each stage runs under a span (peregrine_tpu_torch.trace) carrying the
+    assembly's id, its parts under child spans; the stage's log record
+    carries `stage_wall` = (stage, its span's seconds) for callers that
+    collect stage walls (chip_smoke.py, pgbench)."""
 
     def __init__(self, outdir: str, cfg: AsmConfig = AsmConfig(),
                  device="cuda", with_alt: bool = False,
@@ -230,6 +232,7 @@ class Assembly:
         (invalidate stages 1-4 and re-run), or "ignore"."""
         assert on_config_change in ("error", "clean", "ignore")
         self.device = require_device(device)
+        self.asm_id = trace.new_assembly()
         self.mesh = mesh if mesh is not None else make_mesh(self.device)
         self.outdir = outdir
         self.cfg = cfg
@@ -288,51 +291,58 @@ class Assembly:
         elif reads_iter is not None:
             # an in-process (name, seq) stream: the same bounded-RSS disk
             # build, with no FASTA on disk
-            t0 = time.time()
-            self.db = SeqDB.build_to_disk_from_iter(reads_iter, prefix)
-            wall = time.time() - t0
+            with self._stage("seqdb") as sp, trace.span("seqdb.encode"):
+                self.db = SeqDB.build_to_disk_from_iter(reads_iter, prefix)
             log.info("stage 0 seqdb: %d reads, %d bases (%.1fs streamed "
                      "to disk; peak RSS %.1f GB)", len(self.db),
-                     int(self.db.lengths.sum()), wall, _peak_rss_gb(),
-                     extra={"stage_wall": ("seqdb", wall)})
+                     int(self.db.lengths.sum()), sp.seconds, _peak_rss_gb(),
+                     extra={"stage_wall": ("seqdb", sp.seconds)})
         elif reads is None:
             # manifest input streams straight to disk: peak RSS is one
             # read + the write buffer; the pipeline then reads back
             # through a page-cache-governed memmap.  On a card the seqdb
             # is packed and uploaded on a worker thread as it is encoded
             # (the chunk sink), and stage 1 takes the planes.
-            t0 = time.time()
-            sink, started = None, ""
-            est = _manifest_bytes(reads_list)
-            # the budget check reads the card's free memory: in a new
-            # process that call makes the CUDA context
-            if self._stage0_upload and _stage0_upload(
-                    self.device, self.cfg, self.mesh, est):
-                from ..ops.dbgather import SeqDBUploader
-                self._uploader = SeqDBUploader(self.device, est_bases=est)
-                sink = self._uploader.feed
-                started = "; seqdb upload to %s started in %.3fs" % (
-                    self._uploader.device, time.time() - t0)
-            self.db = SeqDB.build_to_disk(reads_list, prefix, chunk_sink=sink)
-            wall = time.time() - t0
+            with self._stage("seqdb") as sp:
+                sink, started = None, ""
+                est = _manifest_bytes(reads_list)
+                # the budget check reads the card's free memory: in a new
+                # process that call makes the CUDA context
+                with trace.span("seqdb.upload_start") as up_sp:
+                    if self._stage0_upload and _stage0_upload(
+                            self.device, self.cfg, self.mesh, est):
+                        from ..ops.dbgather import SeqDBUploader
+                        self._uploader = SeqDBUploader(self.device,
+                                                       est_bases=est)
+                if self._uploader is not None:
+                    sink = self._uploader.feed
+                    started = "; seqdb upload to %s started in %.3fs" % (
+                        self._uploader.device, up_sp.t1 - sp.t0)
+                with trace.span("seqdb.encode"):
+                    self.db = SeqDB.build_to_disk(reads_list, prefix,
+                                                  chunk_sink=sink)
             log.info("stage 0 seqdb: %d reads, %d bases (%.1fs streamed "
                      "to disk; peak RSS %.1f GB%s)", len(self.db),
-                     int(self.db.lengths.sum()), wall, _peak_rss_gb(),
-                     started, extra={"stage_wall": ("seqdb", wall)})
+                     int(self.db.lengths.sum()), sp.seconds, _peak_rss_gb(),
+                     started, extra={"stage_wall": ("seqdb", sp.seconds)})
         else:
-            t0 = time.time()
-            self.db = SeqDB.from_reads(reads)
-            # the checkpoint write overlaps the index stage; save() writes
-            # .seqdb before .idx, and resume trusts .idx
-            self._save_thread = threading.Thread(
-                target=self.db.save, args=(prefix,), name="seqdb-save")
-            self._save_thread.start()
-            wall = time.time() - t0
+            with self._stage("seqdb") as sp:
+                with trace.span("seqdb.encode"):
+                    self.db = SeqDB.from_reads(reads)
+                # the checkpoint write overlaps the index stage; save()
+                # writes .seqdb before .idx, and resume trusts .idx
+                self._save_thread = threading.Thread(
+                    target=self.db.save, args=(prefix,), name="seqdb-save")
+                self._save_thread.start()
             log.info("stage 0 seqdb: %d reads, %d bases (%.1fs; "
                      "checkpoint writes in background)",
-                     len(self.db), int(self.db.lengths.sum()), wall,
-                     extra={"stage_wall": ("seqdb", wall)})
+                     len(self.db), int(self.db.lengths.sum()), sp.seconds,
+                     extra={"stage_wall": ("seqdb", sp.seconds)})
         return self.db
+
+    def _stage(self, name: str, **attrs):
+        """A span opened with this assembly's id: its stages' spans."""
+        return trace.span(name, asm=self.asm_id, **attrs)
 
     # --- stage 1: SHIMMER index ----------------------------------------
     def build_shimmer_index(self, keep_l0: bool = False) -> ShimmerIndex:
@@ -345,48 +355,48 @@ class Assembly:
         level = self.cfg.levels
         mm = f"{prefix}-L{level}-01-of-01.dat"
         mc = f"{prefix}-L{level}-MC-01-of-01.dat"
-        t0 = time.time()
-        # stage 0's planes serve the single build alone: dropped before a
-        # resume, the mesh build and the segmented build
-        packed, took = self._stage0_planes()
-        if _stage_done(mm) and (not keep_l0 or _stage_done(
-                f"{prefix}-L0-MC-01-of-01.dat")):
+        with self._stage("index") as sp:
+            # stage 0's planes serve the single build alone: dropped
+            # before a resume, the mesh build and the segmented build
+            packed, took = self._stage0_planes()
+            if _stage_done(mm) and (not keep_l0 or _stage_done(
+                    f"{prefix}-L0-MC-01-of-01.dat")):
+                del packed
+                self.idx = ShimmerIndex.load_chunks([mm], [mc])
+                return self.idx
+            held = sum(p.numel() for p in packed) if packed else 0
+            budget = _device_db_budget(self.device, self.cfg, held)
+            on_mesh = self.cfg.mesh and self.mesh.n > 1 and not keep_l0
+            segmented = (not on_mesh and not keep_l0
+                         and self.db.data.nbytes > budget)
+            if packed is not None and (on_mesh or segmented):
+                packed, took = None, "; the stage-0 seqdb planes dropped"
+            if on_mesh:
+                from ..parallel.sharded_index import build_index_mesh
+                self.idx, l0 = build_index_mesh(self.db, self.cfg,
+                                                self.mesh), None
+            elif segmented:
+                log.info("stage 1: the %.1f GB seqdb exceeds the %.1f GB "
+                         "device budget: indexing in segments",
+                         self.db.data.nbytes / (1 << 30), budget / (1 << 30))
+                self.idx, l0 = build_index_segmented(
+                    self.db, self.cfg, self.device, budget), None
+            else:
+                built = build_index(self.db, self.cfg, self.device,
+                                    packed=packed, keep_l0=keep_l0)
+                self.idx, l0 = built if keep_l0 else (built, None)
             del packed
-            self.idx = ShimmerIndex.load_chunks([mm], [mc])
-            return self.idx
-        held = sum(p.numel() for p in packed) if packed else 0
-        budget = _device_db_budget(self.device, self.cfg, held)
-        on_mesh = self.cfg.mesh and self.mesh.n > 1 and not keep_l0
-        segmented = (not on_mesh and not keep_l0
-                     and self.db.data.nbytes > budget)
-        if packed is not None and (on_mesh or segmented):
-            packed, took = None, "; the stage-0 seqdb planes dropped"
-        if on_mesh:
-            from ..parallel.sharded_index import build_index_mesh
-            self.idx, l0 = build_index_mesh(self.db, self.cfg,
-                                            self.mesh), None
-        elif segmented:
-            log.info("stage 1: the %.1f GB seqdb exceeds the %.1f GB "
-                     "device budget: indexing in segments",
-                     self.db.data.nbytes / (1 << 30), budget / (1 << 30))
-            self.idx, l0 = build_index_segmented(
-                self.db, self.cfg, self.device, budget), None
-        else:
-            built = build_index(self.db, self.cfg, self.device,
-                                packed=packed, keep_l0=keep_l0)
-            self.idx, l0 = built if keep_l0 else (built, None)
-        del packed
-        self.idx.save(prefix, level=level)
-        if keep_l0:
-            l0.save(prefix, level=0)
-        wall = time.time() - t0
+            with trace.span("index.save"):
+                self.idx.save(prefix, level=level)
+                if keep_l0:
+                    l0.save(prefix, level=0)
         log.info("stage 1 index: %d SHIMMERs, %d distinct%s (%.1fs on "
                  "%s%s; peak RSS %.1f GB%s)",
                  len(self.idx.x), len(self.idx.mc_hash),
                  f"; {len(l0.x)} level-0 minimizers" if keep_l0 else "",
-                 wall, self.mesh if on_mesh else self.device, took,
+                 sp.seconds, self.mesh if on_mesh else self.device, took,
                  _peak_rss_gb(), _device_mem_line(self.device),
-                 extra={"stage_wall": ("index", wall)})
+                 extra={"stage_wall": ("index", sp.seconds)})
         return self.idx
 
     def _stage0_planes(self):
@@ -396,13 +406,14 @@ class Assembly:
         up, self._uploader = self._uploader, None
         if up is None:
             return None, ""
-        packed = up.finish()
+        with trace.span("index.planes_wait") as sp:
+            packed = up.finish()
         st = up.stats
         return packed, (
             "; took the stage-0 seqdb planes: finish() waited %.3fs, %d B "
             "copied, %d B of amb elided, planes' peak %d B, worker set-up "
             "%.3fs, pack %.3fs" % (
-                st["finish_wait_s"], st["copied_bytes"], st["elided_bytes"],
+                sp.seconds, st["copied_bytes"], st["elided_bytes"],
                 st["peak_plane_bytes"], st["init_s"], st["pack_s"]))
 
     def _pair_map(self):
@@ -412,24 +423,27 @@ class Assembly:
         by the host build; all byte-identical."""
         if self._pairs is None:
             self._maybe_auto_spill()
-            if self.cfg.mesh and self.mesh.n > 1 and self.mesh.group is None:
-                from ..parallel.sharded_pairs import build_pairs_mesh
-                self._pairs, _ = build_pairs_mesh(
-                    self.idx, self.db.lengths, self.mesh, self.cfg.mc_lower,
-                    self.cfg.mc_upper, self.cfg.min_anchor_dist,
-                    self.cfg.ovlp_upper)
-            elif self.cfg.device_pairs:
-                from ..ops.device_pairs import build_pairs_device
-                self._pairs, _ = build_pairs_device(
-                    self.idx, self.db.lengths, self.device,
-                    self.cfg.mc_lower, self.cfg.mc_upper,
-                    self.cfg.min_anchor_dist, self.cfg.ovlp_upper)
-            else:
-                from ..ops.overlap import build_pairs
-                self._pairs = build_pairs(
-                    self.idx, self.db.lengths, 1, 1, self.cfg.mc_lower,
-                    self.cfg.mc_upper, self.cfg.min_anchor_dist,
-                    spill_dir=self.cfg.spill_dir)
+            with trace.span("overlap.pairs") as sp:
+                if (self.cfg.mesh and self.mesh.n > 1
+                        and self.mesh.group is None):
+                    from ..parallel.sharded_pairs import build_pairs_mesh
+                    self._pairs, _ = build_pairs_mesh(
+                        self.idx, self.db.lengths, self.mesh,
+                        self.cfg.mc_lower, self.cfg.mc_upper,
+                        self.cfg.min_anchor_dist, self.cfg.ovlp_upper)
+                elif self.cfg.device_pairs:
+                    from ..ops.device_pairs import build_pairs_device
+                    self._pairs, _ = build_pairs_device(
+                        self.idx, self.db.lengths, self.device,
+                        self.cfg.mc_lower, self.cfg.mc_upper,
+                        self.cfg.min_anchor_dist, self.cfg.ovlp_upper)
+                else:
+                    from ..ops.overlap import build_pairs
+                    self._pairs = build_pairs(
+                        self.idx, self.db.lengths, 1, 1, self.cfg.mc_lower,
+                        self.cfg.mc_upper, self.cfg.min_anchor_dist,
+                        spill_dir=self.cfg.spill_dir)
+                sp.attrs["entries"] = len(self._pairs[0])
         return self._pairs
 
     def _maybe_auto_spill(self) -> None:
@@ -458,108 +472,113 @@ class Assembly:
     def build_overlaps(self, n_chunks: int | None = None,
                        n_workers: int | None = None) -> str:
         path = os.path.join(self.outdir, "2-ovlp", "preads.ovl")
-        if not _stage_done(path):
-            t0 = time.time()
-            self._maybe_auto_spill()
-            if self.cfg.spill_dir is not None and self.db is not None:
-                # explicit --spill-dir: same capacity gate auto-spill gets
-                os.makedirs(self.cfg.spill_dir, exist_ok=True)
-                _preflight_spill(self.cfg.spill_dir,
-                                 int(0.22 * self.db.data.nbytes),
-                                 "overlap stage spill")
-            dedup = self.cfg.dedup_overlap
-            if self.cfg.use_device_aligner or self.cfg.hybrid_overlap:
-                log.warning(
-                    "non-host overlap backend: the device Myers kernel "
-                    "reports optimal distances where the host aligner is "
-                    "greedy, so accept decisions differ slightly (~97.5% "
-                    "pair agreement); output is not byte-identical to the "
-                    "host backend")
-            if self.cfg.hybrid_overlap and dedup:
-                # chunk-free hybrid: host threads + a device thread pull
-                # slices of ONE globally-deduplicated request array
-                from ..ops.overlap import overlap_all_spec
-                ovlps = overlap_all_spec(
-                    self.db, self.idx, self.cfg,
-                    n_workers=n_workers or (os.cpu_count() or 1),
-                    backend="hybrid", pairs=self._pair_map(),
-                    device=self.device)
-            elif self.cfg.hybrid_overlap:
-                from ..ops.overlap import overlap_all_hybrid
-                if self.device.type == "cpu":
-                    log.warning("hybrid overlap on the cpu device: its "
-                                "device thread runs the plain aligner")
-                n_workers = n_workers or (os.cpu_count() or 1)
-                # one chunk per worker thread (host threads + the device
-                # thread): every EXTRA chunk duplicates a share of a
-                # chunk's alignments (per-chunk rid-pair dedup)
-                ovlps = overlap_all_hybrid(
-                    self.db, self.idx, self.cfg, self.device,
-                    n_chunks=n_chunks or (n_workers + 1),
-                    n_host_workers=n_workers)
-            elif self.cfg.use_device_aligner and dedup \
-                    and not self.cfg.shard_overlap:
-                from ..ops.overlap import overlap_all_spec
-                ovlps = overlap_all_spec(self.db, self.idx, self.cfg,
-                                         n_workers=n_workers,
-                                         backend="device",
-                                         pairs=self._pair_map(),
-                                         device=self.device)
-            elif dedup and self.cfg.spill_dir is not None \
-                    and not self.cfg.shard_overlap:
-                # low-memory mode: sharing the stage-2/stage-4 pair map
-                # pins its spill file on disk across stages 2-4, on top of
-                # the replay stream and result arena the overlap rounds
-                # spill.  Share it only when the spill filesystem has that
-                # headroom; otherwise overlap_all_spec builds and frees
-                # its own copy and stage 4 rebuilds it.
-                from ..ops.overlap import overlap_all_spec
-                free = _spill_free_bytes(self.cfg.spill_dir)
-                # the JAX package's rule: pinning the map costs ~0.13x db
-                # of disk, on top of ~0.11x transient spill and ~0.25x of
-                # stage-3/4 outputs still to come -- require 0.55x db free
-                keep_map = free >= int(0.55 * self.db.data.nbytes)
-                log.info("overlap spill mode: %s the stage-2/4 pair map "
-                         "(spill free %.1f GB vs %.1f GB to keep it)",
-                         "sharing" if keep_map else "not sharing",
-                         free / (1 << 30),
-                         0.55 * self.db.data.nbytes / (1 << 30))
-                ovlps = overlap_all_spec(
-                    self.db, self.idx, self.cfg,
-                    n_workers=n_workers or (os.cpu_count() or 1),
-                    backend="host",
-                    pairs=self._pair_map() if keep_map else None)
-            elif self.cfg.use_device_aligner:
-                from ..ops.overlap import overlap_chunk_device
-                if n_chunks or n_workers:
-                    log.warning("device aligner runs in-process; "
-                                "n_chunks/n_workers ignored")
-                ovlps = overlap_chunk_device(self.db, self.idx, self.cfg,
-                                             self.device, mesh=self.mesh)
-            else:
-                if n_workers is None:
-                    n_workers = 1 if len(self.db) < 2000 else (os.cpu_count() or 1)
-                n_chunks = n_chunks or n_workers
-                ovlps = overlap_all(
-                    self.db, self.idx, self.cfg,
-                    n_chunks=n_chunks, n_workers=n_workers,
-                    pairs=(self._pair_map()
-                           if self.cfg.dedup_overlap and n_workers > 1
-                           else None))
-            from ..ops.overlap import write_ovl_file
-            n_rows = write_ovl_file(path, ovlps)
-            wall = time.time() - t0
-            spill_line = ""
-            if self.cfg.spill_dir is not None:
-                spill_line = (", spill free %.1f GB"
-                              % (_spill_free_bytes(self.cfg.spill_dir)
-                                 / (1 << 30)))
-            log.info("stage 2 overlap: %d records -> %d rows (%.1fs; "
-                     "peak RSS %.1f GB, anon %.1f GB%s%s)",
-                     len(ovlps), n_rows, wall, _peak_rss_gb(),
-                     _anon_rss_gb(), _device_mem_line(self.device),
-                     spill_line, extra={"stage_wall": ("overlap", wall)})
+        if _stage_done(path):
+            return path
+        with self._stage("overlap") as sp:
+            ovlps = self._overlaps(n_chunks, n_workers)
+            with trace.span("overlap.write") as wsp:
+                n_rows = wsp.attrs["rows"] = write_ovl_file(path, ovlps)
+        spill_line = ""
+        if self.cfg.spill_dir is not None:
+            spill_line = (", spill free %.1f GB"
+                          % (_spill_free_bytes(self.cfg.spill_dir)
+                             / (1 << 30)))
+        log.info("stage 2 overlap: %d records -> %d rows (%.1fs; "
+                 "peak RSS %.1f GB, anon %.1f GB%s%s)",
+                 len(ovlps), n_rows, sp.seconds, _peak_rss_gb(),
+                 _anon_rss_gb(), _device_mem_line(self.device),
+                 spill_line, extra={"stage_wall": ("overlap", sp.seconds)})
         return path
+
+    def _overlaps(self, n_chunks: int | None, n_workers: int | None):
+        """Stage 2's overlap records, from the backend the config picks."""
+        self._maybe_auto_spill()
+        if self.cfg.spill_dir is not None and self.db is not None:
+            # explicit --spill-dir: same capacity gate auto-spill gets
+            os.makedirs(self.cfg.spill_dir, exist_ok=True)
+            _preflight_spill(self.cfg.spill_dir,
+                             int(0.22 * self.db.data.nbytes),
+                             "overlap stage spill")
+        dedup = self.cfg.dedup_overlap
+        if self.cfg.use_device_aligner or self.cfg.hybrid_overlap:
+            log.warning(
+                "non-host overlap backend: the device Myers kernel "
+                "reports optimal distances where the host aligner is "
+                "greedy, so accept decisions differ slightly (~97.5% "
+                "pair agreement); output is not byte-identical to the "
+                "host backend")
+        if self.cfg.hybrid_overlap and dedup:
+            # chunk-free hybrid: host threads + a device thread pull
+            # slices of ONE globally-deduplicated request array
+            from ..ops.overlap import overlap_all_spec
+            ovlps = overlap_all_spec(
+                self.db, self.idx, self.cfg,
+                n_workers=n_workers or (os.cpu_count() or 1),
+                backend="hybrid", pairs=self._pair_map(),
+                device=self.device)
+        elif self.cfg.hybrid_overlap:
+            from ..ops.overlap import overlap_all_hybrid
+            if self.device.type == "cpu":
+                log.warning("hybrid overlap on the cpu device: its "
+                            "device thread runs the plain aligner")
+            n_workers = n_workers or (os.cpu_count() or 1)
+            # one chunk per worker thread (host threads + the device
+            # thread): every EXTRA chunk duplicates a share of a
+            # chunk's alignments (per-chunk rid-pair dedup)
+            ovlps = overlap_all_hybrid(
+                self.db, self.idx, self.cfg, self.device,
+                n_chunks=n_chunks or (n_workers + 1),
+                n_host_workers=n_workers)
+        elif self.cfg.use_device_aligner and dedup \
+                and not self.cfg.shard_overlap:
+            from ..ops.overlap import overlap_all_spec
+            ovlps = overlap_all_spec(self.db, self.idx, self.cfg,
+                                     n_workers=n_workers,
+                                     backend="device",
+                                     pairs=self._pair_map(),
+                                     device=self.device)
+        elif dedup and self.cfg.spill_dir is not None \
+                and not self.cfg.shard_overlap:
+            # low-memory mode: sharing the stage-2/stage-4 pair map
+            # pins its spill file on disk across stages 2-4, on top of
+            # the replay stream and result arena the overlap rounds
+            # spill.  Share it only when the spill filesystem has that
+            # headroom; otherwise overlap_all_spec builds and frees
+            # its own copy and stage 4 rebuilds it.
+            from ..ops.overlap import overlap_all_spec
+            free = _spill_free_bytes(self.cfg.spill_dir)
+            # the JAX package's rule: pinning the map costs ~0.13x db
+            # of disk, on top of ~0.11x transient spill and ~0.25x of
+            # stage-3/4 outputs still to come -- require 0.55x db free
+            keep_map = free >= int(0.55 * self.db.data.nbytes)
+            log.info("overlap spill mode: %s the stage-2/4 pair map "
+                     "(spill free %.1f GB vs %.1f GB to keep it)",
+                     "sharing" if keep_map else "not sharing",
+                     free / (1 << 30),
+                     0.55 * self.db.data.nbytes / (1 << 30))
+            ovlps = overlap_all_spec(
+                self.db, self.idx, self.cfg,
+                n_workers=n_workers or (os.cpu_count() or 1),
+                backend="host",
+                pairs=self._pair_map() if keep_map else None)
+        elif self.cfg.use_device_aligner:
+            from ..ops.overlap import overlap_chunk_device
+            if n_chunks or n_workers:
+                log.warning("device aligner runs in-process; "
+                            "n_chunks/n_workers ignored")
+            ovlps = overlap_chunk_device(self.db, self.idx, self.cfg,
+                                         self.device, mesh=self.mesh)
+        else:
+            if n_workers is None:
+                n_workers = 1 if len(self.db) < 2000 else (os.cpu_count() or 1)
+            n_chunks = n_chunks or n_workers
+            ovlps = overlap_all(
+                self.db, self.idx, self.cfg,
+                n_chunks=n_chunks, n_workers=n_workers,
+                pairs=(self._pair_map()
+                       if self.cfg.dedup_overlap and n_workers > 1
+                       else None))
+        return ovlps
 
     # --- stage 3: layout + draft contigs --------------------------------
     def build_contigs(self) -> str:
@@ -567,67 +586,83 @@ class Assembly:
         fa = os.path.join(asm, "p_ctg.fa")
         if _stage_done(fa):
             return fa
-        t0 = time.time()
-        with open(os.path.join(self.outdir, "2-ovlp", "preads.ovl"),
-                  "rb") as f:
-            result = generate_string_graph(
-                ovl_bytes=f.read(), min_len=self.cfg.min_len,
-                min_idt=self.cfg.min_idt, lfc=self.cfg.lfc,
-                disable_chimer_bridge_removal=self.cfg.disable_chimer_bridge_removal)
-        sg_path = os.path.join(asm, "sg_edges_list")
-        if result.sg_edge_bytes is not None:
-            with open(sg_path + ".tmp", "wb") as f:
-                f.write(result.sg_edge_bytes)
-            os.replace(sg_path + ".tmp", sg_path)
-        else:
-            _write_lines(sg_path, result.sg_edge_lines)
-        _write_lines(os.path.join(asm, "chimers_nodes"), result.chimer_nodes)
-
-        u_edge_data, ctg_rows, utg_rows, compound_rows = assemble_graph(result)
-        _write_lines(os.path.join(asm, "utg_data"), utg_rows)
-        _write_lines(os.path.join(asm, "ctg_paths"), ctg_rows)
-        _write_lines(os.path.join(asm, "c_path"), compound_rows)
-
-        p_lines, a_lines = tiling_paths(result.sg_edge_lines, utg_rows,
-                                        ctg_rows,
-                                        edge_data=result.tiling_edge_data())
-        _write_lines(os.path.join(asm, "p_ctg_tiling_path"), p_lines)
-        _write_lines(os.path.join(asm, "a_ctg_tiling_path"), a_lines)
-
-        if self._save_thread is not None:
-            self._save_thread.join()
-            self._save_thread = None
-        contigs = tiling_to_contigs(self.db, p_lines)
-        with open(fa + ".tmp", "w") as f:
-            for name, seq in contigs:
-                f.write(f">{name}\n{seq.decode()}\n")
-        os.replace(fa + ".tmp", fa)
-        if self.with_alt and a_lines:
-            # alternate (bubble-branch) contigs, reference --with-alt
-            # (py/scripts/pg_run.py:359-371)
-            a_contigs = tiling_to_contigs(self.db, a_lines)
-            with open(os.path.join(asm, "a_ctg.fa"), "w") as f:
-                for name, seq in a_contigs:
-                    f.write(f">{name}\n{seq.decode()}\n")
-        wall = time.time() - t0
+        with self._stage("layout") as sp:
+            contigs = self._layout(asm, fa)
         log.info("stage 3 layout: %d contigs, %d bases (%.1fs; "
                  "peak RSS %.1f GB)",
-                 len(contigs), sum(len(s) for _, s in contigs),
-                 wall, _peak_rss_gb(), extra={"stage_wall": ("layout", wall)})
+                 len(contigs), sum(len(s) for _, s in contigs), sp.seconds,
+                 _peak_rss_gb(), extra={"stage_wall": ("layout", sp.seconds)})
         return fa
+
+    def _layout(self, asm: str, fa: str) -> list:
+        """Stage 3's work, each part under its span; returns the primary
+        contigs, written to fa."""
+        with trace.span("layout.string_graph"):
+            with open(os.path.join(self.outdir, "2-ovlp", "preads.ovl"),
+                      "rb") as f:
+                result = generate_string_graph(
+                    ovl_bytes=f.read(), min_len=self.cfg.min_len,
+                    min_idt=self.cfg.min_idt, lfc=self.cfg.lfc,
+                    disable_chimer_bridge_removal=(
+                        self.cfg.disable_chimer_bridge_removal))
+        with trace.span("layout.graph"):
+            sg_path = os.path.join(asm, "sg_edges_list")
+            if result.sg_edge_bytes is not None:
+                with open(sg_path + ".tmp", "wb") as f:
+                    f.write(result.sg_edge_bytes)
+                os.replace(sg_path + ".tmp", sg_path)
+            else:
+                _write_lines(sg_path, result.sg_edge_lines)
+            _write_lines(os.path.join(asm, "chimers_nodes"),
+                         result.chimer_nodes)
+
+            u_edge_data, ctg_rows, utg_rows, compound_rows = \
+                assemble_graph(result)
+            _write_lines(os.path.join(asm, "utg_data"), utg_rows)
+            _write_lines(os.path.join(asm, "ctg_paths"), ctg_rows)
+            _write_lines(os.path.join(asm, "c_path"), compound_rows)
+
+        with trace.span("layout.tiling"):
+            p_lines, a_lines = tiling_paths(
+                result.sg_edge_lines, utg_rows, ctg_rows,
+                edge_data=result.tiling_edge_data())
+            _write_lines(os.path.join(asm, "p_ctg_tiling_path"), p_lines)
+            _write_lines(os.path.join(asm, "a_ctg_tiling_path"), a_lines)
+
+        with trace.span("layout.contigs"):
+            if self._save_thread is not None:
+                self._save_thread.join()
+                self._save_thread = None
+            contigs = tiling_to_contigs(self.db, p_lines)
+            with open(fa + ".tmp", "w") as f:
+                for name, seq in contigs:
+                    f.write(f">{name}\n{seq.decode()}\n")
+            os.replace(fa + ".tmp", fa)
+            if self.with_alt and a_lines:
+                # alternate (bubble-branch) contigs, reference --with-alt
+                # (py/scripts/pg_run.py:359-371)
+                a_contigs = tiling_to_contigs(self.db, a_lines)
+                with open(os.path.join(asm, "a_ctg.fa"), "w") as f:
+                    for name, seq in a_contigs:
+                        f.write(f">{name}\n{seq.decode()}\n")
+        return contigs
 
     # --- stage 4: mapping + consensus polish ----------------------------
     def build_consensus(self, n_workers: int | None = None) -> str:
-        out = self._polish("p_ctg.fa", "4-cns", "p_ctg_cns.fa", n_workers)
-        if self.with_alt:
-            # alt-contig polish pass: the reference reruns the consensus
-            # stage against a_ctg.fa when it is non-trivial (>500 kB)
-            # (py/scripts/pg_run.py:622-633)
-            a_fa = os.path.join(self.outdir, "3-asm", "a_ctg.fa")
-            if (os.path.exists(a_fa)
-                    and os.stat(a_fa).st_size > self.cfg.alt_cns_min_size):
-                self._polish("a_ctg.fa", "4-cns-alt", "a_ctg_cns.fa",
-                             n_workers)
+        """Stage 4 under the span polish (no stage wall of its own: its
+        parts log theirs)."""
+        with self._stage("polish"):
+            out = self._polish("p_ctg.fa", "4-cns", "p_ctg_cns.fa",
+                               n_workers)
+            if self.with_alt:
+                # alt-contig polish pass: the reference reruns the
+                # consensus stage against a_ctg.fa when it is non-trivial
+                # (>500 kB) (py/scripts/pg_run.py:622-633)
+                a_fa = os.path.join(self.outdir, "3-asm", "a_ctg.fa")
+                if (os.path.exists(a_fa) and os.stat(a_fa).st_size
+                        > self.cfg.alt_cns_min_size):
+                    self._polish("a_ctg.fa", "4-cns-alt", "a_ctg_cns.fa",
+                                 n_workers)
         self._pairs = None  # free the shared pair map (GBs at scale)
         return out
 
@@ -636,9 +671,9 @@ class Assembly:
         """Polish one contig file: its SHIMMER index on the device, the
         reads mapped to it, and the window consensus.  Log records carry
         stage walls ctg_index, mapping and consensus (alt_* for the alt
-        pass)."""
+        pass), each its span's seconds."""
         from ..native import write_rows
-        from ..ops.consensus import consensus_for_contig, consensus_parallel
+        from ..ops.consensus import consensus_windows, plan_all, stitch_all
         from ..ops.mapping import map_reads_to_ref, map_reads_to_ref_grouped
 
         cns_dir = os.path.join(self.outdir, cns_subdir)
@@ -647,21 +682,20 @@ class Assembly:
         if _stage_done(out_fa):
             return out_fa
         tag = "" if cns_subdir == "4-cns" else "alt_"
-        t0 = time.time()
         ctg_prefix = os.path.join(cns_dir, "ctg")
-        ctg_db = SeqDB.from_reads(
-            read_fastx(os.path.join(self.outdir, "3-asm", ctg_fa)))
-        ctg_db.save(ctg_prefix)
-        t_db = time.time()
-        ctg_idx = build_index(ctg_db, self.cfg, self.device)
-        t_idx = time.time()
+        with trace.span("polish.ctg_db") as db_sp:
+            ctg_db = SeqDB.from_reads(
+                read_fastx(os.path.join(self.outdir, "3-asm", ctg_fa)))
+            ctg_db.save(ctg_prefix)
+        with trace.span(tag + "ctg_index") as sp:
+            ctg_idx = build_index(ctg_db, self.cfg, self.device)
         log.info("stage 4 contig index: %d contigs, %d SHIMMERs (ctg db "
                  "%.1fs, index %.1fs on %s%s)%s", len(ctg_db), len(ctg_idx.x),
-                 t_db - t0, t_idx - t_db, self.device,
+                 db_sp.seconds, sp.seconds, self.device,
                  _device_mem_line(self.device),
                  "" if self._pairs is not None
                  else "; the pair map is rebuilt next",
-                 extra={"stage_wall": (tag + "ctg_index", t_idx - t_db)})
+                 extra={"stage_wall": (tag + "ctg_index", sp.seconds)})
         # external grouped emission bounds this stage's anonymous peak
         # (the reference's `sort -T tmp -S 8g` analog,
         # py/scripts/pg_run.py:491-496): rows land grouped by contig in
@@ -669,55 +703,56 @@ class Assembly:
         # in-memory path, only read_map.txt's row order differs
         external = (os.environ.get("PG_MAP_EXTERNAL") == "1"
                     or self.db.data.nbytes > (8 << 30))
-        if external:
-            mm, offs = map_reads_to_ref_grouped(
-                self.idx, self.db.lengths, ctg_idx, self.cfg,
-                os.path.join(cns_dir, "read_map.npy"), len(ctg_db),
-                pairs=self._pairs)
-            np.save(os.path.join(cns_dir, "read_map_offs.npy"), offs)
-            write_rows(mm, os.path.join(cns_dir, "read_map.txt"))
-            n_rows = len(mm)
-            contig_rows = {rid: mm[offs[rid]:offs[rid + 1]]
-                           for rid in range(len(ctg_db))}
-        else:
-            rows = map_reads_to_ref(self.idx, self.db.lengths, ctg_idx,
-                                    self.cfg, pairs=self._pairs)
-            write_rows(rows.reshape(len(rows), -1),
-                       os.path.join(cns_dir, "read_map.txt"))
-            n_rows = len(rows)
-            contig_rows = {rid: (rows[rows[:, 0] == rid]
-                                 if len(rows) else rows)
-                           for rid in range(len(ctg_db))}
-        t_map = time.time()
-        log.info("stage 4 mapping: %d rows (%.1fs%s)", n_rows, t_map - t_idx,
+        with trace.span(tag + "mapping") as sp:
+            if external:
+                mm, offs = map_reads_to_ref_grouped(
+                    self.idx, self.db.lengths, ctg_idx, self.cfg,
+                    os.path.join(cns_dir, "read_map.npy"), len(ctg_db),
+                    pairs=self._pairs)
+                np.save(os.path.join(cns_dir, "read_map_offs.npy"), offs)
+                write_rows(mm, os.path.join(cns_dir, "read_map.txt"))
+                n_rows = len(mm)
+                contig_rows = {rid: mm[offs[rid]:offs[rid + 1]]
+                               for rid in range(len(ctg_db))}
+            else:
+                rows = map_reads_to_ref(self.idx, self.db.lengths, ctg_idx,
+                                        self.cfg, pairs=self._pairs)
+                write_rows(rows.reshape(len(rows), -1),
+                           os.path.join(cns_dir, "read_map.txt"))
+                n_rows = len(rows)
+                contig_rows = {rid: (rows[rows[:, 0] == rid]
+                                     if len(rows) else rows)
+                               for rid in range(len(ctg_db))}
+        log.info("stage 4 mapping: %d rows (%.1fs%s)", n_rows, sp.seconds,
                  "; external grouped" if external else "",
-                 extra={"stage_wall": (tag + "mapping", t_map - t_idx)})
+                 extra={"stage_wall": (tag + "mapping", sp.seconds)})
 
         if n_workers is None:
             # consensus workers are GIL-releasing threads: always parallel
             n_workers = os.cpu_count() or 1
-        if self._save_thread is not None:
-            # the window threads re-open the seqdb from disk
-            self._save_thread.join()
-            self._save_thread = None
-        if n_workers > 1:
-            seqs = consensus_parallel(
-                os.path.join(self.outdir, "0-seqdb", "seq_dataset"),
-                ctg_prefix, contig_rows, ctg_db.lengths, self.cfg, n_workers)
-        else:
-            seqs = {rid: consensus_for_contig(self.db, ctg_db, rid,
-                                              contig_rows[rid], self.cfg)
-                    for rid in range(len(ctg_db))}
-        with open(out_fa + ".tmp", "w") as f:
-            for ctg_rid in range(len(ctg_db)):
-                f.write(f">{ctg_db.names[ctg_rid]}\n"
-                        f"{seqs[ctg_rid].decode()}\n")
-        os.replace(out_fa + ".tmp", out_fa)
-        wall = time.time() - t_map
+        with trace.span(tag + "consensus") as sp:
+            if self._save_thread is not None:
+                # the window threads re-open the seqdb from disk
+                self._save_thread.join()
+                self._save_thread = None
+            with trace.span("consensus.plan"):
+                read_db = SeqDB.open(
+                    os.path.join(self.outdir, "0-seqdb", "seq_dataset"))
+                plans = plan_all(contig_rows, ctg_db.lengths, self.cfg)
+            results = consensus_windows(read_db, SeqDB.open(ctg_prefix),
+                                        plans, self.cfg, n_workers)
+            with trace.span("consensus.stitch"):
+                seqs = stitch_all(plans, results)
+            with trace.span("consensus.write"):
+                with open(out_fa + ".tmp", "w") as f:
+                    for ctg_rid in range(len(ctg_db)):
+                        f.write(f">{ctg_db.names[ctg_rid]}\n"
+                                f"{seqs[ctg_rid].decode()}\n")
+                os.replace(out_fa + ".tmp", out_fa)
         log.info("stage 4 consensus: %d contigs (%.1fs; peak RSS %.1f GB, "
-                 "anon %.1f GB)", len(ctg_db), wall, _peak_rss_gb(),
+                 "anon %.1f GB)", len(ctg_db), sp.seconds, _peak_rss_gb(),
                  _anon_rss_gb(),
-                 extra={"stage_wall": (tag + "consensus", wall)})
+                 extra={"stage_wall": (tag + "consensus", sp.seconds)})
         return out_fa
 
     def run_draft(self, reads=None, reads_list: str | None = None) -> str:
@@ -748,7 +783,7 @@ class Assembly:
         the same full result set, and the final exact replay runs on rank
         0 alone, so preads.ovl is byte-identical to the single-process
         run at any rank count."""
-        from ..ops.overlap import overlap_all_spec, write_ovl_file
+        from ..ops.overlap import overlap_all_spec
 
         path = os.path.join(self.outdir, "2-ovlp", "preads.ovl")
         xdir = os.path.join(self.outdir, "2-ovlp", "xchg")
@@ -775,20 +810,22 @@ class Assembly:
                     res[d["idx"]] = d["res"]
             return res
 
-        t0 = time.time()
-        ovlps = overlap_all_spec(
-            self.db, self.idx, self.cfg, n_workers=os.cpu_count() or 1,
-            backend="host", pairs=None, shard=(rank, nranks),
-            exchange=exchange, run_final=(rank == 0))
-        # every rank has read the last round's files before rank 0
-        # removes them
-        barrier("pg-tpu ovl-xchg-done")
+        with self._stage("overlap") as sp:
+            ovlps = overlap_all_spec(
+                self.db, self.idx, self.cfg, n_workers=os.cpu_count() or 1,
+                backend="host", pairs=None, shard=(rank, nranks),
+                exchange=exchange, run_final=(rank == 0))
+            # every rank has read the last round's files before rank 0
+            # removes them
+            barrier("pg-tpu ovl-xchg-done")
+            if rank == 0:
+                with trace.span("overlap.write") as wsp:
+                    n_rows = wsp.attrs["rows"] = write_ovl_file(path, ovlps)
         if rank == 0:
-            n_rows = write_ovl_file(path, ovlps)
-            wall = time.time() - t0
             log.info("stage 2 overlap [multihost x%d]: %d records -> %d "
                      "rows (%.1fs on rank 0)", nranks, len(ovlps), n_rows,
-                     wall, extra={"stage_wall": ("overlap", wall)})
+                     sp.seconds, extra={"stage_wall": ("overlap",
+                                                       sp.seconds)})
             import shutil
             shutil.rmtree(xdir, ignore_errors=True)
 
@@ -812,26 +849,28 @@ class Assembly:
             self._ensure_mapping()
         barrier("pg-tpu stage4-map")
 
-        t0 = time.time()
-        ctg_db = SeqDB.open(os.path.join(cns_dir, "ctg"))
-        mm = np.load(os.path.join(cns_dir, "read_map.npy"), mmap_mode="r")
-        offs = np.load(os.path.join(cns_dir, "read_map_offs.npy"))
-        contig_rows = {rid: mm[offs[rid]:offs[rid + 1]]
-                       for rid in range(len(ctg_db))}
-        plans = plan_all(contig_rows, ctg_db.lengths, self.cfg)
-        if self._save_thread is not None:
-            # the window threads re-open the seqdb from disk
-            self._save_thread.join()
-            self._save_thread = None
-        read_db = SeqDB.open(
-            os.path.join(self.outdir, "0-seqdb", "seq_dataset"))
-        part = consensus_windows(read_db, ctg_db, plans, self.cfg,
-                                 n_workers or os.cpu_count() or 1,
-                                 shard=(rank, nranks))
+        with self._stage("consensus") as sp:
+            with trace.span("consensus.plan"):
+                ctg_db = SeqDB.open(os.path.join(cns_dir, "ctg"))
+                mm = np.load(os.path.join(cns_dir, "read_map.npy"),
+                             mmap_mode="r")
+                offs = np.load(os.path.join(cns_dir, "read_map_offs.npy"))
+                contig_rows = {rid: mm[offs[rid]:offs[rid + 1]]
+                               for rid in range(len(ctg_db))}
+                plans = plan_all(contig_rows, ctg_db.lengths, self.cfg)
+            if self._save_thread is not None:
+                # the window threads re-open the seqdb from disk
+                self._save_thread.join()
+                self._save_thread = None
+            read_db = SeqDB.open(
+                os.path.join(self.outdir, "0-seqdb", "seq_dataset"))
+            part = consensus_windows(read_db, ctg_db, plans, self.cfg,
+                                     n_workers or os.cpu_count() or 1,
+                                     shard=(rank, nranks))
         n_windows = sum(len(s) for s in plans.values())
         log.info("stage 4 consensus [multihost]: rank %d computed %d of "
                  "%d windows (%.1fs)", rank, len(part), n_windows,
-                 time.time() - t0)
+                 sp.seconds)
         xdir = os.path.join(cns_dir, "xchg")
         os.makedirs(xdir, exist_ok=True)
         p = os.path.join(xdir, f"cns-p{rank}.pkl")
@@ -867,21 +906,24 @@ class Assembly:
         os.makedirs(cns_dir, exist_ok=True)
         if _stage_done(os.path.join(cns_dir, "read_map_offs.npy")):
             return
-        t0 = time.time()
-        ctg_prefix = os.path.join(cns_dir, "ctg")
-        ctg_db = SeqDB.from_reads(
-            read_fastx(os.path.join(self.outdir, "3-asm", "p_ctg.fa")))
-        ctg_db.save(ctg_prefix)
-        ctg_idx = build_index(ctg_db, self.cfg, self.device)
-        mm, offs = map_reads_to_ref_grouped(
-            self.idx, self.db.lengths, ctg_idx, self.cfg,
-            os.path.join(cns_dir, "read_map.npy"), len(ctg_db),
-            pairs=self._pairs)
-        tmp = os.path.join(cns_dir, "read_map_offs.npy.tmp.npy")
-        np.save(tmp, offs)
-        os.replace(tmp, os.path.join(cns_dir, "read_map_offs.npy"))
+        with self._stage("mapping") as sp:
+            ctg_prefix = os.path.join(cns_dir, "ctg")
+            with trace.span("polish.ctg_db"):
+                ctg_db = SeqDB.from_reads(
+                    read_fastx(os.path.join(self.outdir, "3-asm",
+                                            "p_ctg.fa")))
+                ctg_db.save(ctg_prefix)
+            with trace.span("ctg_index"):
+                ctg_idx = build_index(ctg_db, self.cfg, self.device)
+            mm, offs = map_reads_to_ref_grouped(
+                self.idx, self.db.lengths, ctg_idx, self.cfg,
+                os.path.join(cns_dir, "read_map.npy"), len(ctg_db),
+                pairs=self._pairs)
+            tmp = os.path.join(cns_dir, "read_map_offs.npy.tmp.npy")
+            np.save(tmp, offs)
+            os.replace(tmp, os.path.join(cns_dir, "read_map_offs.npy"))
         log.info("stage 4 mapping: %d rows (%.1fs; external grouped)",
-                 len(mm), time.time() - t0)
+                 len(mm), sp.seconds)
 
     def run_multihost(self, reads_list: str, with_consensus: bool = False
                       ) -> str | None:
@@ -923,15 +965,17 @@ class Assembly:
             self.idx = ShimmerIndex.load_chunks(
                 [mm], [f"{prefix}-L{level}-MC-01-of-01.dat"])
         else:
-            t0 = time.time()
-            mesh = distributed.global_mesh(self.device)
-            self.idx = build_index_mesh(self.db, self.cfg, mesh)
+            with self._stage("index") as sp:
+                mesh = distributed.global_mesh(self.device)
+                self.idx = build_index_mesh(self.db, self.cfg, mesh)
+                if primary:
+                    with trace.span("index.save"):
+                        self.idx.save(prefix, level=level)
             if primary:
-                self.idx.save(prefix, level=level)
-                wall = time.time() - t0
                 log.info("stage 1 index [multihost x%d over %s]: %d "
                          "SHIMMERs (%.1fs)", nranks, mesh, len(self.idx.x),
-                         wall, extra={"stage_wall": ("index", wall)})
+                         sp.seconds, extra={"stage_wall": ("index",
+                                                           sp.seconds)})
         barrier("pg-tpu stage1")
 
         if not _stage_done(os.path.join(self.outdir, "2-ovlp",

@@ -31,17 +31,77 @@ ALLOWED = {
     "graph/tiling.py": [],
     "ops/mapping.py": [
         "+",
-        "+A copy of peregrine_tpu/ops/mapping.py (host numpy; the logger's name",
-        "+is the one change to the code).",
+        "+A copy of peregrine_tpu/ops/mapping.py (host numpy); the changes: the",
+        "+logger's name, and the pair map's rebuild runs under the span",
+        "+mapping.pairs (peregrine_tpu_torch.trace; attr entries), whose seconds",
+        "+its log line gives.",
+        "+from .. import trace",
         "-    py/scripts/pg_run.py:491-496).  The TPU-native equivalent skips the",
         "+    py/scripts/pg_run.py:491-496).  This equivalent skips the",
+        "-        import time as _t",
+        "-        _tr = _t.time()",
+        "-        key0, key1, y0a, y1a, dira = build_pairs(",
+        "-            read_idx, read_lengths, chunk, total_chunk,",
+        "-            cfg.mc_lower, cfg.mc_upper, cfg.min_anchor_dist,",
+        "-            spill_dir=cfg.spill_dir)",
         '-        logging.getLogger("peregrine_tpu").info(',
+        '+        with trace.span("mapping.pairs") as sp:',
+        "+            key0, key1, y0a, y1a, dira = build_pairs(",
+        "+                read_idx, read_lengths, chunk, total_chunk,",
+        "+                cfg.mc_lower, cfg.mc_upper, cfg.min_anchor_dist,",
+        "+                spill_dir=cfg.spill_dir)",
+        '+            sp.attrs["entries"] = len(key0)',
         '+        logging.getLogger("peregrine_tpu_torch").info(',
+        "-            _t.time() - _tr, len(key0),",
+        "+            sp.seconds, len(key0),",
     ],
     "ops/consensus.py": [
         "+",
         "+A copy of peregrine_tpu/ops/consensus.py (host numpy and the native",
-        "+window core; unchanged).",
+        "+window core); the one change: consensus_windows runs each window under a",
+        "+span (peregrine_tpu_torch.trace), whose attrs window_consensus's `times`",
+        "+fills.",
+        "+import time",
+        "+",
+        "+from .. import trace",
+        "-                     use_native: bool = True) -> bytes:",
+        "+                     use_native: bool = True, times: dict | None = None",
+        "+                     ) -> bytes:",
+        '-    semantic reference used for cross-checking."""',
+        "+    semantic reference used for cross-checking.  With use_native, `times`",
+        "+    takes the seconds of the Python decode (decode_s) and of the native",
+        '+    call (native_s)."""',
+        "+    t0 = time.perf_counter()",
+        "-        return window_cns(ref_seq, read_seqs, shifts,",
+        "-                          cfg.cns_aln_band, cfg.cns_min_cov)",
+        "+        t1 = time.perf_counter()",
+        "+        out = window_cns(ref_seq, read_seqs, shifts,",
+        "+                         cfg.cns_aln_band, cfg.cns_min_cov)",
+        "+        if times is not None:",
+        "+            times.update(decode_s=t1 - t0,",
+        "+                         native_s=time.perf_counter() - t1)",
+        "+        return out",
+        '-    total_chunks; windows balance better when contig sizes skew)."""',
+        "+    total_chunks; windows balance better when contig sizes skew).",
+        "+",
+        "+    Spans: consensus.windows (attrs windows, workers) over the pool, and",
+        "+    one consensus.window under it a window, in its worker thread (attrs",
+        '+    reads, decode_s, native_s)."""',
+        "-    with cf.ThreadPoolExecutor(max_workers=max(1, n_workers)) as ex:",
+        "-        futs = {ex.submit(window_consensus, read_db, ref_db, rid,",
+        "-                          spec[0], spec[1], spec[2], cfg): (rid, i)",
+        "+    n_workers = max(1, n_workers)",
+        "+",
+        "+    def window(parent, rid, spec):",
+        '+        with trace.span("consensus.window", parent=parent,',
+        "+                        reads=len(spec[2])) as sp:",
+        "+            return window_consensus(read_db, ref_db, rid, spec[0], spec[1],",
+        "+                                    spec[2], cfg, times=sp.attrs)",
+        "+",
+        '+    with trace.span("consensus.windows", windows=len(jobs),',
+        "+                    workers=n_workers) as sp, \\",
+        "+            cf.ThreadPoolExecutor(max_workers=n_workers) as ex:",
+        "+        futs = {ex.submit(window, sp, rid, spec): (rid, i)",
     ],
     "ops/chain.py": [
         "+",
