@@ -1,9 +1,12 @@
 """Native host runtime: ctypes bindings to the C++ alignment kernels.
 
-A copy of peregrine_tpu/native/__init__.py with one change: the shared
+A copy of peregrine_tpu/native/__init__.py with two changes: the shared
 object is built on first use from this package's copies of the C++
 sources (peregrine_tpu_torch/native/*.cpp, byte for byte the JAX
-package's) into peregrine_tpu_torch/build/ (see _build.build_shared).
+package's but overlap_replay.cpp) into peregrine_tpu_torch/build/ (see
+_build.build_shared); and overlap_replay takes the collect pass's
+rejecter rule and returns its count, which the port's
+overlap_replay.cpp adds.
 """
 
 from __future__ import annotations
@@ -150,7 +153,8 @@ _lib.overlap_replay_c.argtypes = [
     ctypes.c_int64,                                      # n_cache
     ctypes.POINTER(ctypes.c_void_p), _i64p, _i64p,
     ctypes.POINTER(ctypes.c_void_p),                     # miss_reqs|NULL
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]    # stream buf/cap/prog
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,    # stream buf/cap/prog
+    ctypes.c_int32, _i64p]                               # rule, rejecters
 _lib.free_ovlp_recs_c.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
 _lib.free_spec_reqs2_c.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
 
@@ -162,15 +166,21 @@ def overlap_replay(ys: np.ndarray, dirs: np.ndarray, pos: np.ndarray,
                    band: int, ck_a: np.ndarray, ck_b: np.ndarray,
                    cvals: np.ndarray, collect_misses: bool = False,
                    stream_buf: np.ndarray | None = None,
-                   stream_progress: np.ndarray | None = None):
+                   stream_progress: np.ndarray | None = None,
+                   collect_rejecters: bool = False):
     """Native sequential overlap accept loop (overlap_replay.cpp); returns
-    (raw record bytes, n_records, n_cache_misses[, miss_requests]).
+    (raw record bytes, n_records, n_cache_misses, n_rejecter_misses[,
+    miss_requests]), n_rejecter_misses being the misses whose rid pair
+    had a cached result failing the accept test earlier in the pass.
     cvals is an int32 [n, 8] matrix of cached alignment results in
     OvlpMatch field order (m_size, dist, q_bgn, q_end, t_bgn, t_end,
     t_m_end, q_m_end), sorted with (ck_a, ck_b).  With collect_misses,
     cache misses are returned as a SPEC_REQ_DTYPE array (treated as
     rejects in THIS pass) instead of aligning inline — the iterative
-    driver in ops.overlap.overlap_all_spec.  The caller parses the record
+    driver in ops.overlap.overlap_all_spec.  With collect_rejecters too,
+    such a rejecter miss is collected as a rejection (not assumed an
+    overlap), so the pass collects the rest of the pair's anchors.  The
+    caller parses the record
     bytes with ops.overlap.OVLP_DTYPE (kept out of here to avoid a
     circular import).
 
@@ -199,6 +209,7 @@ def overlap_replay(ys: np.ndarray, dirs: np.ndarray, pos: np.ndarray,
     n_out = ctypes.c_int64()
     n_miss = ctypes.c_int64()
     mreqs = ctypes.c_void_p()
+    n_rej = ctypes.c_int64()
     if stream_buf is not None:
         assert collect_misses
         assert stream_buf.dtype == SPEC_REQ_DTYPE \
@@ -216,7 +227,8 @@ def overlap_replay(ys: np.ndarray, dirs: np.ndarray, pos: np.ndarray,
                           ctypes.byref(out), ctypes.byref(n_out),
                           ctypes.byref(n_miss),
                           ctypes.byref(mreqs) if collect_misses else None,
-                          sbp, scap, spp)
+                          sbp, scap, spp, int(collect_rejecters),
+                          ctypes.byref(n_rej))
     try:
         raw = _bytes_at(out.value, n_out.value * _REC_SIZE)
         if collect_misses:
@@ -231,8 +243,9 @@ def overlap_replay(ys: np.ndarray, dirs: np.ndarray, pos: np.ndarray,
     if collect_misses:
         miss_arr = (np.frombuffer(mraw, SPEC_REQ_DTYPE).copy() if mraw
                     else np.zeros(0, SPEC_REQ_DTYPE))
-        return raw, int(n_out.value), int(n_miss.value), miss_arr
-    return raw, int(n_out.value), int(n_miss.value)
+        return (raw, int(n_out.value), int(n_miss.value),
+                int(n_rej.value), miss_arr)
+    return raw, int(n_out.value), int(n_miss.value), int(n_rej.value)
 
 
 _lib.align_spec_c.argtypes = [

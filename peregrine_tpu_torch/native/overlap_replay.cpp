@@ -149,7 +149,11 @@ constexpr int kOverlap = 0, kContains = 1, kContained = 2;
 // collect-mode only: pair's alignment was harvested as a miss request;
 // optimistically assumed to be an accepted OVERLAP for the rest of the
 // pass (the majority outcome), which keeps the pass's bestn dynamics close
-// to the true replay's so later rounds collect few corrections
+// to the true replay's.  A pair whose cached alignment already failed the
+// accept test in this pass is not assumed so (see collect_rejecters):
+// such pairs fail again at many later anchors (tandem arrays, diverged
+// copies), and marking one pending at each round's first new anchor left
+// the rest of its chain, one anchor a round, to the exact final pass
 constexpr int kPending = 3;
 
 }  // namespace
@@ -171,12 +175,22 @@ struct SpecReq {
 // buckets are [bstart[i], bend[i]).  Returns a malloc'd OvlpRec array.
 //
 // collect mode (miss_reqs != nullptr): a cache miss is RECORDED as a
-// request and treated as a reject (no record, no state change) instead of
-// aligning inline — the driver aligns the collected requests in parallel
+// request instead of aligning inline (and its pair marked kPending) — the
+// driver aligns the collected requests in parallel
 // and re-runs the replay with the widened cache, iterating until the
 // final exact pass (ops.overlap.overlap_all_spec).  The final pass runs
 // with miss_reqs == nullptr, where misses align inline, so correctness
 // never depends on the collected set.
+//
+// collect_rejecters (collect mode): a miss whose rid pair has a cached
+// result failing the accept test earlier in this pass is collected
+// without marking the pair kPending or counting it as an overlap — the
+// pass goes on as the exact pass goes on after a rejection, so it also
+// collects the pair's later anchors and the candidates a failed slot
+// opens.  The rule reads only the stream and the cache, so every rank
+// of a sharded harvest collects the same requests.  *n_rejecters counts
+// the misses whose pair had such a failing cached anchor, in either
+// mode and whether or not the rule is on.
 //
 // streaming collect (stream_buf != nullptr): the first stream_cap misses
 // are written into the caller's buffer as they are discovered, with
@@ -196,11 +210,15 @@ void overlap_replay_c(const uint64_t *ys, const uint8_t *dirs,
                       int64_t n_cache, OvlpRec **out_recs, int64_t *n_out,
                       int64_t *n_miss, SpecReq **miss_reqs,
                       SpecReq *stream_buf, int64_t stream_cap,
-                      int64_t *stream_progress) {
+                      int64_t *stream_progress, int32_t collect_rejecters,
+                      int64_t *n_rejecters) {
   CacheMap cache;
   cache.init(ck_a, ck_b, n_cache);
   PairMap rid_pairs;
   rid_pairs.init((size_t)std::max<int64_t>(n_cache, 4096));
+  PairMap rejected;  // rid pairs with a failing cached result this pass
+  rejected.init(4096);
+  int64_t rejecters = 0;
   std::vector<OvlpRec> out;
   std::vector<uint8_t> contained;
   std::vector<SpecReq> collected;
@@ -260,6 +278,8 @@ void overlap_replay_c(const uint64_t *ys, const uint8_t *dirs,
           q_m_end = v[7];
         } else if (collect) {
           misses++;
+          const bool known = rejected.find(ridp) != nullptr;
+          rejecters += known;
           const SpecReq rq{(uint32_t)rid0, (uint32_t)rid1,
                            (int32_t)pos0, (int32_t)pos1, strand0,
                            strand1, 0};
@@ -269,6 +289,7 @@ void overlap_replay_c(const uint64_t *ys, const uint8_t *dirs,
           } else {
             collected.push_back(rq);
           }
+          if (known && collect_rejecters) continue;  // as a rejection
           // assumed accepted-OVERLAP for this pass; kPending stops the
           // pair from being re-collected at every later occurrence
           rid_pairs.put(ridp, kPending);
@@ -276,6 +297,7 @@ void overlap_replay_c(const uint64_t *ys, const uint8_t *dirs,
           continue;
         } else {
           misses++;
+          rejecters += rejected.find(ridp) != nullptr;
           OvlpMatch m;
           const int64_t qoff = offsets[rid0] + pos0 - pos1;
           ovlp_match_c(db_data + qoff, (coor)(rlen0 - (pos0 - pos1)),
@@ -295,6 +317,7 @@ void overlap_replay_c(const uint64_t *ys, const uint8_t *dirs,
             q_bgn < fuzz && t_bgn < fuzz &&
             (std::abs(slen0 - q_end) < fuzz || std::abs(slen1 - t_end) < fuzz)
             && q_end > min_aln && t_end > min_aln;
+        if (!ok && hit >= 0) rejected.put(ridp, 1);
         if (ok) {
           uint8_t ovlp_type;
           if (std::abs(rlen0 - (int64_t)(q_end - q_bgn)) < fuzz * 2 ||
@@ -338,6 +361,7 @@ void overlap_replay_c(const uint64_t *ys, const uint8_t *dirs,
 
   *n_out = (int64_t)out.size();
   *n_miss = misses;
+  *n_rejecters = rejecters;
   *out_recs = (OvlpRec *)std::malloc(out.size() * sizeof(OvlpRec));
   std::memcpy(*out_recs, out.data(), out.size() * sizeof(OvlpRec));
   if (collect) {

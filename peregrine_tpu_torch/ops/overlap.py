@@ -193,7 +193,9 @@ def overlap_chunk_native(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     src/shmr_overlap.c:52-180 in C++ (native/overlap_replay.cpp); alignments come from the optional
     speculative cache (unordered keys, CacheMap hash lookup, duplicate
     keys first-wins) with the native O(ND) kernel as
-    miss fallback.  Returns (records, n_cache_misses).  stream may pass a
+    miss fallback.  Returns (records, n_cache_misses, n_rejecter_misses),
+    the last the misses whose rid pair had a failing cached alignment
+    earlier in the pass.  stream may pass a
     precomputed bucket_stream to avoid rebuilding it; cand a shared
     pair_candidates result."""
     from ..native import overlap_replay
@@ -210,13 +212,13 @@ def overlap_chunk_native(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     if cache is None:
         z64 = np.zeros(0, np.uint64)
         cache = (z64, z64, np.zeros((0, 8), np.int32))
-    raw, n, miss = overlap_replay(
+    raw, n, miss, rejecters = overlap_replay(
         ys, dirs, pos, bs, be, db.data, db.offsets, db.lengths,
         cfg.best_n_ovlp, cfg.read_end_fuzz, cfg.min_ovlp_aln, cfg.aln_bw,
         *cache)
     recs = (np.frombuffer(raw, dtype=OVLP_DTYPE).copy() if n
             else np.zeros(0, OVLP_DTYPE))
-    return recs, miss
+    return recs, miss, rejecters
 
 
 class _CacheArena:
@@ -452,7 +454,13 @@ def overlap_all_spec(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     loop's alignment points by ITERATION — a collect-mode replay walks the
     exact sequential accept semantics but, on a cache miss, records the
     request and optimistically assumes an accepted OVERLAP (the majority
-    outcome); the collected requests are aligned on all host cores (native
+    outcome), except, on the host backend, where the pair's cached
+    alignment already failed in this pass: that miss is collected as a
+    rejection, so one round collects the rest of such a pair's anchors
+    (the device backends keep the optimistic rule everywhere: their
+    aligner's results differ from the final pass's inline aligner, so
+    which keys a round harvests decides their records); the collected
+    requests are aligned on all host cores (native
     align_spec, GIL-releasing threads over slices of one request array)
     and the replay re-runs with the widened full-fidelity cache until it
     converges.  The final pass runs exact (misses align inline), so
@@ -590,17 +598,19 @@ def overlap_all_spec(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     prev_miss = cap0
     my_aligned = 0
     for rnd in range(max_rounds):
-        # a round's span: attrs round, misses, aligned; on the host
-        # backend also workers and the aligner threads' summed busy_s and
-        # wait_s (set by _collect_align_streaming)
+        # a round's span: attrs round, misses, rejecters (the misses of
+        # pairs whose cached alignment failed earlier in the pass),
+        # aligned; on the host backend also workers and the aligner
+        # threads' summed busy_s and wait_s (set by
+        # _collect_align_streaming)
         if backend == "host":
             with trace.span("overlap.round", round=rnd + 1, misses=0,
                             aligned=0, workers=n_workers) as rsp:
                 cap = int(min(cap0, max(prev_miss, 1 << 16)))
-                miss, missreqs, rres, mine = _collect_align_streaming(
+                miss, rej, missreqs, rres, mine = _collect_align_streaming(
                     db, cfg, stream, arena.view(), db_data, n_workers, cap,
                     shard=shard, parent=rsp)
-                rsp.attrs["misses"] = miss
+                rsp.attrs.update(misses=miss, rejecters=rej)
                 if miss == 0:
                     break
                 my_aligned += int(mine.sum())
@@ -616,23 +626,26 @@ def overlap_all_spec(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
                       "(streamed, %.1fs + merge %.1fs)", rnd + 1, miss,
                       msp.t0 - rsp.t0, msp.seconds)
             if miss < max(5000, total_aligned // 50):
-                # the next collect pass would cost a full replay wall
-                # (~13 s at Drosophila scale) to find a yet-smaller tail
-                # the final pass can align inline — stop iterating
+                # stop iterating: the final pass aligns the misses left
+                # inline, on one thread — mostly those of pairs the last
+                # round met first and assumed overlaps, with what their
+                # results change (the rest of a failing pair's anchors is
+                # collected by the round after its first failure aligns)
                 break
             continue
         with trace.span("overlap.round", round=rnd + 1, misses=0,
                         aligned=0) as rsp:
             with trace.span("overlap.collect"):
-                _, _, miss, missreqs = _replay(db, cfg, stream, arena.view(),
-                                               db_data, collect=True)
-            rsp.attrs["misses"] = miss
+                _, _, miss, rej, missreqs = _replay(
+                    db, cfg, stream, arena.view(), db_data, collect=True)
+            rsp.attrs.update(misses=miss, rejecters=rej)
             if miss == 0:
                 break
             if rnd > 0 and miss < max(5000, total_aligned // 50):
-                # tail harvests cost a full replay pass each (~13 s at
-                # Drosophila scale) to collect work the final pass can
-                # align inline in a fraction of that — stop iterating
+                # stop iterating: the final pass aligns the misses left
+                # inline, on one thread (the device backends keep the
+                # optimistic rule, so a failing pair's chain of anchors
+                # still gives up one anchor a round here)
                 log2.info("overlap dedup: %d residual misses left to the "
                           "final pass", miss)
                 break
@@ -662,9 +675,9 @@ def overlap_all_spec(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
     if not run_final:
         return None
     with trace.span("overlap.final") as sp:
-        recs, miss = overlap_chunk_native(db, idx, cfg, stream=stream[:5],
-                                          cache=arena.view())
-        sp.attrs["inline"] = miss
+        recs, miss, rej = overlap_chunk_native(
+            db, idx, cfg, stream=stream[:5], cache=arena.view())
+        sp.attrs.update(inline=miss, rejecter_inline=rej)
     total_aligned += miss
     log2.info("overlap dedup [%s]: %d alignments total on %d workers "
               "(%d inline in the final pass, %.1fs)", backend,
@@ -698,8 +711,12 @@ def _collect_align_streaming(db: SeqDB, cfg: AsmConfig, stream, cache,
     polls), all under `parent`, whose attrs take the threads' summed
     busy_s and wait_s when they join.
 
-    Returns (n_miss, requests, results[n, 8], mine) where `mine` marks
-    the rows this rank aligned (all True without shard)."""
+    The pass collects under the rejecter rule (overlap_replay's
+    collect_rejecters), a function of the stream and the cache alone, so
+    every rank collects the same requests.
+
+    Returns (n_miss, n_rejecters, requests, results[n, 8], mine) where
+    `mine` marks the rows this rank aligned (all True without shard)."""
     import threading
     import time as _time
 
@@ -721,7 +738,7 @@ def _collect_align_streaming(db: SeqDB, cfg: AsmConfig, stream, cache,
                     db.lengths, cfg.best_n_ovlp, cfg.read_end_fuzz,
                     cfg.min_ovlp_aln, cfg.aln_bw, *cache,
                     collect_misses=True, stream_buf=buf,
-                    stream_progress=prog)
+                    stream_progress=prog, collect_rejecters=True)
         except BaseException as e:  # surfaced after join
             out["err"] = e
         finally:
@@ -783,7 +800,7 @@ def _collect_align_streaming(db: SeqDB, cfg: AsmConfig, stream, cache,
                             wait_s=sum(w for _, w in spent))
     if "err" in out:
         raise out["err"]
-    _, _, n_miss, overflow = out["r"]
+    _, _, n_miss, n_rej, overflow = out["r"]
     streamed = int(prog[0])
     reqs = buf[:streamed]
     rres = res[:streamed]
@@ -805,7 +822,7 @@ def _collect_align_streaming(db: SeqDB, cfg: AsmConfig, stream, cache,
                                    n_workers, slices=oslices)
         reqs = np.concatenate([reqs, overflow])
         rres = np.concatenate([rres, ores])
-    return n_miss, reqs, rres, mine
+    return n_miss, n_rej, reqs, rres, mine
 
 
 def _replay(db: SeqDB, cfg: AsmConfig, stream, cache, db_data,
@@ -1090,7 +1107,7 @@ def overlap_chunk_device(db: SeqDB, idx: ShimmerIndex, cfg: AsmConfig,
         cvals = np.zeros((len(got), 8), np.int32)
         _device_fill(cvals, np.arange(len(got)), d, qe, te)
         order = np.lexsort((key_b[got], key_a[got]))
-        result, misses = overlap_chunk_native(
+        result, misses, _ = overlap_chunk_native(
             db, idx, cfg, chunk, total_chunk,
             stream=(sys_, sdirs, spos, sbs, sbe),
             cache=(key_a[got][order], key_b[got][order], cvals[order]))
