@@ -8,20 +8,24 @@
 
 In one process, for each seed: the reads of the seed, one assembly on
 the timed path (after one warm-up, as a run's window does), and the
-check's numbers for it, those named by --numbers or else all the cell's
-(the lower readings).  For the first `--controls` seeds also the control,
-the reference in a lower precision put in the program's place:
+check's numbers for it, those named by --numbers or else all the cell's,
+judge.py's and its check files' (checks/<name>.py) alike (the lower
+readings).  For the first `--controls` seeds also the control, the
+reference in a lower precision put in the program's place:
 * "index": the stage-1 index recomputed with its hash cut to 24 bits
   (k <= 16) or 32 bits (k > 16), the step that would tempt a later change
   of the 32- and 64-bit kernels;
 * "polish" (cells that polish): the draft in the place of the polished
-  contigs, the consensus left out.
+  contigs, the consensus left out;
+* a check file's own control, where the file declares one
+  (`CONTROL = True`): its number with ctx["control"] set to the number's
+  name.  A check file without it has no control here.
 For the first `--faults` seeds also each stage-2 fault of faults.py (or
 those named by --fault-names), planted in the program for one more
-assembly, read by the same check on the stage-2 and draft numbers (those
-named by --fault-numbers, else by --numbers); where stage 2 returns
-nothing the assembly stops at the draft, since the program's stage 4
-cannot run on no contigs.
+assembly, read by the same check on the stage-2 and draft numbers and
+the check files' (those named by --fault-numbers, else by --numbers);
+where stage 2 returns nothing the assembly stops at the draft, since the
+program's stage 4 cannot run on no contigs.
 
 --drawn-layout draws the reads' and repeats' layout from each seed in
 place of the configuration's layout_seed; --set overrides a route flag of
@@ -79,8 +83,10 @@ def main(argv=None) -> int:
         for i, seed in enumerate(a.seeds):
             t0 = time.perf_counter()
             rd = os.path.join(work, "reads")
-            g, manifest, warm, n_reads, bases, layout = run.gen.write_reads(
-                seed, cfg, rd, int(cell["warm_span"]))
+            g = run.gen.genome(seed, cfg)
+            run.refuse_several(lim, g)
+            manifest, warm, n_reads, bases, layout = run.gen.write_reads(
+                seed, cfg, g, rd, int(cell["warm_span"]))
             if i == 0:
                 prog.assemble(warm, os.path.join(work, "warm"), False)
                 shutil.rmtree(os.path.join(work, "warm"))
@@ -98,8 +104,8 @@ def main(argv=None) -> int:
 
             line = {"seed": seed, "asm_s": t_asm,
                     "sound": check(out, sound_cell["limits"])}
-            if a.gaps:
-                gi = judge.GenomeIndex(g, bool(cfg["genome"].get("wrap", 0)))
+            if a.gaps and len(g.seqs) == 1:
+                gi = judge.GenomeIndex(g.seqs[0], g.circular[0])
                 pieces = judge.contig_pieces(
                     os.path.join(out, "3-asm", "p_ctg.fa"))
                 line["genome_miss"], _ = judge.genome_miss(gi, pieces)
@@ -117,11 +123,16 @@ def main(argv=None) -> int:
                     ctl["index"] = check(out, {"index_diff": 0}, "index")
                 if "cns_err" in lim:
                     ctl["polish"] = check(out, {"cns_err": 0}, "polish")
+                for k in lim:
+                    if k not in run.CHECKS and getattr(run.plugins.module(
+                            run.HERE, "checks", k), "CONTROL", False):
+                        ctl[k] = check(out, {k: 0}, k)
             shutil.rmtree(out)
             if i < a.faults:
                 named = a.numbers if a.fault_numbers is None else a.fault_numbers
                 limits = {k: v for k, v in lim.items()
-                          if k in ("ovl_gap", "ovl_miss", "genome_miss")
+                          if (k in ("ovl_gap", "ovl_miss", "genome_miss")
+                              or k not in run.CHECKS)
                           and (named is None or k in named)}
                 for name in a.fault_names:
                     with faults.planted(name):

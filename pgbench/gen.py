@@ -1,8 +1,9 @@
 """Seeded genomes and long reads for the benchmark (NumPy, vectorised).
 
 One generator for every configuration: a configuration file names the
-genome model ("random" or "repeats") and the read model; the same seed
-gives the same genome and the same reads.  The semantics follow
+genome model ("random", "repeats", or another whose file
+genomes/<model>.py makes it) and the read model; the same seed gives the
+same genome and the same reads.  The semantics follow
 Peregrine's test/ecoli_K12/simulate_reads.py: reads of a normal length
 drawn uniformly from the genome (with its first `wrap` bases appended
 for a circular one), errors at `error` a base split evenly between
@@ -14,13 +15,23 @@ and strands (and a repeat genome's repeat places) come from that fixed
 seed: every run seed then has the same set of sizes, in its own order,
 with its own sequence and errors, so that the seed does not change the
 amount of work.
+
+A genome of several sequences (a model file's) shares each file's reads
+among them in proportion to their lengths, by a draw from the layout
+seed where there is one; a read lies inside one sequence.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
+
+import plugins
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BUILTIN_MODELS = ("random", "repeats")
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 _COMP = np.zeros(256, np.uint8)
@@ -131,17 +142,53 @@ def repeat_genome(rng: np.random.Generator, spec: dict,
     return g
 
 
-def genome(seed: int, cfg: dict, events_out: list | None = None
-           ) -> np.ndarray:
+@dataclasses.dataclass
+class Genome:
+    """The sequences that reads are drawn from, each with its name and
+    whether it is circular, and what its model tells the checks of it
+    (`truth`: for example the places of heterozygous variants)."""
+    seqs: list
+    names: list
+    circular: list
+    truth: object = None
+
+
+def genome(seed: int, cfg: dict, events_out: list | None = None,
+           root: str = HERE) -> Genome:
+    """The configuration's genome for the seed.  The built-in models make
+    one sequence, circular where the configuration gives a `wrap`; any
+    other model is the function genome(rng, spec, layout) of
+    <root>/genomes/<model>.py, called with the seed's genome stream, the
+    configuration's genome spec and the stream of its layout_seed (None
+    without one), which returns ([(name, uint8 ACGT array, circular),
+    ...], truth)."""
     spec = cfg["genome"]
     rng = rng_for(seed, 1)
+    layout = (rng_for(spec["layout_seed"], 1) if "layout_seed" in spec
+              else None)
+    circular = [bool(spec.get("wrap", 0))]
     if spec["model"] == "random":
-        return random_genome(rng, int(spec["genome_length"]))
+        return Genome([random_genome(rng, int(spec["genome_length"]))],
+                      ["genome"], circular)
     if spec["model"] == "repeats":
-        layout = (rng_for(spec["layout_seed"], 1) if "layout_seed" in spec
-                  else None)
-        return repeat_genome(rng, spec, events_out, layout=layout)
-    raise ValueError(f"unknown genome model {spec['model']!r}")
+        return Genome([repeat_genome(rng, spec, events_out, layout=layout)],
+                      ["genome"], circular)
+    seqs, truth = plugins.load(root, "genomes", spec["model"], "genome")(
+        rng, spec, layout)
+    names = [str(n) for n, _, _ in seqs]
+    if not seqs or len(set(names)) < len(names):
+        raise ValueError(f"genome model {spec['model']!r}: give one or more "
+                         f"sequences with distinct names, not {names}")
+    for n, s, c in seqs:
+        if not (isinstance(s, np.ndarray) and s.dtype == np.uint8):
+            raise ValueError(f"genome model {spec['model']!r}: sequence "
+                             f"{n!r} is not a uint8 array")
+        if c and not spec.get("wrap", 0):
+            raise ValueError(f"genome model {spec['model']!r}: sequence "
+                             f"{n!r} is circular, and the configuration's "
+                             f"genome gives no wrap")
+    return Genome([s for _, s, _ in seqs], names,
+                  [bool(c) for _, _, c in seqs], truth)
 
 
 def read_source(g: np.ndarray, cfg: dict) -> np.ndarray:
@@ -151,26 +198,36 @@ def read_source(g: np.ndarray, cfg: dict) -> np.ndarray:
     return np.concatenate([g, g[:wrap]]) if wrap else g
 
 
-def simulate_file(rng: np.random.Generator, src: np.ndarray, n_reads: int,
+def simulate_seqs(rng: np.random.Generator, srcs: list, n_reads: int,
                   spec: dict, layout: np.random.Generator | None = None):
-    """One file's reads: (concatenated bases, lengths, starts, strands,
-    lengths before the errors); a read covers src[start:start + length
-    before the errors].
-    The reads' lengths, starts and strands come from `layout` where given
-    (the same set for every seed, in an order drawn from rng), else from
-    rng.  Errors are drawn as positions (a binomial count of them), so
-    the work goes with the errors and not with every base."""
+    """One file's reads from several sources: (concatenated bases, lengths,
+    starts, strands, lengths before the errors, sources); a read covers
+    srcs[source][start:start + length before the errors], so none crosses
+    from one source to the next.  Each read's source is drawn in
+    proportion to the sources' lengths; with one source nothing is drawn.
+    The reads' sources, lengths, starts and strands come from `layout`
+    where given (the same set for every seed, in an order drawn from rng),
+    else from rng.  Errors are drawn as positions (a binomial count of
+    them), so the work goes with the errors and not with every base."""
     rl = int(spec["read_len"])
     lay = rng if layout is None else layout
+    src_lens = np.array([len(s) for s in srcs], np.int64)
+    which = (lay.choice(len(srcs), n_reads, p=src_lens / src_lens.sum())
+             if len(srcs) > 1 else np.zeros(n_reads, np.int64))
     lens = np.maximum(rl // 3, (rl + lay.normal(0, spec["len_sd"], n_reads))
                       .astype(np.int64))
-    starts = (lay.random(n_reads) * (len(src) - lens)).astype(np.int64)
+    room = src_lens[which] - lens
+    if (room < 0).any():
+        raise ValueError(f"a read of {int(lens[room < 0].max())} bases is "
+                         f"longer than its sequence")
+    starts = (lay.random(n_reads) * room).astype(np.int64)
     strands = lay.integers(0, 2, n_reads)
     if layout is not None:
         order = rng.permutation(n_reads)
         lens, starts, strands = lens[order], starts[order], strands[order]
-    cat = np.concatenate([src[a:a + n] for a, n in zip(starts.tolist(),
-                                                       lens.tolist())])
+        which = which[order]
+    cat = np.concatenate([srcs[w][a:a + n] for w, a, n in zip(
+        which.tolist(), starts.tolist(), lens.tolist())])
     total = len(cat)
     pos = np.unique(rng.integers(0, total, rng.binomial(total, spec["error"])))
     kind = rng.integers(0, 3, len(pos))
@@ -191,7 +248,7 @@ def simulate_file(rng: np.random.Generator, src: np.ndarray, n_reads: int,
     for r in np.flatnonzero(strands == 1).tolist():
         a, e = offs[r], offs[r] + new_len[r]
         out[a:e] = _COMP[out[a:e][::-1]]
-    return out, new_len, starts, strands, lens
+    return out, new_len, starts, strands, lens, which
 
 
 def write_fasta(path: str, seq: np.ndarray, lens: np.ndarray,
@@ -206,15 +263,17 @@ def write_fasta(path: str, seq: np.ndarray, lens: np.ndarray,
             f.write(b"\n")
 
 
-def write_reads(seed: int, cfg: dict, outdir: str, warm_span: int):
-    """Write the configuration's read files and manifest under outdir, and
-    a warm-up manifest of the reads drawn from the source's first
-    `warm_span` bases.  Returns (genome, manifest, warm-up manifest,
-    number of reads, bases, layout), one file's arrays in memory at a
-    time; layout holds each read's (start in the source, length before
-    the errors, strand), in the order of the manifest."""
-    g = genome(seed, cfg)
-    src = read_source(g, cfg)
+def write_reads(seed: int, cfg: dict, gnm: Genome, outdir: str,
+                warm_span: int):
+    """Write the configuration's read files of the seed's genome `gnm`
+    (genome(seed, cfg)) and their manifest under outdir, and a warm-up
+    manifest of the reads drawn from the first `warm_span` bases of each
+    sequence's source.  Returns (manifest, warm-up manifest, number of
+    reads, bases, layout), one file's arrays in memory at a time; layout
+    holds each read's (start in its source, length before the errors,
+    strand, sequence), in the order of the manifest."""
+    srcs = [read_source(g, cfg) if c else g
+            for g, c in zip(gnm.seqs, gnm.circular)]
     spec = cfg["reads"]
     n_files = int(spec["files"])
     per_file = int(spec["reads_per_file"])
@@ -224,9 +283,9 @@ def write_reads(seed: int, cfg: dict, outdir: str, warm_span: int):
     for fi in range(n_files):
         layout = (rng_for(spec["layout_seed"], 2, fi) if "layout_seed" in spec
                   else None)
-        seq, lens, starts, strands, true_lens = simulate_file(
-            rng_for(seed, 2, fi), src, per_file, spec, layout)
-        layouts.append(np.stack([starts, true_lens, strands], 1))
+        seq, lens, starts, strands, true_lens, which = simulate_seqs(
+            rng_for(seed, 2, fi), srcs, per_file, spec, layout)
+        layouts.append(np.stack([starts, true_lens, strands, which], 1))
         names = [f"sim/{fi:02d}{i:05d}/{s}_{n}" for i, (s, n)
                  in enumerate(zip(strands.tolist(), lens.tolist()))]
         path = os.path.join(outdir, f"reads_{fi:02d}.fa")
@@ -247,7 +306,7 @@ def write_reads(seed: int, cfg: dict, outdir: str, warm_span: int):
     warm_lst = os.path.join(outdir, "warm.lst")
     with open(warm_lst, "w") as f:
         f.write(warm_fa + "\n")
-    return (g, manifest, warm_lst, n_reads, bases,
+    return (manifest, warm_lst, n_reads, bases,
             np.concatenate(layouts).astype(np.int64))
 
 

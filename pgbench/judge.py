@@ -11,12 +11,14 @@ of the program.  Numbers, each with a limit ("worse" is higher):
                (percentage points) by which a row's identity exceeds the
                identity of an optimal alignment of the spans it names;
 * ovl_miss     the share (%) of the true neighbour pairs that preads.ovl
-               lacks: reads next to each other along the genome, neither
-               inside another read, that overlap by half a read or more;
+               lacks: reads next to each other along one sequence of the
+               genome, neither inside another read, that overlap by half
+               a read or more;
 * genome_miss  the share (%) of the genome that no placed 2 kb piece of
-               the draft contigs covers;
+               the draft contigs covers (a genome of one sequence);
 * cns_err      where the cell polishes: edit distance per 100 bases of a
-               seeded sample of polished pieces against the genome.
+               seeded sample of polished pieces against the genome (a
+               genome of one sequence).
 """
 
 from __future__ import annotations
@@ -249,6 +251,21 @@ def true_pairs(layout: np.ndarray, g_len: int, circular: bool,
     ok = (end[:-1] - start[1:] >= min_ovl) & (rid[:-1] != rid[1:])
     a, b = rid[:-1][ok], rid[1:][ok]
     return np.unique(np.minimum(a, b) << 32 | np.maximum(a, b))
+
+
+def true_pairs_within(layout: np.ndarray, lens: list, circular: list,
+                      min_ovl: int) -> np.ndarray:
+    """true_pairs of the reads of each sequence of a genome (lens and
+    circular, each a sequence's), by the sequence in layout's fourth
+    column: no pair crosses from one sequence to another."""
+    keys = []
+    for s, (n, c) in enumerate(zip(lens, circular)):
+        rid = np.flatnonzero(layout[:, 3] == s)
+        if len(rid) > 1:
+            k = true_pairs(layout[rid], n, c, min_ovl)
+            a, b = rid[k >> 32], rid[k & 0xFFFFFFFF]
+            keys.append(np.minimum(a, b) << 32 | np.maximum(a, b))
+    return np.unique(np.concatenate(keys)) if keys else np.zeros(0, np.int64)
 
 
 def ovl_miss(outdir: str, truth: np.ndarray) -> float:

@@ -20,6 +20,12 @@ One run, in one process:
 With --trace 1 the window runs under torch.profiler and the line carries
 the cell's per-layer metrics, read by pgbench/metrics/<name>.py, in
 place of its end-to-end ones.
+
+A cell may name options of the program (`asm_config`: AsmConfig fields;
+`assembly`: Assembly's keyword arguments) and numbers of the check that
+check_outputs does not compute (checks/<name>.py); its configuration may
+name a genome model of its own (genomes/<model>.py).  A name with no
+file or field is an error when the cell is loaded.
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import dataclasses  # noqa: E402
 import hashlib  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import logging  # noqa: E402
 import os  # noqa: E402
@@ -50,11 +56,23 @@ import numpy as np  # noqa: E402
 import devtrace  # noqa: E402
 import gen  # noqa: E402
 import judge  # noqa: E402
+import plugins  # noqa: E402
 import refindex  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "peregrine_tpu")
 OUTPUTS = ("1-index", "2-ovlp/preads.ovl", "3-asm/p_ctg.fa",
-           "4-cns/p_ctg_cns.fa")
+           "4-cns/p_ctg_cns.fa", "3-asm/a_ctg.fa", "4-cns-alt/a_ctg_cns.fa")
+OWN = ("setup_s", "asm_rate", "peak_rss_GiB", "peak_device_GiB")
+CHECKS = ("runs_differ", "index_diff", "ovl_gap", "ovl_miss", "genome_miss",
+          "cns_err")
+ONE_SEQUENCE = ("genome_miss", "cns_err")   # place contigs on one sequence
+# AsmConfig fields that the configuration's settings and the cell's route
+# flags set, or that choose a route or a path of their own; and the
+# Assembly arguments that a cell may give
+SET_FIELDS = ("k", "w", "r", "levels", "best_n_ovlp", "use_device_aligner",
+              "device_pairs", "hybrid_overlap", "mesh", "shard_overlap",
+              "spill_dir")
+ASSEMBLY_ARGS = ("with_alt",)
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet
 
 
@@ -68,9 +86,31 @@ def list_cells(cells_dir: str = os.path.join(HERE, "cells")) -> list:
 
 
 def load_cell(name: str, root: str = HERE) -> tuple[dict, dict]:
-    """(cell, configuration) by the cell's name."""
+    """(cell, configuration) by the cell's name.  A genome model, a check
+    number, an AsmConfig field or an Assembly argument that they name and
+    that has no file or field is a ValueError here."""
     cell = load_json(os.path.join(root, "cells", name + ".json"))
     cfg = load_json(os.path.join(root, "configs", cell["config"] + ".json"))
+    if cfg["genome"]["model"] not in gen.BUILTIN_MODELS:
+        plugins.load(root, "genomes", cfg["genome"]["model"], "genome")
+    for k in cell["limits"]:
+        if k not in CHECKS:
+            plugins.load(root, "checks", k, "check")
+    if "asm_config" in cell:
+        from peregrine_tpu_torch.config import AsmConfig
+        fields = {f.name for f in dataclasses.fields(AsmConfig)}
+        for k in cell["asm_config"]:
+            if k not in fields or k in SET_FIELDS:
+                raise ValueError(
+                    f"pgbench: {name}: asm_config names {k!r}, " + (
+                        "which the settings, the route flags or the program's "
+                        "own routes set" if k in fields
+                        else "which is no field of AsmConfig"))
+    for k in cell.get("assembly", {}):
+        if k not in ASSEMBLY_ARGS:
+            raise ValueError(f"pgbench: {name}: assembly names {k!r}, which "
+                             f"is no argument of Assembly that a cell may "
+                             f"give ({', '.join(ASSEMBLY_ARGS)})")
     return cell, cfg
 
 
@@ -80,13 +120,23 @@ def cell_metrics(bench: dict, name: str, kind: str) -> list:
             if "workloads" not in m or name in m["workloads"]]
 
 
-def reader(name: str, root: str = HERE):
-    path = os.path.join(root, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("pgbench_metric_" + name,
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+def readers(bench: dict, name: str, root: str = HERE) -> dict:
+    """The reader of each metric the cell reports that the harness does not
+    take itself; a metric with no file is a ValueError here."""
+    return {m["name"]: plugins.load(root, "metrics", m["name"], "read")
+            for kind in ("end_to_end", "per_layer")
+            for m in cell_metrics(bench, name, kind) if m["name"] not in OWN}
+
+
+def refuse_several(limits: dict, g: gen.Genome) -> None:
+    """The numbers that place contigs on one sequence refuse a genome of
+    several."""
+    for k in ONE_SEQUENCE:
+        if k in limits and len(g.seqs) > 1:
+            raise ValueError(
+                f"pgbench: {k} places contigs on a genome of one sequence, "
+                f"and this genome has {len(g.seqs)} ({', '.join(g.names)}); "
+                f"give the cell a check of its own under checks/")
 
 
 def forbidden_modules() -> list:
@@ -143,6 +193,9 @@ class Program:
             best_n_ovlp=s["best_n_ovlp"],
             use_device_aligner=bool(cell["device_aligner"]),
             device_pairs=bool(cell["device_pairs"]))
+        if "asm_config" in cell:
+            self.acfg = self.acfg.replace(**cell["asm_config"])
+        self.asm_args = dict(cell.get("assembly", {}))
         self.workers = workers_of(cfg)
         self.n_chunks = int(cfg["host"]["n_chunks"])
         self.log = StageLog()
@@ -168,7 +221,8 @@ class Program:
                 fn(*args, **kw)
             spans.append((name, t0, time.perf_counter()))
 
-        asm = self.Assembly(outdir, self.acfg, device=self.device)
+        asm = self.Assembly(outdir, self.acfg, device=self.device,
+                            **self.asm_args)
         stage("seqdb", asm.build_db, reads_list=manifest)
         stage("index", asm.build_shimmer_index, keep_l0=bool(self.cell["with_l0"]))
         stage("overlap", asm.build_overlaps, self.n_chunks, self.workers)
@@ -227,11 +281,13 @@ def digest(outdir: str) -> str:
 
 
 def check_outputs(outdir: str, cell: dict, cfg: dict, s: dict, reads: list,
-                  g: np.ndarray, layout: np.ndarray, seed: int,
-                  control: str = "") -> dict:
+                  g: gen.Genome, layout: np.ndarray, seed: int,
+                  control: str = "", root: str = HERE) -> dict:
     """The numbers that decide `correct`, for one assembly's outputs, each
-    that the cell has a limit for.  control puts the reference in a lower
-    precision in the program's place (calibrate.py; a run uses none)."""
+    that the cell has a limit for: those of judge.py, then those of the
+    cell's files checks/<name>.py under root, each called as check(ctx).
+    control puts the reference in a lower precision in the program's
+    place (calibrate.py; a run uses none; a check file may read it)."""
     lim = cell["limits"]
     out = {}
     t = time.perf_counter()
@@ -255,12 +311,13 @@ def check_outputs(outdir: str, cell: dict, cfg: dict, s: dict, reads: list,
     if "ovl_gap" in lim:
         out["ovl_gap"] = judge.ovl_gap(outdir, reads, rng, 64)
         lap("ovl")
-    circular = bool(cfg["genome"].get("wrap", 0))
     if "ovl_miss" in lim:
-        out["ovl_miss"] = judge.ovl_miss(outdir, judge.true_pairs(
-            layout, len(g), circular, int(cfg["reads"]["read_len"]) // 2))
+        out["ovl_miss"] = judge.ovl_miss(outdir, judge.true_pairs_within(
+            layout, [len(x) for x in g.seqs], g.circular,
+            int(cfg["reads"]["read_len"]) // 2))
         lap("pairs")
-    gi = judge.GenomeIndex(g, circular)
+    if "genome_miss" in lim or "cns_err" in lim:
+        gi = judge.GenomeIndex(g.seqs[0], g.circular[0])
     if "genome_miss" in lim:
         pieces = judge.contig_pieces(os.path.join(outdir, "3-asm", "p_ctg.fa"))
         out["genome_miss"], _ = judge.genome_miss(gi, pieces)
@@ -272,6 +329,14 @@ def check_outputs(outdir: str, cell: dict, cfg: dict, s: dict, reads: list,
         _, placed = judge.genome_miss(gi, pieces)
         out["cns_err"] = judge.piece_err(gi, placed, rng, 64)
         lap("polished")
+    for k in lim:
+        if k not in CHECKS:
+            out[k] = float(plugins.load(root, "checks", k, "check")({
+                "outdir": outdir, "reads": reads, "genome": g,
+                "layout": layout, "settings": s, "rng": gen.rng_for(seed, 3),
+                "cell": cell, "config": cfg, "seed": seed,
+                "control": control}))
+            lap(k)
     print("pgbench: check parts " + ", ".join(
         f"{k} {v:.3f} s" for k, v in times.items()), file=sys.stderr)
     return out
@@ -284,6 +349,7 @@ def run(args, device: str = "cuda", require_chip: bool = True,
     of cells/, configs/ and metrics/) and BENCHMARK.json."""
     bench = load_json(bench_path)
     cell, cfg = load_cell(args.workload, root)
+    metric_readers = readers(bench, args.workload, root)
     import torch
     if require_chip and (not torch.cuda.is_available()
                          or torch.cuda.device_count() < int(cell["chips"])):
@@ -296,16 +362,20 @@ def run(args, device: str = "cuda", require_chip: bool = True,
           f"chunks {prog.n_chunks}", file=sys.stderr)
     work = tempfile.mkdtemp(prefix="pgbench-")
     try:
-        return _run(args, bench, cell, cfg, prog, work, on_card, root)
+        return _run(args, bench, cell, cfg, prog, work, on_card, root,
+                    metric_readers)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _run(args, bench, cell, cfg, prog, work, on_card, root) -> int:
+def _run(args, bench, cell, cfg, prog, work, on_card, root,
+         metric_readers) -> int:
     torch = prog.torch
     t = time.perf_counter()
-    g, manifest, warm_lst, n_reads, bases, layout = gen.write_reads(
-        args.seed, cfg, os.path.join(work, "reads"), int(cell["warm_span"]))
+    g = gen.genome(args.seed, cfg, root=root)
+    refuse_several(cell["limits"], g)
+    manifest, warm_lst, n_reads, bases, layout = gen.write_reads(
+        args.seed, cfg, g, os.path.join(work, "reads"), int(cell["warm_span"]))
     t_gen = time.perf_counter() - t
     t = time.perf_counter()
     prog.assemble(warm_lst, os.path.join(work, "warm"), False)
@@ -346,10 +416,6 @@ def _run(args, bench, cell, cfg, prog, work, on_card, root) -> int:
         trace_path = os.path.join(work, "trace.json")
         prof.export_chrome_trace(trace_path)
         del prof
-    bad = forbidden_modules()
-    if bad:
-        print(f"pgbench: the run loaded {', '.join(bad)}", file=sys.stderr)
-        return 4
     print(f"pgbench: set-up {setup_s:.3f} s (reads {t_gen:.3f} s, warm-up "
           f"{t_warm:.3f} s); {len(runs)} assemblies of {n_reads} reads, "
           f"{bases} bases in {win:.3f} s of assemblies, "
@@ -376,7 +442,7 @@ def _run(args, bench, cell, cfg, prog, work, on_card, root) -> int:
                      "idle_gaps": devtrace.idle_gaps(dev, spans, lo, hi)}
         os.remove(trace_path)
         for m in cell_metrics(bench, args.workload, "per_layer"):
-            v = reader(m["name"], root)(ctx)
+            v = metric_readers[m["name"]](ctx)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:
@@ -386,7 +452,7 @@ def _run(args, bench, cell, cfg, prog, work, on_card, root) -> int:
                "peak_device_GiB": peak_dev / (1 << 30)}
         for m in cell_metrics(bench, args.workload, "end_to_end"):
             v = (own[m["name"]] if m["name"] in own
-                 else reader(m["name"], root)(ctx))
+                 else metric_readers[m["name"]](ctx))
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
 
@@ -408,12 +474,17 @@ def _run(args, bench, cell, cfg, prog, work, on_card, root) -> int:
     t = time.perf_counter()
     numbers = {"runs_differ": sum(x != first for x in digests)}
     numbers.update(check_outputs(dirs[0], cell, cfg, prog.settings, reads, g,
-                                 layout, args.seed))
+                                 layout, args.seed, root=root))
     t_check = time.perf_counter() - t
     lim = cell["limits"]
     checks = {k: {"value": v, "limit": lim.get(k, 0)} for k, v in numbers.items()}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
     print(f"pgbench: check {t_check:.3f} s", file=sys.stderr)
+    # the window, the metric readers and the check files have all run
+    bad = forbidden_modules()
+    if bad:
+        print(f"pgbench: the run loaded {', '.join(bad)}", file=sys.stderr)
+        return 4
     for k, c in checks.items():
         print(f"check {k} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     line = {"correct": bool(correct), "attempted": len(runs), "failed": 0,

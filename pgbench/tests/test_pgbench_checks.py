@@ -88,8 +88,9 @@ def test_sound_run_is_correct(tiny, capsys):
 def test_control_is_not_correct(tiny, control, number, tmp_path):
     cell, cfg = run.load_cell("tiny.cns", str(tiny))
     prog = run.Program(cell, cfg, "cpu")
-    g, manifest, _, _, _, layout = gen.write_reads(
-        SEED, cfg, str(tmp_path / "r"), cell["warm_span"])
+    g = gen.genome(SEED, cfg)
+    manifest, _, _, _, layout = gen.write_reads(
+        SEED, cfg, g, str(tmp_path / "r"), cell["warm_span"])
     out = str(tmp_path / "asm")
     prog.assemble(manifest, out, False)
     reads = list(gen.manifest_reads(manifest))

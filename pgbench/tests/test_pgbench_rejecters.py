@@ -53,7 +53,7 @@ def test_rejecter_reader_finds_nothing(name, monkeypatch):
     import peregrine_tpu_torch
     import run
     from peregrine_tpu_torch import trace  # noqa: F401
-    read = run.reader(name)
+    read = run.plugins.load(run.HERE, "metrics", name, "read")
     ctx = {"runs": [{"spans": [("seqdb", -2.0, -1.0)], "walls": {}}]}
     assert read(ctx) is None
     monkeypatch.delattr(peregrine_tpu_torch, "trace")
@@ -97,9 +97,10 @@ def test_rejecter_readers_on_made_up_spans(monkeypatch):
     from peregrine_tpu_torch import trace
     recs, ctx = _two_assemblies()
     monkeypatch.setattr(trace, "records", lambda: recs)
-    assert run.reader("overlap_final_inline")(ctx) == 300
-    assert run.reader("overlap_rejecter_share")(ctx) == pytest.approx(
-        (120 / 1300 + 80 / 800) / 2)
+    inline, share = (run.plugins.load(run.HERE, "metrics", m, "read") for m
+                     in ("overlap_final_inline", "overlap_rejecter_share"))
+    assert inline(ctx) == 300
+    assert share(ctx) == pytest.approx((120 / 1300 + 80 / 800) / 2)
     recs[:], _ = _two_assemblies(rejecters=False)
-    assert run.reader("overlap_final_inline")(ctx) == 300
-    assert run.reader("overlap_rejecter_share")(ctx) is None
+    assert inline(ctx) == 300
+    assert share(ctx) is None

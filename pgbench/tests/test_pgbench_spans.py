@@ -75,7 +75,7 @@ def test_reader_finds_nothing(name, monkeypatch):
     import peregrine_tpu_torch
     import run
     from peregrine_tpu_torch import trace  # noqa: F401
-    read = run.reader(name)
+    read = run.plugins.load(run.HERE, "metrics", name, "read")
     ctx = {"runs": [{"spans": [("seqdb", -2.0, -1.0)], "walls": {}}]}
     assert read(ctx) is None
     monkeypatch.delattr(peregrine_tpu_torch, "trace")

@@ -41,18 +41,23 @@ TINY = {
 
 
 def test_generator_frozen_digest(tmp_path):
-    g, manifest, warm, n, bases, layout = gen.write_reads(
-        BIG_SEED, TINY, str(tmp_path), 10000)
-    h = hashlib.sha256(g.tobytes())
+    g = gen.genome(BIG_SEED, TINY)
+    manifest, warm, n, bases, layout = gen.write_reads(
+        BIG_SEED, TINY, g, str(tmp_path), 10000)
+    h = hashlib.sha256(g.seqs[0].tobytes())
     for line in open(manifest):
         h.update(open(line.strip(), "rb").read())
-    assert (n, bases) == (80, 238038) and layout.shape == (80, 3)
+    assert (n, bases) == (80, 238038) and layout.shape == (80, 4)
     assert h.hexdigest()[:16] == "67e30d8bf92051e1"
+    assert len(g.seqs) == 1 and not layout[:, 3].any()
     # the same seed gives the same reads; another seed other reads
-    g2, m2, *_ = gen.write_reads(BIG_SEED, TINY, str(tmp_path / "b"), 10000)
-    assert (g2 == g).all()
-    g3, *_ = gen.write_reads(BIG_SEED + 1, TINY, str(tmp_path / "c"), 10000)
-    assert not (g3 == g).all()
+    g2 = gen.genome(BIG_SEED, TINY)
+    m2, *_ = gen.write_reads(BIG_SEED, TINY, g2, str(tmp_path / "b"), 10000)
+    assert (g2.seqs[0] == g.seqs[0]).all()
+    assert [open(x).read() for x in open(m2).read().split()] == [
+        open(x).read() for x in open(manifest).read().split()]
+    g3 = gen.genome(BIG_SEED + 1, TINY)
+    assert not (g3.seqs[0] == g.seqs[0]).all()
 
 
 def test_layout_seed_fixes_the_sizes(tmp_path):
@@ -61,9 +66,9 @@ def test_layout_seed_fixes_the_sizes(tmp_path):
     got = []
     for seed in (BIG_SEED, BIG_SEED + 1):
         rng = gen.rng_for(seed, 2, 0)
-        src = gen.read_source(gen.genome(seed, cfg), cfg)
-        _, lens, starts, strands, _ = gen.simulate_file(
-            rng, src, 40, cfg["reads"], gen.rng_for(1, 2, 0))
+        src = gen.read_source(gen.genome(seed, cfg).seqs[0], cfg)
+        _, lens, starts, strands, _, _ = gen.simulate_seqs(
+            rng, [src], 40, cfg["reads"], gen.rng_for(1, 2, 0))
         got.append((sorted(zip(starts.tolist(), strands.tolist())),
                     starts.tolist()))
     assert got[0][0] == got[1][0] and got[0][1] != got[1][1]
@@ -81,8 +86,8 @@ def test_layout_seed_fixes_the_sizes(tmp_path):
 def test_generator_error_rate():
     rng = gen.rng_for(5, 9)
     src = gen.random_genome(rng, 100000)
-    seq, lens, starts, strands, true_lens = gen.simulate_file(
-        rng, src, 40, {"read_len": 2000, "len_sd": 100, "error": 0.01})
+    seq, lens, starts, strands, true_lens, _ = gen.simulate_seqs(
+        rng, [src], 40, {"read_len": 2000, "len_sd": 100, "error": 0.01})
     offs = np.r_[0, np.cumsum(lens)]
     qs = [seq[offs[i]:offs[i + 1]] for i in range(40)]
     ts = []
